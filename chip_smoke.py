@@ -10,20 +10,29 @@ raises and the process exits nonzero:
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions, whether Triton is installed, and the kernel build time
    (the CUDA sources under strongsort_yolo_tpu_torch/csrc are compiled
-   here, from the checkout);
+   here, from the checkout, one nvcc per source, all at once);
 2. each hand-written kernel against its plain PyTorch version on the
    card, at the shapes the main path gives it, with CUDA-event times of
-   both sides;
-3. the main path at full width: yolov8n (nc=80, imgsz 640, bf16,
+   both sides (K4: float32 within 1e-6, bfloat16 within one unit in the
+   last place, in its fixed-width and its packed form; its times are
+   taken in phase 3, on the StrongSORT path's own crop batch);
+3. the main paths at full width: yolov8n (nc=80, imgsz 640, bf16,
    seeded random weights with the class-head bias calibrated to about
    120 candidates per frame), BatchedPipeline over S=8 streams of
-   1080p frames, BoT-SORT without camera-motion compensation, 10 ticks;
-   every kernel's launch count must have moved during those ticks;
-4. the trained synth160 checkpoint on rendered frames, on the card with
+   1080p frames, 10 ticks each, without camera-motion compensation:
+   BoT-SORT (K1-K3), then StrongSORT with OSNet-x0_25 (random weights
+   from a seed, 256 track slots, 128 tracker dets, reid_topk 128), which
+   runs all four kernels, K4 once per tick; each path's launch counts
+   are zeroed before it and must all have moved after it; then K4 and
+   its plain version are timed on the last tick's crop batch;
+4. the trained synth160 checkpoints on rendered frames, on the card with
    the kernels and on the CPU with the plain versions (float32, TF32
-   off): equal rows, boxes within 1e-3 px, equal track ids.
+   off), for ByteTrack and for StrongSORT with the trained OSNet
+   (assets/osnet_x0_25_synth.npz): equal rows, boxes within 1e-3 px,
+   equal track ids.
 
-The line before the last is one JSON object with one entry per kernel;
+The line before the last is one JSON object with one entry per kernel
+(its launches counted on the StrongSORT path, the slice's main path);
 the last line is {"ok": true, "device": {...}}. Without a CUDA device
 the script exits nonzero before printing any result.
 """
@@ -41,6 +50,7 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(ROOT, "assets", "yolov8n_synth160.npz")
+OSNET = os.path.join(ROOT, "assets", "osnet_x0_25_synth.npz")
 TARGET_DETS = 120  # candidates per frame the class bias is set for
 S_MAIN, TICKS = 8, 10
 
@@ -280,7 +290,86 @@ def phase_kernels(card: str) -> list[dict]:
         replaces="strongsort_yolo_tpu/ops/pallas/auction_kernel.py:156",
         max_abs_err=0.0, ms=k3_times[0], plain_ms=k3_times[1],
     ))
+    report.append(check_k4(rng))
     return report
+
+
+def _k4_boxes(rng, n: int, h: int, w: int) -> np.ndarray:
+    """n crop boxes of one frame: sizes that select each pyramid level,
+    boxes across all four frame edges, and degenerate ones."""
+    frac = rng.choice([0.05, 0.12, 0.3, 0.6, 0.95], n)
+    bw = frac * w * rng.uniform(0.3, 1.0, n)
+    bh = frac * h * rng.uniform(0.5, 1.0, n)
+    x1 = rng.uniform(-30, w - bw / 2)
+    y1 = rng.uniform(-30, h - bh / 2)
+    boxes = np.stack([x1, y1, x1 + bw, y1 + bh], 1)
+    boxes[:8] = [[0, 0, 0, 0], [200, 300, 200, 300.5],
+                 [-60, 400, 90, 700], [w - 90, 100, w + 60, 420],
+                 [700, -80, 860, 160], [900, h - 150, 1060, h + 90],
+                 [0, 0, w, h], [w - 1, h - 1, w + 30, h + 50]]
+    return boxes.astype(np.float32)
+
+
+def check_k4(rng) -> dict:
+    """K4 against banded_crop_plain: S=8 1080p frames, 64 boxes each, in
+    the fixed-width form (slot b*64 + i from frame b) and the packed
+    form (ragged per-frame counts padded to 8 with the dummy box)."""
+    import torch
+
+    from strongsort_yolo_tpu_torch.ops.crops import banded_prep, pyramid_stack
+    from strongsort_yolo_tpu_torch.ops.cuda.crop_kernel import (
+        banded_crop, banded_crop_frames, banded_crop_plain,
+    )
+
+    dev = torch.device("cuda")
+    S, M, (h, w), out_hw = 8, 64, (1080, 1920), (128, 64)
+    frames = torch.from_numpy(
+        rng.integers(0, 256, (S, h, w, 3), dtype=np.uint8)).to(dev)
+    boxes = np.stack([_k4_boxes(rng, M, h, w) for _ in range(S)])
+    counts = [64, 0, 37, 5, 64, 12, 1, 50]
+    packed, slot_frame = [], []
+    for f, n in enumerate(counts):
+        pad = -(-n // 8) * 8
+        packed.append(np.concatenate(
+            [boxes[f, :n], np.tile([[0, 0, 16, 32]], (pad - n, 1))]))
+        slot_frame += [f] * pad
+    packed = torch.from_numpy(np.concatenate(packed).astype(np.float32)).to(dev)
+    slot_frame = torch.tensor(slot_frame, dtype=torch.int32, device=dev)
+    boxes_t = torch.from_numpy(boxes).to(dev)
+    fixed_frame = (torch.arange(S * M, device=dev) // M).to(torch.int32)
+    max_err = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        imgs = frames.permute(0, 3, 1, 2).to(dt) / torch.full(
+            (), 255.0, dtype=dt, device=dev)
+        pyr = pyramid_stack(imgs)
+        scal_f, ints_f = banded_prep(boxes_t.reshape(-1, 4), (h, w), pyr.dims,
+                                     out_hw)
+        scal_p, ints_p = banded_prep(packed, (h, w), pyr.dims, out_hw)
+        if set(ints_f[:, 2].tolist()) != {0, 1, 2}:
+            raise AssertionError("K4 check: the boxes miss a pyramid level")
+        for form, got, want in (
+            ("fixed-width", banded_crop_frames(imgs, boxes_t).reshape(
+                S * M, 3, *out_hw),
+             banded_crop_plain(pyr, scal_f, ints_f, fixed_frame)),
+            ("packed", banded_crop(pyr, scal_p, ints_p, slot_frame),
+             banded_crop_plain(pyr, scal_p, ints_p, slot_frame)),
+        ):
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            if dt == torch.float32 and err > 1e-6:
+                raise AssertionError(f"K4 {form} f32: max |err| {err} > 1e-6")
+            if dt == torch.bfloat16 and _bf16_ulps(got, want) > 1:
+                raise AssertionError(f"K4 {form} bf16: more than 1 ulp off")
+            max_err = max(max_err, err)
+            log(f"K4 banded_crop {form} ({got.shape[0]} slots of {S} 1080p "
+                f"frames) {dt}: max |err| {err:.3g}")
+    return dict(
+        name="banded_crop", route="cuda",
+        source="strongsort_yolo_tpu_torch/csrc/banded_crop.cu",
+        replaces="strongsort_yolo_tpu/ops/pallas/crop_kernel.py:147 and "
+                 "strongsort_yolo_tpu/ops/pallas/crop_kernel.py:292",
+        max_abs_err=max_err,
+    )
 
 
 def calibrate_candidates(pipe, frame: np.ndarray, conf: float, target: int):
@@ -304,21 +393,63 @@ def calibrate_candidates(pipe, frame: np.ndarray, conf: float, target: int):
             branch.out.b.add_(offset)
 
 
-def phase_main_path(card: str, kernels) -> dict[str, int]:
+def _drive(bp, ticks, kernels) -> tuple[dict[str, int], list[float], list]:
+    """Step ``bp`` through ``ticks`` with every launch count zeroed just
+    before; -> (counts read just after, ms per tick, last results)."""
     import torch
 
+    for k in kernels:
+        k.launches = 0
+    times, results = [], None
+    for frames in ticks:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = bp.step(frames)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {k.__name__: k.launches for k in kernels}, times, results
+
+
+def _check_results(name: str, results) -> list[int]:
+    for r in results:
+        if not np.isfinite(r.boxes.xyxy).all():
+            raise AssertionError(f"{name}: non-finite track boxes")
+    tracks = [len(r) for r in results]
+    if sum(tracks) == 0:
+        raise AssertionError(f"{name}: no active tracks after {TICKS} ticks")
+    return tracks
+
+
+def _ms_line(times: list[float]) -> str:
+    steady = sorted(times[2:])
+    return (f"median {steady[len(steady) // 2]:.2f}, min {steady[0]:.2f}, "
+            f"first {times[0]:.2f}; all {[round(x, 2) for x in times]}")
+
+
+def _main_pipeline(tracker, pool):
     from strongsort_yolo_tpu_torch.config import DetectorConfig
-    from strongsort_yolo_tpu_torch.pipeline import BatchedPipeline, Pipeline
+    from strongsort_yolo_tpu_torch.pipeline import Pipeline
+
+    pipe = Pipeline(
+        DetectorConfig(weights="yolov8n", imgsz=640, half=True, max_det=1000),
+        tracker=tracker, track_slots=256, tracker_max_dets=128,
+        reid_topk=128, seed=0, device="cuda",
+    )
+    calibrate_candidates(pipe, pool[0], pipe.det_cfg.conf, TARGET_DETS)
+    return pipe
+
+
+def phase_main_path(card: str, kernels) -> dict[str, int]:
+    """BoT-SORT (K1-K3) at full width."""
+    import torch
+
+    from strongsort_yolo_tpu_torch.pipeline import BatchedPipeline
     from strongsort_yolo_tpu_torch.track.bytetrack import ByteTrackConfig
 
     h, w = 1080, 1920
-    pipe = Pipeline(
-        DetectorConfig(weights="yolov8n", imgsz=640, half=True, max_det=1000),
-        tracker=ByteTrackConfig(tracker_type="botsort", gmc_method="none"),
-        track_slots=256, tracker_max_dets=128, seed=0, device="cuda",
-    )
     pool = make_frames(h, w)
-    calibrate_candidates(pipe, pool[0], pipe.det_cfg.conf, TARGET_DETS)
+    pipe = _main_pipeline(
+        ByteTrackConfig(tracker_type="botsort", gmc_method="none"), pool)
     ticks = [np.stack([pool[(s + t) % len(pool)] for s in range(S_MAIN)])
              for t in range(TICKS)]
     det = pipe.detect(torch.from_numpy(ticks[0]).to(pipe.device))
@@ -327,67 +458,139 @@ def phase_main_path(card: str, kernels) -> dict[str, int]:
         f"botsort gmc none; detections per frame {dets.tolist()}")
     if not (dets > 0).all():
         raise AssertionError("main path: a frame without detections")
-
-    bp = BatchedPipeline(pipe, S_MAIN, (h, w))
-    for k in kernels:
-        k.launches = 0
-    times = []
-    results = None
-    for t in range(TICKS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        results = bp.step(ticks[t])
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    counts = {k.__name__: k.launches for k in kernels}
+    counts, times, results = _drive(
+        BatchedPipeline(pipe, S_MAIN, (h, w)), ticks, kernels)
     log(f"main path launches over {TICKS} ticks: {counts}")
     for name, n in counts.items():
         if n == 0:
             raise AssertionError(f"main path never launched {name}")
-    for r in results:
-        if not np.isfinite(r.boxes.xyxy).all():
-            raise AssertionError("main path: non-finite track boxes")
-    tracks = [len(r) for r in results]
-    if sum(tracks) == 0:
-        raise AssertionError("main path: no active tracks after 10 ticks")
-    steady = sorted(times[2:])
+    tracks = _check_results("main path", results)
     log(f"main path active tracks per stream after {TICKS} ticks: {tracks}")
     log(f"main path ms/tick (S={S_MAIN}, 1080p, host clock, synchronized): "
-        f"median {steady[len(steady) // 2]:.2f}, min {steady[0]:.2f}, "
-        f"first {times[0]:.2f}; all {[round(x, 2) for x in times]} [{card}]")
+        f"{_ms_line(times)} [{card}]")
     return counts
+
+
+def phase_strongsort_path(card: str, kernels):
+    """StrongSORT + OSNet-x0_25 at full width: K1-K4. -> (launch counts,
+    K4 and plain ms on the last tick's crop batch)."""
+    import torch
+
+    from strongsort_yolo_tpu_torch.ops.cuda.crop_kernel import (
+        banded_crop, banded_crop_plain,
+    )
+    from strongsort_yolo_tpu_torch.pipeline import BatchedPipeline
+    from strongsort_yolo_tpu_torch.track.strongsort import StrongSortConfig
+
+    h, w = 1080, 1920
+    pool = make_frames(h, w, seed=1)
+    pipe = _main_pipeline(StrongSortConfig(gmc_method="none"), pool)
+    ticks = [np.stack([pool[(s + t) % len(pool)] for s in range(S_MAIN)])
+             for t in range(TICKS)]
+    slot_counts = []
+    embed_slots = pipe.embed_slots
+
+    def recording_slots(det):  # note G of every tick
+        slots = embed_slots(det)
+        slot_counts.append(slots.shape[1])
+        return slots
+
+    pipe.embed_slots = recording_slots
+    counts, times, results = _drive(
+        BatchedPipeline(pipe, S_MAIN, (h, w)), ticks, kernels)
+    log(f"strongsort path: yolov8n 640 bf16 + osnet_x0_25 (feat 512, crops "
+        f"128x64) bf16, S={S_MAIN} 1080p, 256 slots, 128 tracker dets, "
+        f"reid_topk 128, gmc none; launches over {TICKS} ticks: {counts}")
+    for name, n in counts.items():
+        if n == 0:
+            raise AssertionError(f"strongsort path never launched {name}")
+    if counts["banded_crop"] != TICKS:
+        raise AssertionError(f"K4 launched {counts['banded_crop']} times in "
+                             f"{TICKS} ticks, not once per tick")
+    log(f"strongsort path crop slots G per tick: {slot_counts}")
+    tracks = _check_results("strongsort path", results)
+    log(f"strongsort path active tracks per stream after {TICKS} ticks: "
+        f"{tracks}")
+    log(f"strongsort path ms/tick (S={S_MAIN}, 1080p, host clock, "
+        f"synchronized): {_ms_line(times)} [{card}]")
+
+    # the embed of the last tick, split with a synced host clock
+    frames = pipe._upload(ticks[-1])
+    det = pipe.detect(frames)
+    slots = embed_slots(det)
+    split = {"pyramid": [], "slot upload + banded_prep": [], "K4": [],
+             "OSNet": []}
+    with torch.no_grad():
+        for _ in range(5):
+            stamps = []
+
+            def stamp():
+                torch.cuda.synchronize()
+                stamps.append(time.perf_counter())
+
+            stamp()
+            pyr = pipe.pyramid(frames)
+            stamp()
+            params = pipe.crop_params(pyr, det, slots)
+            stamp()
+            crops = banded_crop(pyr, *params)
+            stamp()
+            feats = pipe.reid(crops)
+            stamp()
+            for key, a, b in zip(split, stamps, stamps[1:]):
+                split[key].append((b - a) * 1e3)
+    if not torch.isfinite(feats).all():
+        raise AssertionError("strongsort path: non-finite embeddings")
+    log(f"strongsort embed split at G={slots.shape[1]} (median of 5, ms): "
+        + ", ".join(f"{k} {sorted(v)[2]:.3f}" for k, v in split.items())
+        + f" [{card}]")
+    k4_times = (cuda_ms(lambda: banded_crop(pyr, *params)),
+                cuda_ms(lambda: banded_crop_plain(pyr, *params), iters=5))
+    log(f"K4 time on the path's crop batch (G={slots.shape[1]} slots of "
+        f"{S_MAIN} 1080p frames, bf16 -> (G,3,128,64)): kernel "
+        f"{k4_times[0]:.4f} ms, plain {k4_times[1]:.4f} ms [{card}]")
+    return counts, k4_times
 
 
 def phase_trained_checkpoint():
     from strongsort_yolo_tpu_torch.config import DetectorConfig
     from strongsort_yolo_tpu_torch.pipeline import BatchedPipeline, Pipeline
+    from strongsort_yolo_tpu_torch.track.strongsort import StrongSortConfig
 
     S, T = 2, 20
     streams = [render_synthetic(T, seed=s + 1) for s in range(S)]
     frames = np.stack([np.stack(f) for f in streams], axis=1)  # (T, S, ...)
-    outs = {}
-    for device in ("cuda", "cpu"):
-        pipe = Pipeline(
-            DetectorConfig(weights=CKPT, imgsz=160, half=False, max_det=16),
-            tracker="bytetrack.yaml", track_slots=16, tracker_max_dets=16,
-            device=device,
-        )
-        bp = BatchedPipeline(pipe, S, (320, 320))
-        outs[device] = [bp.step(frames[t]) for t in range(T)]
-    rows = 0
-    for t in range(T):
-        for s in range(S):
-            a, b = outs["cpu"][t][s].boxes, outs["cuda"][t][s].boxes
-            if len(a) != len(b):
-                raise AssertionError(f"t={t} s={s}: {len(b)} rows vs {len(a)}")
-            np.testing.assert_allclose(b.xyxy, a.xyxy, atol=1e-3)
-            np.testing.assert_array_equal(b.id, a.id)
-            rows += len(a)
-    if rows < S * 3 * (T - 2):
-        raise AssertionError(f"trained checkpoint: only {rows} track rows")
-    log(f"trained checkpoint (synth160, imgsz 160, f32, TF32 off): card == "
-        f"CPU on {S}x{T} frames, {rows} track rows, same ids, boxes "
-        f"within 1e-3")
+    # StrongSORT confirms a track at its third hit, ByteTrack at its second
+    for name, tracker, reid, confirm in (
+        ("bytetrack", "bytetrack.yaml", None, 2),
+        ("strongsort + trained osnet", StrongSortConfig(gmc_method="none"),
+         OSNET, 3),
+    ):
+        outs = {}
+        for device in ("cuda", "cpu"):
+            pipe = Pipeline(
+                DetectorConfig(weights=CKPT, imgsz=160, half=False,
+                               max_det=16),
+                tracker=tracker, track_slots=16, tracker_max_dets=16,
+                reid_weights=reid, device=device,
+            )
+            bp = BatchedPipeline(pipe, S, (320, 320))
+            outs[device] = [bp.step(frames[t]) for t in range(T)]
+        rows = 0
+        for t in range(T):
+            for s in range(S):
+                a, b = outs["cpu"][t][s].boxes, outs["cuda"][t][s].boxes
+                if len(a) != len(b):
+                    raise AssertionError(
+                        f"{name} t={t} s={s}: {len(b)} rows vs {len(a)}")
+                np.testing.assert_allclose(b.xyxy, a.xyxy, atol=1e-3)
+                np.testing.assert_array_equal(b.id, a.id)
+                rows += len(a)
+        if rows < S * 3 * (T - confirm):
+            raise AssertionError(f"{name}: only {rows} track rows")
+        log(f"trained checkpoint, {name} (synth160, imgsz 160, f32, TF32 "
+            f"off): card == CPU on {S}x{T} frames, {rows} track rows, same "
+            f"ids, boxes within 1e-3")
 
 
 def main() -> int:
@@ -398,6 +601,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from strongsort_yolo_tpu_torch.ops.cuda.auction_kernel import auction
+    from strongsort_yolo_tpu_torch.ops.cuda.crop_kernel import banded_crop
     from strongsort_yolo_tpu_torch.ops.cuda.nms_kernel import nms_keep
     from strongsort_yolo_tpu_torch.ops.cuda.resize_kernel import letterbox_u8
 
@@ -406,9 +610,13 @@ def main() -> int:
     card = card_line()
     phase_environment()
     report = phase_kernels(card)
-    counts = phase_main_path(card, (letterbox_u8, nms_keep, auction))
+    phase_main_path(card, (letterbox_u8, nms_keep, auction))
+    counts, k4_times = phase_strongsort_path(
+        card, (letterbox_u8, nms_keep, auction, banded_crop))
     for entry in report:
         entry["launches"] = counts[entry["name"]]
+        if entry["name"] == "banded_crop":
+            entry["ms"], entry["plain_ms"] = k4_times
     phase_trained_checkpoint()
     log(json.dumps({"kernels": [
         {k: e[k] for k in ("name", "route", "source", "replaces", "launches",

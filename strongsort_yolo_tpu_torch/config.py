@@ -1,9 +1,8 @@
 """Detector config and the tracker names the port knows.
 
-Counterpart of ``strongsort_yolo_tpu/config.py`` for ByteTrack and
-BoT-SORT; StrongSORT and BoT-SORT with ReID are not ported yet. Tracker
-YAML files load through a lazy ``yaml`` import, so the package needs
-PyYAML only for that.
+Counterpart of ``strongsort_yolo_tpu/config.py``: ByteTrack, BoT-SORT
+(with or without ReID) and StrongSORT. Tracker YAML files load through a
+lazy ``yaml`` import, so the package needs PyYAML only for that.
 """
 
 from __future__ import annotations
@@ -12,6 +11,9 @@ import dataclasses
 import os
 
 from strongsort_yolo_tpu_torch.track.bytetrack import ByteTrackConfig
+from strongsort_yolo_tpu_torch.track.strongsort import StrongSortConfig
+
+TrackerConfig = ByteTrackConfig | StrongSortConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,6 +37,16 @@ _BUILTIN_TRACKERS = {
     "botsort": ByteTrackConfig(tracker_type="botsort"),
     "bytetrack.yaml": ByteTrackConfig(tracker_type="bytetrack", gmc_method="none"),
     "bytetrack": ByteTrackConfig(tracker_type="bytetrack", gmc_method="none"),
+    "botsort-reid.yaml": ByteTrackConfig(tracker_type="botsort", with_reid=True),
+    "botsort-reid": ByteTrackConfig(tracker_type="botsort", with_reid=True),
+    "strongsort.yaml": StrongSortConfig(),
+    "strongsort": StrongSortConfig(),
+}
+
+_STRONGSORT_YAML_KEYS = {
+    "det_thresh", "max_cosine_distance", "lambda_appearance",
+    "match_thresh", "max_iou_distance", "max_age", "n_init", "ema_alpha",
+    "gmc_method",
 }
 
 _TRACKER_YAML_KEYS = {
@@ -44,7 +56,7 @@ _TRACKER_YAML_KEYS = {
 }
 
 
-def load_tracker_config(name_or_path: str) -> ByteTrackConfig:
+def load_tracker_config(name_or_path: str) -> TrackerConfig:
     """Resolve a tracker config by built-in name or YAML file path."""
     if name_or_path in _BUILTIN_TRACKERS:
         return _BUILTIN_TRACKERS[name_or_path]
@@ -53,9 +65,9 @@ def load_tracker_config(name_or_path: str) -> ByteTrackConfig:
 
         with open(name_or_path) as f:
             raw = yaml.safe_load(f) or {}
-        if raw.get("tracker_type") not in (None, "bytetrack", "botsort"):
-            raise ValueError(
-                f"tracker_type {raw['tracker_type']!r} is not ported yet"
+        if raw.get("tracker_type") == "strongsort":
+            return StrongSortConfig(
+                **{k: v for k, v in raw.items() if k in _STRONGSORT_YAML_KEYS}
             )
         return ByteTrackConfig(
             **{k: v for k, v in raw.items() if k in _TRACKER_YAML_KEYS}

@@ -1,19 +1,21 @@
 """Build and load the port's hand-written CUDA kernels.
 
-All ``csrc/*.cu`` files compile with ``nvcc`` into one shared library
-with a plain C interface, which is loaded with ``ctypes``. The library
+Each ``csrc/*.cu`` file compiles with its own ``nvcc`` process, all
+started together, and the objects link into one shared library with a
+plain C interface, which is loaded with ``ctypes``. The library
 lands under ``build/torch_kernels/`` at the repository root, named by a
 hash of the sources and flags, so an edit rebuilds and an unchanged
 tree reuses the file. Nothing here runs at import time: the first call
 of :func:`lib` builds.
 
-Flags: ``-fmad=false`` and no ``--use_fast_math``, because the NMS and
-auction kernels must round every product and sum on its own to stay
-bit-identical to their plain PyTorch versions.
+Flags: ``-fmad=false`` and no ``--use_fast_math``, because the kernels
+round every product and sum on its own to stay bit-identical to their
+plain PyTorch versions.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -28,8 +30,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -43,6 +44,8 @@ _SIGNATURES = {
     "ssyt_nms_keep": (_P, _P, _P, _I, _I, _F, _F, _P),
     "ssyt_auction_smem_bytes": (_I, _I),
     "ssyt_auction": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    "ssyt_banded_crop": (_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _I, _P),
 }
 
 _lock = threading.Lock()
@@ -80,24 +83,30 @@ def _lib_path(sources: list[str]) -> str:
     return os.path.join(BUILD_DIR, f"libssyt_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _run(cmd: list[str]) -> None:
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+
+
 def _compile(sources: list[str], out: str) -> None:
     os.makedirs(BUILD_DIR, exist_ok=True)
-    # build to a private name, then rename: a concurrent process never
-    # loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    nvcc = _nvcc()
+    # build in a private directory, then rename the library: a concurrent
+    # process never loads a half-written file
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(src) + ".o")
+                for src in sources]
+        with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+            for fut in [pool.submit(_run, [nvcc, *NVCC_FLAGS, "-c", "-o", o, s])
+                        for s, o in zip(sources, objs)]:
+                fut.result()
+        lib_tmp = os.path.join(tmp, "lib.so")
+        _run([nvcc, *NVCC_FLAGS, "-shared", "-o", lib_tmp, *objs])
+        os.replace(lib_tmp, out)
 
 
 def lib() -> ctypes.CDLL:

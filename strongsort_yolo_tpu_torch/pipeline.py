@@ -1,15 +1,19 @@
-"""Detect -> NMS -> ByteTrack/BoT-SORT, for one stream or S in lockstep.
+"""Detect -> NMS -> (ReID embed) -> track, for one stream or S in lockstep.
 
 Counterpart of ``strongsort_yolo_tpu/pipeline.py`` for YOLOv8 detect
-with ByteTrack or BoT-SORT (no ReID, no seg/pose). One tick of
-:class:`BatchedPipeline` uploads the (S, H, W, 3) uint8 frames once,
-then runs the letterbox (K1), the model as one batch-S forward, NMS of
-all S frames (one K2 launch), the rescale to frame coordinates, and the
-tracker over all S streams (one K3 launch per association stage).
+with ByteTrack, BoT-SORT (with or without ReID) or StrongSORT (no
+seg/pose). One tick of :class:`BatchedPipeline` uploads the (S, H, W, 3)
+uint8 frames once, then runs the letterbox (K1), the model as one
+batch-S forward, NMS of all S frames (one K2 launch), the rescale to
+frame coordinates, for ReID trackers the embed (pyramid, one K4 crop
+launch, one OSNet forward over the real detections of all S frames),
+and the tracker over all S streams (one K3 launch per association
+stage).
 
-Camera-motion compensation is not computed here: a BoT-SORT tracker
-whose ``gmc_method`` is not ``"none"`` needs its (2, 3) warps from the
-caller, and a step without them raises ``ValueError``.
+Camera-motion compensation is not computed here: a tracker whose
+``gmc_method`` is not ``"none"`` (BoT-SORT's default, and StrongSORT's
+``"ecc"``) needs its (2, 3) warps from the caller, and a step without
+them raises ``ValueError``.
 
 ``Results``/``Boxes`` mirror the ultralytics result surface
 (``.boxes{.xyxy,.conf,.cls,.id}``, ``.names``).
@@ -23,10 +27,22 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from strongsort_yolo_tpu_torch.config import DetectorConfig, load_tracker_config
+from strongsort_yolo_tpu_torch.config import (
+    DetectorConfig,
+    TrackerConfig,
+    load_tracker_config,
+)
+from strongsort_yolo_tpu_torch.models.osnet import (
+    VARIANTS,
+    OsnetConfig,
+    init_osnet,
+    osnet_from_state_dict,
+)
 from strongsort_yolo_tpu_torch.models.porting import (
     load_npz_checkpoint,
+    load_osnet_npz,
     model_from_state_dict,
+    osnet_params_from_jax,
     params_from_jax,
 )
 from strongsort_yolo_tpu_torch.models.yolo import (
@@ -37,6 +53,12 @@ from strongsort_yolo_tpu_torch.models.yolo import (
     init_model,
 )
 from strongsort_yolo_tpu_torch.ops.boxes import scale_boxes
+from strongsort_yolo_tpu_torch.ops.crops import (
+    PyramidStack,
+    banded_prep,
+    pyramid_stack,
+)
+from strongsort_yolo_tpu_torch.ops.cuda.crop_kernel import banded_crop
 from strongsort_yolo_tpu_torch.ops.cuda.resize_kernel import letterbox_u8
 from strongsort_yolo_tpu_torch.ops.letterbox import (
     LetterboxParams,
@@ -51,7 +73,15 @@ from strongsort_yolo_tpu_torch.track.state import (
     TrackState,
     init_track_state,
 )
+from strongsort_yolo_tpu_torch.track.strongsort import (
+    StrongSortConfig,
+    strongsort_step,
+)
 from strongsort_yolo_tpu_torch.utils.coco_names import COCO_NAMES
+
+PACK_G = 8  # slot quantum of the packed embed: each stream's crop count
+# rounds up to it, as the TPU kernel's crop blocks do
+_DUMMY_BOX = (0.0, 0.0, 16.0, 32.0)  # crop box of a padding slot
 
 
 class Boxes:
@@ -95,8 +125,34 @@ class _Geometry(NamedTuple):
     src_hw: tuple[int, int]
 
 
+def _reid_checkpoint(weights: str | None, params: dict | None, seed: int):
+    """-> (OSNet checkpoint, OsnetConfig) from ``reid_params`` (variant
+    read from the stem's width), a variant name (random from ``seed``) or
+    an ``.npz`` path of the JAX package."""
+    if params is not None:
+        if weights is not None:
+            raise ValueError("pass reid_params or reid_weights, not both")
+        c1 = params["stem.w"].shape[0]
+        for variant in VARIANTS:
+            cfg = OsnetConfig(variant=variant,
+                              feat_dim=params["fc.lin.w"].shape[0])
+            if cfg.channels[0] == c1:
+                return params, cfg
+        raise ValueError(f"reid_params: no OSNet variant has a {c1}-channel stem")
+    weights = weights or "osnet_x0_25"
+    if weights in VARIANTS:
+        cfg = OsnetConfig(variant=weights)
+        return init_osnet(cfg, torch.Generator().manual_seed(seed)), cfg
+    if not os.path.isfile(weights):
+        raise FileNotFoundError(
+            f"reid_weights {weights!r} is neither an OSNet variant "
+            f"{sorted(VARIANTS)} nor a file")
+    tree, cfg = load_osnet_npz(weights)
+    return osnet_params_from_jax(tree, cfg), cfg
+
+
 class Pipeline:
-    """Single-stream detect/track pipeline; also holds the model and the
+    """Single-stream detect/track pipeline; also holds the models and the
     per-tick building blocks that :class:`BatchedPipeline` runs batched.
 
     ``params``: a state_dict of the port's model (for instance from
@@ -104,6 +160,15 @@ class Pipeline:
     fused or not. Without it the weights come from ``det_cfg.weights``:
     an ``.npz`` checkpoint of the JAX package, or a model name such as
     ``"yolov8n"`` initialised at random from ``seed``.
+    ``tracker``: a built-in name or YAML path, or a config object;
+    StrongSORT and BoT-SORT with ``with_reid`` embed detections with
+    OSNet, whose weights come from ``reid_params`` (an OSNet checkpoint
+    state_dict, :func:`~strongsort_yolo_tpu_torch.models.osnet.checkpoint_keys`,
+    RGB convention) or ``reid_weights``: a variant name (default
+    ``"osnet_x0_25"``) initialised at random from ``seed + 1``, or else
+    the path of an OSNet ``.npz`` of the JAX package. The top ``reid_topk`` detections of
+    each frame that reach the tracker are embedded; the rest carry a
+    zero feature.
     ``device``: where everything runs; CUDA launches the kernels, the
     CPU runs their plain versions. Default: the current CUDA device if
     there is one, else the CPU.
@@ -112,13 +177,16 @@ class Pipeline:
     def __init__(
         self,
         det_cfg: DetectorConfig = DetectorConfig(),
-        tracker: str | ByteTrackConfig = "botsort.yaml",
+        tracker: str | TrackerConfig = "botsort.yaml",
         *,
         params: dict[str, torch.Tensor] | None = None,
         model_cfg: YoloConfig | None = None,
         track_slots: int = 256,
         seed: int = 0,
         names: dict[int, str] | None = None,
+        reid_weights: str | None = None,
+        reid_params: dict[str, torch.Tensor] | None = None,
+        reid_topk: int = 128,
         tracker_max_dets: int = 128,
         device: torch.device | str | None = None,
     ):
@@ -143,15 +211,27 @@ class Pipeline:
         self.model = model.to(self.device, self.compute_dtype).eval()
         self.names = names or dict(COCO_NAMES)
         self.tracker_cfg = (
-            tracker if isinstance(tracker, ByteTrackConfig)
+            tracker if isinstance(tracker, (ByteTrackConfig, StrongSortConfig))
             else load_tracker_config(tracker)
         )
-        if self.tracker_cfg.with_reid:
-            raise NotImplementedError("BoT-SORT with ReID is not ported yet")
+        self.is_strongsort = isinstance(self.tracker_cfg, StrongSortConfig)
         self.gmc_method = (
             self.tracker_cfg.gmc_method
-            if self.tracker_cfg.tracker_type == "botsort" else "none"
+            if self.is_strongsort or self.tracker_cfg.tracker_type == "botsort"
+            else "none"
         )
+        self.reid = None
+        self.feat_dim = 0
+        if self.is_strongsort or self.tracker_cfg.with_reid:
+            reid_params, reid_cfg = _reid_checkpoint(
+                reid_weights, reid_params, seed + 1)
+            # BN folded in float32 before the cast; the stem takes the
+            # frames' BGR order
+            self.reid = osnet_from_state_dict(
+                reid_params, reid_cfg, channel_order="bgr"
+            ).to(self.device, self.compute_dtype).eval()
+            self.feat_dim = reid_cfg.feat_dim
+        self.reid_topk = reid_topk
         self.track_slots = track_slots
         self.tracker_max_dets = min(tracker_max_dets, det_cfg.max_det)
         self._class_filter = None
@@ -160,7 +240,12 @@ class Pipeline:
             mask[list(det_cfg.classes)] = True
             self._class_filter = mask.to(self.device)
         self._geoms: dict[tuple[int, int], _Geometry] = {}
-        self.track_state = init_track_state(1, track_slots, self.device)
+        self.track_state = self.init_states(1)
+
+    def init_states(self, num_streams: int) -> TrackState:
+        """Fresh tracker state of ``num_streams`` streams."""
+        return init_track_state(num_streams, self.track_slots, self.device,
+                                feat_dim=self.feat_dim)
 
     # -- per-tick building blocks ---------------------------------------
 
@@ -200,25 +285,96 @@ class Pipeline:
             boxes=torch.where(det.valid[..., None], boxes, 0.0)
         )
 
+    def embed_slots(self, det: Detections) -> np.ndarray:
+        """The packed crop slots of one tick, from the real detection
+        count: stream s gets min(count_s, cap) slots rounded up to
+        ``PACK_G``, streams in order (cap = min(reid_topk,
+        tracker_max_dets)). -> (3, G) int64 host array of [frame, row,
+        real] per slot; padding slots have real = 0. Reading the (S,)
+        counts is the tick's one extra device-to-host copy."""
+        cap = min(self.reid_topk, self.tracker_max_dets)
+        counts = np.minimum(det.count.cpu().numpy().astype(np.int64), cap)
+        padded = -(-counts // PACK_G) * PACK_G
+        frame = np.repeat(np.arange(len(counts)), padded)
+        starts = np.repeat(np.cumsum(padded) - padded, padded)
+        row = np.arange(len(frame)) - starts
+        real = row < np.repeat(counts, padded)
+        return np.stack([frame, row, real])
+
+    def pyramid(self, frames: torch.Tensor) -> PyramidStack:
+        """(S, H, W, 3) uint8 BGR frames on the device -> the crop pyramid
+        of their [0, 1] planar images in the compute dtype."""
+        dt = self.compute_dtype
+        imgs = frames.permute(0, 3, 1, 2).to(dt) / torch.full(
+            (), 255.0, dtype=dt, device=self.device
+        )
+        return pyramid_stack(imgs)
+
+    def crop_params(self, pyr: PyramidStack, det: Detections,
+                    slots: np.ndarray):
+        """The slots of :meth:`embed_slots` -> K4's per-slot arguments
+        (scal, ints, slot_frame) on the device; padding slots crop the
+        dummy box."""
+        dev = self.device
+        frame, row, real = torch.from_numpy(slots).to(dev).unbind(0)
+        boxes = det.boxes[frame, row.clamp(max=det.boxes.shape[1] - 1)]
+        boxes = torch.where(real.bool()[:, None], boxes,
+                            torch.tensor(_DUMMY_BOX, device=dev))
+        scal, ints = banded_prep(boxes, pyr.src_hw, pyr.dims,
+                                 self.reid.cfg.crop_hw)
+        return scal, ints, frame.to(torch.int32)
+
+    @torch.no_grad()
+    def embed(self, frames: torch.Tensor, det: Detections) -> torch.Tensor | None:
+        """ReID features (S, tracker_max_dets, D) float32 of each frame's
+        detections, or None for a tracker without ReID. One crop batch
+        covers the real detections of all S frames (sized from the
+        counts, so it grows with the load, not with S); rows past a
+        frame's count, or past ``reid_topk``, get a zero feature."""
+        if self.reid is None:
+            return None
+        s, t = frames.shape[0], self.tracker_max_dets
+        feats = torch.zeros((s, t, self.feat_dim), dtype=torch.float32,
+                            device=self.device)
+        slots = self.embed_slots(det)
+        real = slots[2].astype(bool)
+        if real.any():
+            pyr = self.pyramid(frames)
+            crops = banded_crop(pyr, *self.crop_params(pyr, det, slots),
+                                self.reid.cfg.crop_hw)  # (G, 3, 128, 64)
+            feats_g = self.reid(crops)
+            keep = torch.from_numpy(np.flatnonzero(real)).to(self.device)
+            frame, row = torch.from_numpy(slots[:2, real]).to(self.device)
+            feats[frame, row] = feats_g[keep]
+        return feats
+
     @torch.no_grad()
     def associate(
         self, states: TrackState, det: Detections,
         warps: torch.Tensor | None = None,
+        feats: torch.Tensor | None = None,
     ) -> tuple[TrackState, TrackOutputs]:
         """The tracker tail of S streams: the top ``tracker_max_dets`` rows
-        of each frame's detections (exact: rows are confidence-sorted),
-        with the count of valid rows below that cut recorded."""
+        of each frame's detections (exact: rows are confidence-sorted)
+        with their ReID ``feats`` (from :meth:`embed`), and the count of
+        valid rows below that cut recorded."""
         if self.gmc_method != "none" and warps is None:
             raise ValueError(
                 f"gmc_method={self.gmc_method!r} needs (S, 2, 3) warps from "
                 "the caller; this port computes no camera motion"
             )
         t = self.tracker_max_dets
-        states, out = bytetrack_step(
-            states, det.boxes[:, :t], det.scores[:, :t], det.classes[:, :t],
-            det.valid[:, :t], self.tracker_cfg,
-            warp=warps if self.gmc_method != "none" else None,
-        )
+        warp = warps if self.gmc_method != "none" else None
+        rows = (det.boxes[:, :t], det.scores[:, :t], det.classes[:, :t],
+                det.valid[:, :t])
+        if self.is_strongsort:
+            states, out = strongsort_step(
+                states, *rows, feats, self.tracker_cfg, warp=warp
+            )
+        else:
+            states, out = bytetrack_step(
+                states, *rows, self.tracker_cfg, det_feats=feats, warp=warp
+            )
         states = states._replace(
             truncated_dets=states.truncated_dets
             + det.valid[:, t:].sum(1, dtype=torch.int32)
@@ -254,7 +410,7 @@ class Pipeline:
 
     def reset(self) -> None:
         """New stream: clear the tracker state."""
-        self.track_state = init_track_state(1, self.track_slots, self.device)
+        self.track_state = self.init_states(1)
 
     def predict(self, frame_bgr: np.ndarray) -> Results:
         """Detect without tracking."""
@@ -270,9 +426,12 @@ class Pipeline:
 
     def track(self, frame_bgr: np.ndarray, warp=None) -> Results:
         """Detect + track one frame of this pipeline's stream."""
-        det = self.detect(self._upload(frame_bgr[None]))
+        frames = self._upload(frame_bgr[None])
+        det = self.detect(frames)
         w = None if warp is None else self._warps(np.asarray(warp)[None], 1)
-        self.track_state, out = self.associate(self.track_state, det, w)
+        self.track_state, out = self.associate(
+            self.track_state, det, w, self.embed(frames, det)
+        )
         return self._track_results(_pack_outputs(out)[0], frame_bgr)
 
 
@@ -301,15 +460,11 @@ class BatchedPipeline:
         self.pipeline = pipeline
         self.num_streams = num_streams
         self.src_hw = (int(src_hw[0]), int(src_hw[1]))
-        self.states = init_track_state(
-            num_streams, pipeline.track_slots, pipeline.device
-        )
+        self.states = pipeline.init_states(num_streams)
 
     def reset_stream(self, i: int) -> None:
         """Reinitialise one stream's tracker state in place."""
-        fresh = init_track_state(
-            1, self.pipeline.track_slots, self.pipeline.device
-        )
+        fresh = self.pipeline.init_states(1)
         for batched, f in zip(self.states, fresh):
             batched[i] = f[0]
 
@@ -322,9 +477,11 @@ class BatchedPipeline:
                 f"frames must be ({self.num_streams}, {self.src_hw[0]}, "
                 f"{self.src_hw[1]}, 3), got {tuple(frames.shape)}"
             )
-        det = p.detect(p._upload(frames))
+        frames = p._upload(frames)
+        det = p.detect(frames)
         self.states, out = p.associate(
-            self.states, det, p._warps(warps, self.num_streams)
+            self.states, det, p._warps(warps, self.num_streams),
+            p.embed(frames, det),
         )
         packed = _pack_outputs(out)
         return [p._track_results(packed[s]) for s in range(self.num_streams)]

@@ -1,18 +1,20 @@
 """ByteTrack / BoT-SORT as one fixed-shape step over S streams.
 
 Counterpart of ``strongsort_yolo_tpu/track/bytetrack.py`` (ultralytics
-BYTETracker with the BoT-SORT extensions, without ReID), with the stream
+BYTETracker with the BoT-SORT extensions, ReID included), with the stream
 axis written out as the leading dimension of every tensor:
 
   1. KF-predict tracked and lost tracks, apply the camera-motion warp;
   2. stage 1: high-confidence dets vs tracked+lost, (score-fused) IoU
-     cost, threshold ``match_thresh``;
+     cost (BoT-SORT with ReID: min'd with the gated appearance distance),
+     threshold ``match_thresh``;
   3. stage 2: remaining tracked vs low dets, plain IoU, threshold 0.5;
      unmatched tracked -> LOST;
-  4. unconfirmed vs leftover high dets, threshold 0.7; unmatched
-     unconfirmed -> removed;
+  4. unconfirmed vs leftover high dets (stage 1's cost), threshold 0.7;
+     unmatched unconfirmed -> removed; matched tracks with ReID update
+     their EMA feature;
   5. births: leftover high dets with score >= ``new_track_thresh`` claim
-     EMPTY slots (activated only on frame 1);
+     EMPTY slots (activated only on frame 1), with their feature;
   6. lost tracks older than ``track_buffer`` frames -> removed.
 
 Each stage's S assignment problems are one ``solve_assignment`` call
@@ -58,13 +60,13 @@ class ByteTrackConfig:
     # BoT-SORT extras
     gmc_method: str = "sparseOptFlow"  # any value but "none": the caller
     # passes a (2, 3) warp per stream and frame
-    # ReID keys of the YAML files; ReID association is not ported yet
     proximity_thresh: float = 0.5
     appearance_thresh: float = 0.25
     with_reid: bool = False
     # derived
     second_match_thresh: float = 0.5
     unconfirmed_match_thresh: float = 0.7
+    reid_ema_alpha: float = 0.9
 
     @property
     def form(self) -> str:
@@ -130,6 +132,20 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     )
 
 
+def unit_norm(x: torch.Tensor) -> torch.Tensor:
+    """Rows of x scaled to unit L2 norm (zero rows stay zero)."""
+    return x / torch.clamp(x.norm(dim=-1, keepdim=True), min=1e-12)
+
+
+def ema_feature(feat: torch.Tensor, det_feat: torch.Tensor,
+                alpha: float) -> torch.Tensor:
+    """The appearance bank's update: alpha * old + (1 - alpha) * new,
+    L2-normalised; a slot without a feature yet takes the new one."""
+    mixed = alpha * feat + (1.0 - alpha) * det_feat
+    has_old = feat.abs().sum(-1, keepdim=True) > 1e-8
+    return unit_norm(torch.where(has_old, mixed, det_feat))
+
+
 def _masked_kf_update(
     state: TrackState,
     slot_matched: torch.Tensor,  # (S, K) bool
@@ -137,15 +153,23 @@ def _masked_kf_update(
     det_meas: torch.Tensor,  # (S, N, 4)
     det_scores: torch.Tensor,
     det_cls: torch.Tensor,
+    det_feats: torch.Tensor | None,  # (S, N, D)
     cfg: ByteTrackConfig,
 ) -> TrackState:
-    """KF-update matched slots with their detections; set track fields."""
+    """KF-update matched slots with their detections; set track fields
+    and, with ReID, the EMA feature."""
     idx = slot_det.clamp(0, det_meas.shape[1] - 1)
     new_mean, new_cov = kalman.update(
         state.mean, state.cov, _take(det_meas, idx), cfg.form
     )
     m = slot_matched
+    feat = state.feat
+    if det_feats is not None:
+        mixed = ema_feature(state.feat, _take(det_feats, idx),
+                            cfg.reid_ema_alpha)
+        feat = torch.where(m[..., None], mixed, state.feat)
     return state._replace(
+        feat=feat,
         mean=torch.where(m[..., None], new_mean, state.mean),
         cov=torch.where(m[..., None, None], new_cov, state.cov),
         score=torch.where(m, _take(det_scores, idx), state.score),
@@ -165,11 +189,14 @@ def bytetrack_step(
     det_valid: torch.Tensor,  # (S, N) bool
     cfg: ByteTrackConfig = ByteTrackConfig(),
     *,
+    det_feats: torch.Tensor | None = None,  # (S, N, D) L2-normed ReID
     warp: torch.Tensor | None = None,  # (S, 2, 3) GMC affine
 ) -> tuple[TrackState, TrackOutputs]:
-    """One tracker frame for S streams. Pure function of its inputs."""
-    if cfg.with_reid:
-        raise NotImplementedError("ReID association is not ported yet")
+    """One tracker frame for S streams. Pure function of its inputs.
+    ``det_feats`` is used only when ``cfg.with_reid``."""
+    use_reid = cfg.with_reid and det_feats is not None
+    if not use_reid:
+        det_feats = None
     form = cfg.form
     state = state._replace(frame_id=state.frame_id + 1)
 
@@ -200,9 +227,16 @@ def bytetrack_step(
 
     # --- stage 1: pool vs high dets ---
     d_iou = costs.iou_cost(slot_boxes, det_boxes)
-    # without ReID, BoT-SORT and ByteTrack share this cost (stages 1, 3)
+    # stages 1 and 3 share this cost: the features it reads change only
+    # in the deferred update below
+    emb = None
+    if use_reid and cfg.tracker_type == "botsort":
+        emb = costs.embedding_distance(state.feat, det_feats)
     fused = costs.botsort_fused_cost(
-        d_iou, det_scores, with_fuse_score=cfg.fuse_score
+        d_iou, emb, det_scores,
+        proximity_thresh=cfg.proximity_thresh,
+        appearance_thresh=cfg.appearance_thresh,
+        with_fuse_score=cfg.fuse_score,
     )
     c1 = costs.mask_cost(fused, pool, high)
     a1 = solve_assignment(c1, cfg.match_thresh, pool, high)
@@ -232,7 +266,8 @@ def bytetrack_step(
         m1, a1.row_to_col, torch.where(m2, a2.row_to_col, a3.row_to_col)
     )
     state = _masked_kf_update(
-        state, matched, slot_det, det_meas, det_scores, det_cls, cfg
+        state, matched, slot_det, det_meas, det_scores, det_cls, det_feats,
+        cfg,
     )
     state = state._replace(status=torch.where(to_lost, STATUS_LOST, state.status))
     drop_unconf = unconfirmed & ~m3
@@ -247,7 +282,7 @@ def bytetrack_step(
         det_scores >= cfg.new_track_thresh
     )
     state, spawn_mask, spawn_det = _spawn(
-        state, birth, det_meas, det_scores, det_cls, cfg
+        state, birth, det_meas, det_scores, det_cls, det_feats, cfg
     )
 
     # --- prune stale lost tracks ---
@@ -285,6 +320,7 @@ def _spawn(
     det_meas: torch.Tensor,
     det_scores: torch.Tensor,
     det_cls: torch.Tensor,
+    det_feats: torch.Tensor | None,
     cfg: ByteTrackConfig,
 ) -> tuple[TrackState, torch.Tensor, torch.Tensor]:
     """Allocate EMPTY slots to birth detections in det-index order (track
@@ -314,7 +350,12 @@ def _spawn(
     new_id = state.next_id[:, None] + _take(birth_rank, idx).clamp(min=0)
     first_frame = (state.frame_id == 1)[:, None].expand(s, k)
     sm = spawn_mask
+    feat = state.feat
+    if det_feats is not None:
+        feat = torch.where(sm[..., None], unit_norm(_take(det_feats, idx)),
+                           state.feat)
     return state._replace(
+        feat=feat,
         mean=torch.where(sm[..., None], new_mean, state.mean),
         cov=torch.where(sm[..., None, None], new_cov, state.cov),
         track_id=torch.where(sm, new_id, state.track_id),

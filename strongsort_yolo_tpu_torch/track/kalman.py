@@ -1,9 +1,11 @@
 """Constant-velocity Kalman filters for track motion, batched over slots.
 
 Counterpart of ``strongsort_yolo_tpu/track/kalman.py``: XYAH
-(ByteTrack/DeepSORT) and XYWH (BoT-SORT) 8-state filters with the
-standard DeepSORT noise weights, closed-form F P F^T, and a closed-form
-4x4 Cholesky in place of a batched linear solve. The small products are
+(ByteTrack/DeepSORT/StrongSORT) and XYWH (BoT-SORT) 8-state filters with
+the standard DeepSORT noise weights, StrongSORT's NSA measurement noise
+(R scaled by 1 - detection confidence), closed-form F P F^T, a
+closed-form 4x4 Cholesky in place of a batched linear solve, and the
+squared Mahalanobis gating distance. The small products are
 written as broadcast multiply-and-sum rather than matmuls, so no
 setting of TF32 on the card can reach the covariance.
 """
@@ -81,8 +83,12 @@ def predict(
     return new_mean, new_cov
 
 
-def project(mean: torch.Tensor, cov: torch.Tensor, form: str = XYWH):
-    """State -> measurement space: (mean4, S (..., 4, 4))."""
+def project(
+    mean: torch.Tensor, cov: torch.Tensor, form: str = XYWH, *,
+    conf: torch.Tensor | None = None,
+):
+    """State -> measurement space: (mean4, S (..., 4, 4)). ``conf`` (...,)
+    detection confidence scales R by clip(1 - conf, 0, 1) (NSA)."""
     std = _pos_std(mean[..., :4], form, STD_POS)
     if form == XYAH:
         # DeepSORT uses a larger aspect noise in project than initiate
@@ -92,6 +98,10 @@ def project(mean: torch.Tensor, cov: torch.Tensor, form: str = XYWH):
         )
     # floor keeps S invertible for empty slots (w = h = 0)
     r_diag = torch.clamp(std**2, min=1e-9)
+    if conf is not None:
+        r_diag = torch.clamp(
+            r_diag * torch.clamp(1.0 - conf[..., None], 0.0, 1.0), min=1e-9
+        )
     return mean[..., :4], cov[..., :4, :4] + r_diag[..., :, None] * _eye(4, cov)
 
 
@@ -115,8 +125,8 @@ def _chol4_lanes(s: torch.Tensor):
     return (l00, l10, l20, l30, l11, l21, l31, l22, l32, l33)
 
 
-def _chol_solve4(lanes, b: torch.Tensor) -> torch.Tensor:
-    """Solve (L L^T) x = b for batched b (..., 4, N)."""
+def _forward_sub4(lanes, b: torch.Tensor) -> torch.Tensor:
+    """Solve L y = b for batched b (..., 4, N), L from _chol4_lanes."""
     l00, l10, l20, l30, l11, l21, l31, l22, l32, l33 = (
         lane[..., None] for lane in lanes
     )
@@ -124,6 +134,15 @@ def _chol_solve4(lanes, b: torch.Tensor) -> torch.Tensor:
     y1 = (b[..., 1, :] - l10 * y0) / l11
     y2 = (b[..., 2, :] - l20 * y0 - l21 * y1) / l22
     y3 = (b[..., 3, :] - l30 * y0 - l31 * y1 - l32 * y2) / l33
+    return torch.stack([y0, y1, y2, y3], dim=-2)
+
+
+def _chol_solve4(lanes, b: torch.Tensor) -> torch.Tensor:
+    """Solve (L L^T) x = b for batched b (..., 4, N)."""
+    l00, l10, l20, l30, l11, l21, l31, l22, l32, l33 = (
+        lane[..., None] for lane in lanes
+    )
+    y0, y1, y2, y3 = _forward_sub4(lanes, b).unbind(-2)
     x3 = y3 / l33
     x2 = (y2 - l32 * x3) / l22
     x1 = (y1 - l21 * x2 - l31 * x3) / l11
@@ -133,10 +152,11 @@ def _chol_solve4(lanes, b: torch.Tensor) -> torch.Tensor:
 
 def update(
     mean: torch.Tensor, cov: torch.Tensor, measurement: torch.Tensor,
-    form: str = XYWH,
+    form: str = XYWH, *, conf: torch.Tensor | None = None,
 ):
-    """KF measurement update, batched over leading dims."""
-    proj_mean, s = project(mean, cov, form)
+    """KF measurement update, batched over leading dims; ``conf`` as in
+    :func:`project`."""
+    proj_mean, s = project(mean, cov, form, conf=conf)
     # gain^T = S^-1 (P H^T)^T, (..., 4, 8)
     gain_t = _chol_solve4(_chol4_lanes(s), cov[..., :, :4].transpose(-1, -2))
     innovation = measurement - proj_mean
@@ -144,3 +164,19 @@ def update(
     s_gain = (s[..., :, :, None] * gain_t[..., None, :, :]).sum(-2)  # S K^T
     new_cov = cov - (gain_t[..., :, :, None] * s_gain[..., :, None, :]).sum(-3)
     return new_mean, new_cov
+
+
+def gating_distance(
+    mean: torch.Tensor, cov: torch.Tensor, measurements: torch.Tensor,
+    form: str = XYWH,
+) -> torch.Tensor:
+    """Squared Mahalanobis distance of each measurement to each track:
+    mean (S, K, 8), cov (S, K, 8, 8), measurements (S, N, 4) -> (S, K, N)."""
+    proj_mean, s = project(mean, cov, form)
+    d = measurements[:, None, :, :] - proj_mean[:, :, None, :]  # (S, K, N, 4)
+    # z solves L z = d^T for all N measurements of each track at once
+    z = _forward_sub4(_chol4_lanes(s), d.transpose(-1, -2))
+    return (z**2).sum(-2)
+
+
+CHI2_95_4DOF = 9.4877  # chi-square 95% quantile, 4 degrees of freedom

@@ -2,9 +2,11 @@
 
 Counterpart of ``strongsort_yolo_tpu/track/state.py`` with the stream
 axis written out: every field has a leading (S,) dimension, where the
-JAX package vmaps over a stacked pytree. The ReID feature bank is not
-part of this slice. Status encoding: EMPTY=0, TRACKED=1, LOST=2;
-"unconfirmed" is TRACKED with ``activated=False``.
+JAX package vmaps over a stacked pytree. ``feat`` is the ReID bank of
+EMA appearance embeddings (StrongSORT, BoT-SORT with ReID); a tracker
+without ReID carries a width-1 bank of zeros. Status encoding: EMPTY=0,
+TRACKED=1, LOST=2; "unconfirmed" (StrongSORT: tentative) is TRACKED
+with ``activated=False``.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ class TrackState(NamedTuple):
     activated: torch.Tensor  # (S, K) bool — ByteTrack is_activated
     score: torch.Tensor  # (S, K) float32 last detection confidence
     cls: torch.Tensor  # (S, K) int32 class id
+    feat: torch.Tensor  # (S, K, D) EMA appearance embedding (L2-normed)
     end_frame: torch.Tensor  # (S, K) int32 frame of last update
     hits: torch.Tensor  # (S, K) int32 number of matched updates
     next_id: torch.Tensor  # (S,) int32 next track id to hand out
@@ -49,7 +52,7 @@ class TrackOutputs(NamedTuple):
 
 def init_track_state(
     num_streams: int, num_slots: int = 128,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cpu", *, feat_dim: int = 0,
 ) -> TrackState:
     s, k = num_streams, num_slots
     i32, f32 = torch.int32, torch.float32
@@ -65,6 +68,7 @@ def init_track_state(
         activated=z(s, k, dtype=torch.bool),
         score=z(s, k, dtype=f32),
         cls=z(s, k),
+        feat=z(s, k, max(feat_dim, 1), dtype=f32),
         end_frame=z(s, k),
         hits=z(s, k),
         next_id=torch.ones(s, dtype=i32, device=device),

@@ -6,8 +6,9 @@ there without the suite's conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances: the kernels round every operation as their plain versions
-do, so outputs must be identical; the pipeline compares float32 runs
-with TF32 off, boxes within 1e-3 px and identical ids.
+do, so K1-K3 outputs must be identical, and K4 crops within 1e-6 in
+float32 and one bf16 unit in the last place; the pipelines compare
+float32 runs with TF32 off, boxes within 1e-3 px and identical ids.
 """
 
 import os
@@ -17,17 +18,24 @@ import pytest
 import torch
 
 from strongsort_yolo_tpu_torch.config import DetectorConfig
+from strongsort_yolo_tpu_torch.ops.crops import banded_prep, pyramid_stack
 from strongsort_yolo_tpu_torch.ops.cuda.auction_kernel import auction, auction_plain
+from strongsort_yolo_tpu_torch.ops.cuda.crop_kernel import (
+    banded_crop,
+    banded_crop_frames,
+    banded_crop_plain,
+)
 from strongsort_yolo_tpu_torch.ops.cuda.nms_kernel import nms_keep, nms_keep_plain
 from strongsort_yolo_tpu_torch.ops.cuda.resize_kernel import letterbox_u8
 from strongsort_yolo_tpu_torch.ops.letterbox import letterbox, letterbox_params
 from strongsort_yolo_tpu_torch.pipeline import BatchedPipeline, Pipeline
+from strongsort_yolo_tpu_torch.track.strongsort import StrongSortConfig
 
 pytestmark = pytest.mark.cuda
 
-CKPT = os.path.join(
-    os.path.dirname(__file__), "..", "assets", "yolov8n_synth160.npz"
-)
+ASSETS = os.path.join(os.path.dirname(__file__), "..", "assets")
+CKPT = os.path.join(ASSETS, "yolov8n_synth160.npz")
+OSNET = os.path.join(ASSETS, "osnet_x0_25_synth.npz")
 
 
 @pytest.fixture
@@ -110,3 +118,88 @@ def test_batched_pipeline_card_equals_cpu(dev):
             assert len(a) == len(b)
             np.testing.assert_allclose(b.boxes.xyxy, a.boxes.xyxy, atol=1e-3)
             np.testing.assert_array_equal(b.boxes.id, a.boxes.id)
+
+
+def _bf16_ulps(a, b) -> int:
+    ia, ib = (x.view(torch.int16).int() for x in (a, b))
+    ia = torch.where(ia < 0, -32768 - ia, ia)
+    ib = torch.where(ib < 0, -32768 - ib, ib)
+    return int((ia - ib).abs().max())
+
+
+def _crop_boxes(rng, n, h, w):
+    xy = rng.uniform(-30, [w - 10, h - 10], (n, 2))
+    frac = rng.choice([0.05, 0.2, 0.5, 0.95], (n, 1))
+    wh = rng.uniform(0.3, 1.0, (n, 2)) * frac * np.array([w, h])
+    edges = np.array([[0, 0, 0, 0], [w - 1, h - 1, w + 40, h + 40],
+                      [-50, 100, 40, 300], [w - 40, 100, w + 50, 300],
+                      [100, -60, 200, 40], [100, h - 40, 200, h + 60]])
+    return np.concatenate([np.concatenate([xy, xy + wh], 1), edges]).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("hw", [(1080, 1920), (600, 1000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_banded_crop_kernel_equals_plain(dev, hw, dtype):
+    rng = np.random.default_rng(hw[0])
+    s = 3
+    frames = torch.from_numpy(
+        rng.uniform(0, 1, (s, 3, *hw)).astype(np.float32)).to(dev, dtype)
+    pyr = pyramid_stack(frames)
+    boxes = _crop_boxes(rng, 61, *hw)
+    slot_frame = torch.from_numpy(
+        rng.integers(0, s, len(boxes)).astype(np.int32)).to(dev)
+    scal, ints = banded_prep(torch.from_numpy(boxes).to(dev), hw, pyr.dims,
+                             (128, 64))
+    assert set(ints[:, 2].tolist()) == set(range(len(pyr.dims)))
+    before = banded_crop.launches
+    got = banded_crop(pyr, scal, ints, slot_frame)
+    assert banded_crop.launches == before + 1
+    want = banded_crop_plain(pyr, scal, ints, slot_frame)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        assert float((got - want).abs().max()) <= 1e-6
+    else:
+        assert _bf16_ulps(got, want) <= 1
+    # the fixed-width form: slot b*M + i from frame b
+    fixed = banded_crop_frames(frames, torch.from_numpy(
+        np.stack([boxes[:20]] * s)).to(dev))
+    assert fixed.shape == (s, 20, 3, 128, 64)
+    assert torch.isfinite(fixed.float()).all()
+
+
+def test_banded_crop_rejects_what_it_does_not_take(dev):
+    pyr = pyramid_stack(torch.zeros(1, 3, 64, 64, device=dev))
+    scal = torch.zeros(4, 6, device=dev)
+    ints = torch.zeros(4, 3, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        banded_crop(pyr, scal, ints, torch.zeros(4, dtype=torch.int64,
+                                                 device=dev))
+    with pytest.raises(ValueError):
+        banded_crop(pyr._replace(stack=pyr.stack.half()), scal, ints,
+                    torch.zeros(4, dtype=torch.int32, device=dev))
+
+
+def test_strongsort_pipeline_card_equals_cpu(dev):
+    rng = np.random.default_rng(4)
+    frames = (rng.uniform(0, 0.3, (6, 2, 320, 320, 3)) * 255).astype(np.uint8)
+    for t in range(6):
+        frames[t, :, 60 + 3 * t:160 + 3 * t, 80:150] = 210
+        frames[t, :, 170:250, 200 - 2 * t:270 - 2 * t] = 140
+    outs = {}
+    for device in ("cpu", "cuda"):
+        pipe = Pipeline(
+            DetectorConfig(weights=CKPT, imgsz=160, half=False, max_det=16),
+            tracker=StrongSortConfig(gmc_method="none"), track_slots=16,
+            tracker_max_dets=16, reid_weights=OSNET, device=device,
+        )
+        bp = BatchedPipeline(pipe, 2, (320, 320))
+        outs[device] = [bp.step(f) for f in frames]
+    rows = 0
+    for a_t, b_t in zip(outs["cpu"], outs["cuda"]):
+        for a, b in zip(a_t, b_t):
+            assert len(a) == len(b)
+            np.testing.assert_allclose(b.boxes.xyxy, a.boxes.xyxy, atol=1e-3)
+            np.testing.assert_array_equal(b.boxes.id, a.boxes.id)
+            rows += len(a)
+    assert rows > 0

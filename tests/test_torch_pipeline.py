@@ -139,4 +139,10 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    # the ReID slice included: models.osnet, ops.crops,
+    # ops.cuda.crop_kernel, track.strongsort
+    assert int(out.stdout.strip()) >= 24
+    assert {"strongsort_yolo_tpu_torch.models.osnet",
+            "strongsort_yolo_tpu_torch.ops.crops",
+            "strongsort_yolo_tpu_torch.ops.cuda.crop_kernel",
+            "strongsort_yolo_tpu_torch.track.strongsort"} <= set(mods)

@@ -1,8 +1,9 @@
 """Tracking quality of the port against the bars the JAX package holds
 itself to (BASELINE.md): the ByteTrack public-detection baseline on the
-committed MOT-synth01 fixture, and the trained synth160 checkpoint end
-to end on rendered video. Same bars as tests/test_mot_baseline.py and
-tests/test_trained_e2e.py.
+committed MOT-synth01 fixture, the trained synth160 checkpoint end to
+end on rendered video, and StrongSORT with the trained OSNet through the
+occlusion bounce. Same bars as tests/test_mot_baseline.py,
+tests/test_trained_e2e.py and tests/test_reid_quality.py.
 """
 
 import os
@@ -18,10 +19,13 @@ from strongsort_yolo_tpu_torch.config import DetectorConfig, load_tracker_config
 from strongsort_yolo_tpu_torch.pipeline import Pipeline
 from strongsort_yolo_tpu_torch.track.bytetrack import bytetrack_step
 from strongsort_yolo_tpu_torch.track.state import init_track_state
+from strongsort_yolo_tpu_torch.track.strongsort import StrongSortConfig
+from test_reid_quality import BounceClip
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "MOT-synth01")
 CKPT = os.path.join(ROOT, "assets", "yolov8n_synth160.npz")
+OSNET = os.path.join(ROOT, "assets", "osnet_x0_25_synth.npz")
 
 
 @pytest.fixture(autouse=True)
@@ -81,3 +85,26 @@ def test_trained_model_tracks_real_signal():
     assert m["idsw"] == 0, m
     pred = pipe.predict(np.asarray(next(iter(src))))
     assert len(pred) >= 3 and set(pred.boxes.cls.astype(int)) <= {0, 1, 2}
+
+
+def test_reid_recovery_with_trained_embedder():
+    """Two objects hide behind a wall, bounce while hidden and re-emerge;
+    motion alone swaps their ids, the trained OSNet must keep them (the
+    JAX package measures idf1 0.697 and 4 id switches motion-only)."""
+    pipe = Pipeline(
+        DetectorConfig(weights=CKPT, imgsz=160, conf=0.3, iou=0.4,
+                       max_det=16, half=False),
+        tracker=StrongSortConfig(gmc_method="none", max_age=60),
+        track_slots=16, tracker_max_dets=16, reid_weights=OSNET,
+        device="cpu",
+    )
+    clip = BounceClip()
+    gt, hyp = [], []
+    for t, frame in enumerate(clip):
+        r = pipe.track(frame)
+        gt.append([tuple(g) for g in clip.truth(t)])
+        hyp.append([(int(r.boxes.id[i]), *r.boxes.xyxy[i])
+                    for i in range(len(r.boxes))])
+    m = evaluate_mot(gt, hyp)
+    assert m["idf1"] > 0.73, m
+    assert m["idsw"] <= 3, m
