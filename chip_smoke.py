@@ -15,24 +15,38 @@ raises and the process exits nonzero:
    card, at the shapes the main path gives it, with CUDA-event times of
    both sides (K4: float32 within 1e-6, bfloat16 within one unit in the
    last place, in its fixed-width and its packed form; its times are
-   taken in phase 3, on the StrongSORT path's own crop batch);
+   taken in phase 3, on the StrongSORT path's own crop batch; K5: the
+   LK params of S=8 and of T=32 panned pyramid pairs, and of S=8
+   rotated and scaled pairs after one step per level, within 1e-4 base
+   px and 1e-6, and two launches bit-identical);
 3. the main paths at full width: yolov8n (nc=80, imgsz 640, bf16,
    seeded random weights with the class-head bias calibrated to about
    120 candidates per frame), BatchedPipeline over S=8 streams of
-   1080p frames, 10 ticks each, without camera-motion compensation:
-   BoT-SORT (K1-K3), then StrongSORT with OSNet-x0_25 (random weights
-   from a seed, 256 track slots, 128 tracker dets, reid_topk 128), which
-   runs all four kernels, K4 once per tick; each path's launch counts
-   are zeroed before it and must all have moved after it; then K4 and
-   its plain version are timed on the last tick's crop batch;
+   1080p frames, 10 ticks each: BoT-SORT without camera-motion
+   compensation (K1-K3); StrongSORT with OSNet-x0_25 (random weights
+   from a seed, 256 track slots, 128 tracker dets, reid_topk 128),
+   which runs K1-K4, K4 once per tick, then K4 and its plain version
+   timed on the last tick's crop batch; BoT-SORT with
+   gmc_method="flow_tpu" on a smooth periodic scene that each stream
+   pans by its own integer step per tick (K1-K3 and K5, K5 once per
+   tick, each pan recovered within 2 frame px from tick 1 on), with its
+   ms/tick beside the first path's and the split of its camera-motion
+   estimate; the same scene under fractional pans, whose error is
+   reported apart (within one gray pixel, 6 frame px: the 1080p ->
+   180x320 gray aliases a hard edge panned by a fraction of that);
+   then one stream's 10 frames through 10 Pipeline.track
+   calls (K5 10 launches) and through one Pipeline.track_chunk (K5
+   once), timed; each path's launch counts are zeroed before it and
+   must all have moved after it;
 4. the trained synth160 checkpoints on rendered frames, on the card with
    the kernels and on the CPU with the plain versions (float32, TF32
-   off), for ByteTrack and for StrongSORT with the trained OSNet
-   (assets/osnet_x0_25_synth.npz): equal rows, boxes within 1e-3 px,
-   equal track ids.
+   off), for ByteTrack, for StrongSORT with the trained OSNet
+   (assets/osnet_x0_25_synth.npz) and for BoT-SORT with flow_tpu on a
+   panned copy of the frames: equal rows, boxes within 1e-3 px, equal
+   track ids (and flow warps within 2e-3).
 
 The line before the last is one JSON object with one entry per kernel
-(its launches counted on the StrongSORT path, the slice's main path);
+(its launches counted on the flow path, K4's on the StrongSORT path);
 the last line is {"ok": true, "device": {...}}. Without a CUDA device
 the script exits nonzero before printing any result.
 """
@@ -291,7 +305,116 @@ def phase_kernels(card: str) -> list[dict]:
         max_abs_err=0.0, ms=k3_times[0], plain_ms=k3_times[1],
     ))
     report.append(check_k4(rng))
+    report.append(check_k5(card))
     return report
+
+
+def smooth_image(h: int, w: int, seed: int, moved=None) -> np.ndarray:
+    """(h, w) float32 periodic sum of twelve sinusoids around 128 (whole
+    periods over the frame, so np.roll is an exact translation). With
+    ``moved`` = (th, scale, dx, dy), the image after a rotation by th and
+    a scale about the centre and a pan by (dx, dy): the sinusoids
+    evaluated at the moved coordinates, nothing resampled."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    if moved is not None:  # cur(q) = prev(a^-1 q)
+        th, sc, dx, dy = moved
+        u, v = x - (w - 1) / 2 - dx, y - (h - 1) / 2 - dy
+        x = ((np.cos(th) * u + np.sin(th) * v) / sc + (w - 1) / 2)
+        y = ((-np.sin(th) * u + np.cos(th) * v) / sc + (h - 1) / 2)
+    img = np.full((h, w), 128.0, np.float32)
+    for _ in range(12):
+        fy, fx = rng.integers(1, 6) / h, rng.integers(1, 6) / w
+        ph = rng.uniform(0, 2 * np.pi)
+        img += (rng.uniform(10, 40) * np.sin(2 * np.pi * (fx * x + fy * y)
+                                             + ph)).astype(np.float32)
+    return img
+
+
+def check_k5(card: str) -> dict:
+    """K5 against lk_pyramid_plain on the card, on the flow path's shapes:
+    pyramids (180x320, 90x160, 45x80, blurred) of S=8 stream pairs and
+    of a T=32 chunk, each pair panned by its own (dx, dy) and run to
+    convergence (8, 5, 2 steps), and S=8 pairs rotated and scaled as
+    well, after one step per level (far from converged, so each step's
+    arithmetic shows); pair 3 of the panned cases is noisy so that the
+    trimming threshold bites (far from convergence a noisy pair can put
+    a pixel within one rounding of the threshold: the plain version
+    alone moves by 2.6e-4 px under a one-ulp change of its input, so the
+    unconverged pairs are clean). Tolerance: 1e-4 base px on the translation and 1e-6 on the
+    linear part, the sums running in another order (a wrong damping
+    constant moves the unconverged case by more than 3e-3 px, a step
+    more or less by pixels); two launches must be bit-identical."""
+    import torch
+
+    from strongsort_yolo_tpu_torch.ops.cuda.lk_kernel import (
+        lk_pyramid, lk_pyramid_plain,
+    )
+    from strongsort_yolo_tpu_torch.track.gmc_flow import (
+        _ITERS_BY_LEVEL, BASE_H, BASE_W, _blur, _pool2,
+    )
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    max_err, times = 0.0, {}
+    for n, affine in ((S_MAIN, False), (32, False), (S_MAIN, True)):
+        iters = (1, 1, 1) if affine else _ITERS_BY_LEVEL
+        prev, cur = [], []
+        for k in range(n):
+            img = smooth_image(BASE_H, BASE_W, seed=100 + k)
+            dx, dy = (int(v) for v in rng.integers(-20, 21, 2))
+            if affine:
+                c = smooth_image(BASE_H, BASE_W, seed=100 + k, moved=(
+                    rng.uniform(-0.03, 0.03), rng.uniform(0.97, 1.03), dx, dy))
+            else:
+                c = np.roll(img, (dy, dx), axis=(0, 1))
+            if k == 3 and not affine:
+                c = c + rng.normal(0, 20, c.shape).astype(np.float32)
+            prev.append(img)
+            cur.append(c)
+        pyr = []
+        for planes in (prev, cur):
+            lv = [torch.from_numpy(np.stack(planes)).to(dev)]
+            for _ in range(2):
+                lv.append(_pool2(lv[-1]))
+            pyr.append([_blur(x) for x in lv])
+        params = torch.tensor([1.0, 0.0, 0.0, 0.0, 1.0, 0.0],
+                              device=dev).repeat(n, 1)
+
+        def run():
+            return lk_pyramid(*pyr, params, iters)
+
+        def run_plain():
+            return lk_pyramid_plain(*pyr, params, iters)
+
+        got, again, want = run(), run(), run_plain()
+        torch.cuda.synchronize()
+        case = (f"N={n} {'rotated/scaled' if affine else 'panned'} pairs, "
+                f"iters {iters}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"K5 {case}: two launches differ")
+        d = (got - want).abs()
+        trans_px = float(d[:, [2, 5]].max()) * BASE_W / 2
+        lin = float(d[:, [0, 1, 3, 4]].max())
+        if not (trans_px <= 1e-4 and lin <= 1e-6):
+            raise AssertionError(f"K5 {case}: translation off by {trans_px} "
+                                 f"base px, linear part by {lin}")
+        max_err = max(max_err, float(d.max()))
+        timing = ""
+        if not affine:
+            times[n] = (cuda_ms(run), cuda_ms(run_plain, iters=3, warmup=1))
+            timing = (f"; kernel {times[n][0]:.4f} ms, plain "
+                      f"{times[n][1]:.4f} ms [{card}]")
+        log(f"K5 lk_pyramid {case}, 180x320/90x160/45x80: bit-identical "
+            f"across launches; vs plain max |err| translation {trans_px:.3g} "
+            f"base px, linear {lin:.3g}{timing}")
+    return dict(
+        name="lk_pyramid", route="cuda",
+        source="strongsort_yolo_tpu_torch/csrc/lk_pyramid.cu",
+        replaces="strongsort_yolo_tpu/ops/pallas/lk_kernel.py:225 and "
+                 "strongsort_yolo_tpu/ops/pallas/lk_kernel.py:268",
+        max_abs_err=max_err, ms=times[S_MAIN][0], plain_ms=times[S_MAIN][1],
+    )
 
 
 def _k4_boxes(rng, n: int, h: int, w: int) -> np.ndarray:
@@ -393,9 +516,10 @@ def calibrate_candidates(pipe, frame: np.ndarray, conf: float, target: int):
             branch.out.b.add_(offset)
 
 
-def _drive(bp, ticks, kernels) -> tuple[dict[str, int], list[float], list]:
+def _drive(bp, ticks, kernels, record=None):
     """Step ``bp`` through ``ticks`` with every launch count zeroed just
-    before; -> (counts read just after, ms per tick, last results)."""
+    before, calling ``record(bp)`` after each timed step; -> (counts read
+    just after, ms per tick, last results)."""
     import torch
 
     for k in kernels:
@@ -407,6 +531,8 @@ def _drive(bp, ticks, kernels) -> tuple[dict[str, int], list[float], list]:
         results = bp.step(frames)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
+        if record is not None:
+            record(bp)
     return {k.__name__: k.launches for k in kernels}, times, results
 
 
@@ -439,8 +565,9 @@ def _main_pipeline(tracker, pool):
     return pipe
 
 
-def phase_main_path(card: str, kernels) -> dict[str, int]:
-    """BoT-SORT (K1-K3) at full width."""
+def phase_main_path(card: str, kernels):
+    """BoT-SORT (K1-K3) at full width, without camera-motion
+    compensation. -> (launch counts, median ms/tick)."""
     import torch
 
     from strongsort_yolo_tpu_torch.pipeline import BatchedPipeline
@@ -468,7 +595,142 @@ def phase_main_path(card: str, kernels) -> dict[str, int]:
     log(f"main path active tracks per stream after {TICKS} ticks: {tracks}")
     log(f"main path ms/tick (S={S_MAIN}, 1080p, host clock, synchronized): "
         f"{_ms_line(times)} [{card}]")
-    return counts
+    return counts, sorted(times[2:])[len(times[2:]) // 2]
+
+
+# per-stream camera pan of the flow path, frame px per tick (dx, dy): whole
+# pixels of the 180x320 gray, which samples two of every six 1080p columns
+# (a hard edge panned by a fraction of that aliases)
+PANS = [(6, -6), (-12, 6), (12, 0), (0, -12), (-6, -18), (18, 12), (-18, 6),
+        (24, -6)]
+# fractional pans of the gray, as a real camera makes them
+FRACTIONAL_PANS = [(5, -3), (7, 2), (-9, 4), (3, 8), (-1, -7), (10, -5),
+                   (-4, 11), (1, 0)]
+
+
+def panned_scene(h: int, w: int) -> np.ndarray:
+    """(h, w, 3) uint8 BGR: the smooth periodic background with six
+    bright rectangles drawn over it; np.roll of it is an exact pan."""
+    bg = smooth_image(h, w, seed=7)
+    scene = np.stack([bg - 10, bg, bg + 10], -1).clip(0, 255).astype(np.uint8)
+    for k in range(6):
+        x, y = (100 + 311 * k) % (w - 200), (80 + 157 * k) % (h - 260)
+        scene[y:y + 240, x:x + 180] = (40 * k + 120) % 255
+    return scene
+
+
+def phase_flow_path(card: str, kernels):
+    """BoT-SORT with gmc_method="flow_tpu" at full width (K1-K3 and K5):
+    each stream pans its scene by its own PANS entry per tick; K5 must
+    launch once per tick and recover every pan within 2 frame px from
+    tick 1 on. -> (launch counts, median ms/tick)."""
+    import torch
+
+    from strongsort_yolo_tpu_torch.ops.cuda.lk_kernel import lk_pyramid
+    from strongsort_yolo_tpu_torch.pipeline import BatchedPipeline
+    from strongsort_yolo_tpu_torch.track.bytetrack import ByteTrackConfig
+    from strongsort_yolo_tpu_torch.track.gmc_flow import (
+        _ITERS_BY_LEVEL, batched_warps, frame_to_gray, pyramid,
+    )
+
+    h, w = 1080, 1920
+    scene = panned_scene(h, w)
+
+    def panned(pans):
+        return [np.stack([np.roll(scene, (t * dy, t * dx), axis=(0, 1))
+                          for dx, dy in pans]) for t in range(TICKS)]
+
+    ticks = panned(PANS)
+    pipe = _main_pipeline(
+        ByteTrackConfig(tracker_type="botsort", gmc_method="flow_tpu"),
+        [scene])
+    warps = []
+    bp = BatchedPipeline(pipe, S_MAIN, (h, w))
+    counts, times, results = _drive(
+        bp, ticks, kernels, lambda b: warps.append(b.last_warps.cpu().numpy()))
+    log(f"flow path: yolov8n 640 bf16, S={S_MAIN} 1080p, botsort gmc "
+        f"flow_tpu, pans (frame px/tick) {PANS}; launches over {TICKS} "
+        f"ticks: {counts}")
+    for name, n in counts.items():
+        if n == 0:
+            raise AssertionError(f"flow path never launched {name}")
+    if counts["lk_pyramid"] != TICKS:
+        raise AssertionError(f"K5 launched {counts['lk_pyramid']} times in "
+                             f"{TICKS} ticks, not once per tick")
+    if not np.array_equal(warps[0], np.tile(np.eye(2, 3), (S_MAIN, 1, 1))):
+        raise AssertionError("flow path: tick 0 warps are not the identity")
+    pans = np.array(PANS, np.float32)
+    err = np.abs(np.stack(warps[1:])[:, :, :, 2] - pans).max()
+    lin = np.abs(np.stack(warps[1:])[:, :, :, :2] - np.eye(2)).max()
+    log(f"flow path recovered pans, ticks 1-{TICKS - 1}: max |translation - "
+        f"pan| {err:.4f} frame px, max |linear - I| {lin:.2e}")
+    if not err <= 2.0:
+        raise AssertionError(f"flow path: a pan recovered {err} px off")
+    frac = BatchedPipeline(pipe, S_MAIN, (h, w))
+    frac_warps = []
+    for frames in panned(FRACTIONAL_PANS):
+        frac.step(frames)
+        frac_warps.append(frac.last_warps.cpu().numpy())
+    frac_err = np.abs(np.stack(frac_warps[1:])[:, :, :, 2]
+                      - np.array(FRACTIONAL_PANS, np.float32)).max((0, 2))
+    log(f"flow path fractional pans {FRACTIONAL_PANS}: max |translation - "
+        f"pan| per stream {[round(float(e), 4) for e in frac_err]} frame px, "
+        f"ticks 1-{TICKS - 1}")
+    if not frac_err.max() <= 6.0:
+        raise AssertionError(f"flow path: a fractional pan recovered "
+                             f"{frac_err.max()} px off, past one gray pixel")
+    tracks = _check_results("flow path", results)
+    log(f"flow path active tracks per stream after {TICKS} ticks: {tracks}")
+    log(f"flow path ms/tick (S={S_MAIN}, 1080p, host clock, synchronized): "
+        f"{_ms_line(times)} [{card}]")
+
+    # the GMC share of a tick, on the last tick's frames (CUDA events)
+    frames = pipe._upload(ticks[-1])
+    prev = frame_to_gray(pipe._upload(ticks[-2]))
+    gray = frame_to_gray(frames)
+    pp, pc = pyramid(prev), pyramid(gray)
+    params = torch.tensor([1.0, 0.0, 0.0, 0.0, 1.0, 0.0],
+                          device=pipe.device).repeat(S_MAIN, 1)
+    split = {
+        "gray": cuda_ms(lambda: frame_to_gray(frames)),
+        "pyramid (both)": cuda_ms(lambda: (pyramid(prev), pyramid(gray))),
+        "K5": cuda_ms(lambda: lk_pyramid(pp, pc, params, _ITERS_BY_LEVEL)),
+        "batched_warps": cuda_ms(lambda: batched_warps(
+            prev, gray, (h, w), torch.ones(S_MAIN, dtype=torch.bool,
+                                           device=pipe.device))),
+    }
+    median = sorted(times[2:])[len(times[2:]) // 2]
+    share = (split["gray"] + split["batched_warps"]) / median
+    log("flow path GMC split (mean of 20, ms): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+        + f"; gray + batched_warps = {share:.1%} of the median tick [{card}]")
+
+    # one stream's frames through T track calls and through one chunk
+    one = [tick[0] for tick in ticks]
+    runs = {}
+    for name, run, launches in (
+        ("track", lambda: [pipe.track(f) for f in one], TICKS),
+        ("track_chunk", lambda: pipe.track_chunk(np.stack(one)), 1),
+    ):
+        ms = []
+        for _ in range(2):  # the first pass meets the batch shape first
+            pipe.reset()
+            lk_pyramid.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results = run()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        if lk_pyramid.launches != launches:
+            raise AssertionError(f"{name}: K5 launched {lk_pyramid.launches} "
+                                 f"times over {TICKS} frames, not {launches}")
+        runs[name] = (ms, _check_results(name, results))
+    (ms_t, rows_t), (ms_c, rows_c) = runs["track"], runs["track_chunk"]
+    log(f"stream 0, {TICKS} 1080p frames, flow_tpu: {TICKS} track calls "
+        f"{ms_t[1]:.2f} ms (first pass {ms_t[0]:.2f}), K5 {TICKS} launches; "
+        f"one track_chunk {ms_c[1]:.2f} ms (first pass {ms_c[0]:.2f}), K5 1 "
+        f"launch; tracks per frame {rows_t} vs {rows_c} [{card}]")
+    return counts, median
 
 
 def phase_strongsort_path(card: str, kernels):
@@ -555,18 +817,27 @@ def phase_strongsort_path(card: str, kernels):
 def phase_trained_checkpoint():
     from strongsort_yolo_tpu_torch.config import DetectorConfig
     from strongsort_yolo_tpu_torch.pipeline import BatchedPipeline, Pipeline
+    from strongsort_yolo_tpu_torch.track.bytetrack import ByteTrackConfig
     from strongsort_yolo_tpu_torch.track.strongsort import StrongSortConfig
 
     S, T = 2, 20
     streams = [render_synthetic(T, seed=s + 1) for s in range(S)]
     frames = np.stack([np.stack(f) for f in streams], axis=1)  # (T, S, ...)
-    # StrongSORT confirms a track at its third hit, ByteTrack at its second
-    for name, tracker, reid, confirm in (
-        ("bytetrack", "bytetrack.yaml", None, 2),
+    # the same streams under a camera pan of (4, -3) and (-3, 2) px/frame
+    panned = np.stack([
+        np.stack([np.roll(frames[t, s], (t * dy, t * dx), axis=(0, 1))
+                  for s, (dx, dy) in enumerate([(4, -3), (-3, 2)])])
+        for t in range(T)])
+    # StrongSORT confirms a track at its third hit, ByteTrack and BoT-SORT
+    # at their second
+    for name, tracker, reid, confirm, clip in (
+        ("bytetrack", "bytetrack.yaml", None, 2, frames),
         ("strongsort + trained osnet", StrongSortConfig(gmc_method="none"),
-         OSNET, 3),
+         OSNET, 3, frames),
+        ("botsort flow_tpu, panned", ByteTrackConfig(
+            tracker_type="botsort", gmc_method="flow_tpu"), None, 2, panned),
     ):
-        outs = {}
+        outs, warps = {}, {}
         for device in ("cuda", "cpu"):
             pipe = Pipeline(
                 DetectorConfig(weights=CKPT, imgsz=160, half=False,
@@ -575,7 +846,13 @@ def phase_trained_checkpoint():
                 reid_weights=reid, device=device,
             )
             bp = BatchedPipeline(pipe, S, (320, 320))
-            outs[device] = [bp.step(frames[t]) for t in range(T)]
+            outs[device], warps[device] = [], []
+            for t in range(T):
+                outs[device].append(bp.step(clip[t]))
+                if bp.last_warps is not None:
+                    warps[device].append(bp.last_warps.cpu().numpy())
+        if warps["cpu"]:  # the LK sums run in another order on the card
+            np.testing.assert_allclose(warps["cuda"], warps["cpu"], atol=2e-3)
         rows = 0
         for t in range(T):
             for s in range(S):
@@ -590,7 +867,8 @@ def phase_trained_checkpoint():
             raise AssertionError(f"{name}: only {rows} track rows")
         log(f"trained checkpoint, {name} (synth160, imgsz 160, f32, TF32 "
             f"off): card == CPU on {S}x{T} frames, {rows} track rows, same "
-            f"ids, boxes within 1e-3")
+            f"ids, boxes within 1e-3"
+            + (", warps within 2e-3" if warps["cpu"] else ""))
 
 
 def main() -> int:
@@ -602,6 +880,7 @@ def main() -> int:
         return 1
     from strongsort_yolo_tpu_torch.ops.cuda.auction_kernel import auction
     from strongsort_yolo_tpu_torch.ops.cuda.crop_kernel import banded_crop
+    from strongsort_yolo_tpu_torch.ops.cuda.lk_kernel import lk_pyramid
     from strongsort_yolo_tpu_torch.ops.cuda.nms_kernel import nms_keep
     from strongsort_yolo_tpu_torch.ops.cuda.resize_kernel import letterbox_u8
 
@@ -610,9 +889,14 @@ def main() -> int:
     card = card_line()
     phase_environment()
     report = phase_kernels(card)
-    phase_main_path(card, (letterbox_u8, nms_keep, auction))
-    counts, k4_times = phase_strongsort_path(
+    _, none_ms = phase_main_path(card, (letterbox_u8, nms_keep, auction))
+    ss_counts, k4_times = phase_strongsort_path(
         card, (letterbox_u8, nms_keep, auction, banded_crop))
+    counts, flow_ms = phase_flow_path(
+        card, (letterbox_u8, nms_keep, auction, lk_pyramid))
+    log(f"botsort median ms/tick, S={S_MAIN} 1080p: gmc none {none_ms:.2f}, "
+        f"flow_tpu {flow_ms:.2f} [{card}]")
+    counts["banded_crop"] = ss_counts["banded_crop"]
     for entry in report:
         entry["launches"] = counts[entry["name"]]
         if entry["name"] == "banded_crop":

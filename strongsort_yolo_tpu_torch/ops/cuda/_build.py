@@ -36,9 +36,11 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)  # a host array of ints
 # C entry point -> argtypes; every pointer and the stream are c_void_p so
 # ctypes passes them as 64-bit values
 _SIGNATURES = {
+    "ssyt_lk_pyramid": (_P, _P, _P, _P, _I, _I, _IP, _P),
     "ssyt_letterbox_u8": (_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                           _F, _P),
     "ssyt_nms_keep": (_P, _P, _P, _I, _I, _F, _F, _P),

@@ -10,10 +10,16 @@ launch, one OSNet forward over the real detections of all S frames),
 and the tracker over all S streams (one K3 launch per association
 stage).
 
-Camera-motion compensation is not computed here: a tracker whose
-``gmc_method`` is not ``"none"`` (BoT-SORT's default, and StrongSORT's
-``"ecc"``) needs its (2, 3) warps from the caller, and a step without
-them raises ``ValueError``.
+Camera-motion compensation on the device is ``gmc_method="flow_tpu"``
+(``track/gmc_flow.py``): each tick takes the gray of every uploaded frame
+and estimates all S warps against the stream's previous gray with one K5
+launch, identity for a stream without a previous frame. Any other method
+but ``"none"`` (BoT-SORT's default ``"sparseOptFlow"``, StrongSORT's
+``"ecc"``, host OpenCV estimators in the JAX package) needs its (2, 3)
+warps from the caller, and a step without them raises ``ValueError``.
+:meth:`Pipeline.track_chunk` runs T frames of one stream with the
+semantics of T ``track`` calls: one detect batch, one embed batch, one
+K5 launch over the T frame pairs, then the tracker frame by frame.
 
 ``Results``/``Boxes`` mirror the ultralytics result surface
 (``.boxes{.xyxy,.conf,.cls,.id}``, ``.names``).
@@ -68,6 +74,13 @@ from strongsort_yolo_tpu_torch.ops.letterbox import (
 )
 from strongsort_yolo_tpu_torch.ops.nms import Detections, nms_from_logits
 from strongsort_yolo_tpu_torch.track.bytetrack import ByteTrackConfig, bytetrack_step
+from strongsort_yolo_tpu_torch.track.gmc_flow import (
+    BASE_H,
+    BASE_W,
+    FlowGMC,
+    batched_warps,
+    frame_to_gray,
+)
 from strongsort_yolo_tpu_torch.track.state import (
     TrackOutputs,
     TrackState,
@@ -172,6 +185,10 @@ class Pipeline:
     ``device``: where everything runs; CUDA launches the kernels, the
     CPU runs their plain versions. Default: the current CUDA device if
     there is one, else the CPU.
+    A BoT-SORT or StrongSORT tracker with ``gmc_method="flow_tpu"``
+    estimates camera motion on the device from the stream's previous
+    gray frame, which ``gmc`` (a :class:`FlowGMC`, else None) keeps; it
+    takes no warps from the caller.
     """
 
     def __init__(
@@ -220,6 +237,8 @@ class Pipeline:
             if self.is_strongsort or self.tracker_cfg.tracker_type == "botsort"
             else "none"
         )
+        self.gmc = (FlowGMC(self.device) if self.gmc_method == "flow_tpu"
+                    else None)
         self.reid = None
         self.feat_dim = 0
         if self.is_strongsort or self.tracker_cfg.with_reid:
@@ -361,7 +380,8 @@ class Pipeline:
         if self.gmc_method != "none" and warps is None:
             raise ValueError(
                 f"gmc_method={self.gmc_method!r} needs (S, 2, 3) warps from "
-                "the caller; this port computes no camera motion"
+                "the caller; on the device this port estimates camera "
+                "motion only with gmc_method='flow_tpu'"
             )
         t = self.tracker_max_dets
         warp = warps if self.gmc_method != "none" else None
@@ -384,6 +404,12 @@ class Pipeline:
     def _warps(self, warps, n: int) -> torch.Tensor | None:
         if warps is None:
             return None
+        if self.gmc is not None:
+            raise ValueError(
+                "explicit warps are not taken with gmc_method='flow_tpu' "
+                "(the warp is estimated on the device from the previous "
+                "frame); use another gmc_method to pass host warps"
+            )
         w = torch.as_tensor(np.asarray(warps, np.float32), device=self.device)
         if w.shape != (n, 2, 3):
             raise ValueError(f"warps must be ({n}, 2, 3), got {tuple(w.shape)}")
@@ -409,8 +435,10 @@ class Pipeline:
     # -- host-facing API ------------------------------------------------
 
     def reset(self) -> None:
-        """New stream: clear the tracker state."""
+        """New stream: clear the tracker state and the kept gray frame."""
         self.track_state = self.init_states(1)
+        if self.gmc is not None:
+            self.gmc.reset()
 
     def predict(self, frame_bgr: np.ndarray) -> Results:
         """Detect without tracking."""
@@ -425,63 +453,119 @@ class Pipeline:
         )
 
     def track(self, frame_bgr: np.ndarray, warp=None) -> Results:
-        """Detect + track one frame of this pipeline's stream."""
+        """Detect + track one frame of this pipeline's stream; ``warp``
+        (2, 3) for a tracker whose camera motion comes from the caller."""
         frames = self._upload(frame_bgr[None])
-        det = self.detect(frames)
         w = None if warp is None else self._warps(np.asarray(warp)[None], 1)
+        if self.gmc is not None:
+            w = self.gmc.warps(frames)
+        det = self.detect(frames)
         self.track_state, out = self.associate(
             self.track_state, det, w, self.embed(frames, det)
         )
         return self._track_results(_pack_outputs(out)[0], frame_bgr)
 
+    def track_chunk(self, frames_bgr: np.ndarray, warps=None) -> list[Results]:
+        """T consecutive frames (T, H, W, 3) of this pipeline's stream ->
+        T Results, the same as T :meth:`track` calls: the T frames are
+        detected (and, for a ReID tracker, embedded) as one batch, the
+        ``flow_tpu`` warps of all T frame pairs come from one K5 launch
+        (otherwise ``warps`` (T, 2, 3) from the caller), and the tracker
+        steps frame by frame."""
+        frames = self._upload(frames_bgr)
+        t = frames.shape[0]
+        w = self._warps(warps, t)
+        if self.gmc is not None:
+            w = self.gmc.warps(frames)
+        det = self.detect(frames)
+        feats = self.embed(frames, det)
+        outs = []
+        for k in range(t):
+            self.track_state, out = self.associate(
+                self.track_state, Detections(*(x[k:k + 1] for x in det)),
+                None if w is None else w[k:k + 1],
+                None if feats is None else feats[k:k + 1],
+            )
+            outs.append(out)
+        packed = _pack_outputs(*outs)
+        return [self._track_results(packed[k], frames_bgr[k]) for k in range(t)]
 
-def _pack_outputs(out: TrackOutputs) -> np.ndarray:
-    """(S, K, 8) float32 host array [x1 y1 x2 y2 id score cls active] in
-    one device-to-host copy (ids and classes are exact in float32)."""
-    packed = torch.cat(
-        [
-            out.boxes,
-            out.track_id.float()[..., None],
-            out.score[..., None],
-            out.cls.float()[..., None],
-            out.active.float()[..., None],
-        ],
-        dim=-1,
-    )
+
+def _pack_outputs(*outs: TrackOutputs) -> np.ndarray:
+    """(sum S, K, 8) float32 host array [x1 y1 x2 y2 id score cls active]
+    of one or more steps' outputs in one device-to-host copy (ids and
+    classes are exact in float32)."""
+    packed = torch.cat([
+        torch.cat(
+            [
+                out.boxes,
+                out.track_id.float()[..., None],
+                out.score[..., None],
+                out.cls.float()[..., None],
+                out.active.float()[..., None],
+            ],
+            dim=-1,
+        )
+        for out in outs
+    ])
     return packed.cpu().numpy()
 
 
 class BatchedPipeline:
     """S same-resolution streams stepped together: one model forward,
     one NMS launch and one tracker step per tick for all S, each stream
-    with the semantics of its own ``Pipeline.track`` calls."""
+    with the semantics of its own ``Pipeline.track`` calls. With
+    ``flow_tpu`` it keeps each stream's previous gray frame
+    (``prev_grays`` (S, BASE_H, BASE_W) and ``has_prev`` (S,) bool, both
+    on the device and updated in place, so a tick copies nothing to the
+    device for them); ``last_warps`` holds the (S, 2, 3) warps the last
+    step applied."""
 
     def __init__(self, pipeline: Pipeline, num_streams: int, src_hw):
         self.pipeline = pipeline
         self.num_streams = num_streams
         self.src_hw = (int(src_hw[0]), int(src_hw[1]))
         self.states = pipeline.init_states(num_streams)
+        self.flow = pipeline.gmc is not None
+        self.prev_grays = None
+        if self.flow:
+            self.prev_grays = torch.zeros(
+                (num_streams, BASE_H, BASE_W), dtype=torch.float32,
+                device=pipeline.device,
+            )
+        self.has_prev = torch.zeros(num_streams, dtype=torch.bool,
+                                    device=pipeline.device)
+        self.last_warps: torch.Tensor | None = None
 
     def reset_stream(self, i: int) -> None:
-        """Reinitialise one stream's tracker state in place."""
+        """Reinitialise one stream's tracker state in place; its next
+        warp is the identity."""
         fresh = self.pipeline.init_states(1)
         for batched, f in zip(self.states, fresh):
             batched[i] = f[0]
+        self.has_prev[i] = False
 
     def step(self, frames: np.ndarray, warps: np.ndarray | None = None):
         """frames (S, H, W, 3) uint8 BGR; warps (S, 2, 3) when the
-        tracker compensates camera motion -> list of S Results."""
+        tracker takes camera motion from the caller -> list of S Results."""
         p = self.pipeline
         if tuple(frames.shape[:3]) != (self.num_streams, *self.src_hw):
             raise ValueError(
                 f"frames must be ({self.num_streams}, {self.src_hw[0]}, "
                 f"{self.src_hw[1]}, 3), got {tuple(frames.shape)}"
             )
+        w = p._warps(warps, self.num_streams)
         frames = p._upload(frames)
+        if self.flow:  # all S warps in one K5 launch
+            grays = frame_to_gray(frames)
+            w = batched_warps(self.prev_grays, grays, self.src_hw,
+                              self.has_prev)
         det = p.detect(frames)
-        self.states, out = p.associate(
-            self.states, det, p._warps(warps, self.num_streams),
-            p.embed(frames, det),
-        )
+        self.states, out = p.associate(self.states, det, w,
+                                       p.embed(frames, det))
+        if self.flow:
+            self.prev_grays = grays
+            self.has_prev.fill_(True)
+        self.last_warps = w
         packed = _pack_outputs(out)
         return [p._track_results(packed[s]) for s in range(self.num_streams)]

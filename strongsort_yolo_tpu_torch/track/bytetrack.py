@@ -58,7 +58,8 @@ class ByteTrackConfig:
     match_thresh: float = 0.8
     fuse_score: bool = True
     # BoT-SORT extras
-    gmc_method: str = "sparseOptFlow"  # any value but "none": the caller
+    gmc_method: str = "sparseOptFlow"  # "flow_tpu": estimated on the
+    # device (track/gmc_flow.py); any other value but "none": the caller
     # passes a (2, 3) warp per stream and frame
     proximity_thresh: float = 0.5
     appearance_thresh: float = 0.25

@@ -57,7 +57,8 @@ class StrongSortConfig:
     max_age: int = 30  # missed frames before a confirmed track dies
     n_init: int = 3  # hits to confirm
     ema_alpha: float = 0.9  # appearance bank EMA
-    gmc_method: str = "ecc"  # any value but "none": the caller passes a
+    gmc_method: str = "ecc"  # "flow_tpu": estimated on the device
+    # (track/gmc_flow.py); any other value but "none": the caller passes a
     # (2, 3) warp per stream and frame
     gate: float = kalman.CHI2_95_4DOF
 

@@ -7,8 +7,14 @@ there without the suite's conftest:
 
 Tolerances: the kernels round every operation as their plain versions
 do, so K1-K3 outputs must be identical, and K4 crops within 1e-6 in
-float32 and one bf16 unit in the last place; the pipelines compare
-float32 runs with TF32 off, boxes within 1e-3 px and identical ids.
+float32 and one bf16 unit in the last place; K5 sums in another order
+than its plain version, across a trimming threshold that is a step, so
+its params agree within 1e-4 base px and 1e-6 (a wrong damping
+constant moves them by more than 3e-3 px, a step more or less by
+pixels), on pans it has converged on and on rotated and scaled pairs
+it has not (one step per level), and two of its launches are
+bit-identical; the pipelines compare float32 runs with TF32 off,
+boxes within 1e-3 px and identical ids.
 """
 
 import os
@@ -25,10 +31,13 @@ from strongsort_yolo_tpu_torch.ops.cuda.crop_kernel import (
     banded_crop_frames,
     banded_crop_plain,
 )
+from strongsort_yolo_tpu_torch.ops.cuda.lk_kernel import lk_pyramid, lk_pyramid_plain
 from strongsort_yolo_tpu_torch.ops.cuda.nms_kernel import nms_keep, nms_keep_plain
 from strongsort_yolo_tpu_torch.ops.cuda.resize_kernel import letterbox_u8
 from strongsort_yolo_tpu_torch.ops.letterbox import letterbox, letterbox_params
 from strongsort_yolo_tpu_torch.pipeline import BatchedPipeline, Pipeline
+from strongsort_yolo_tpu_torch.track.bytetrack import ByteTrackConfig
+from strongsort_yolo_tpu_torch.track.gmc_flow import pyramid
 from strongsort_yolo_tpu_torch.track.strongsort import StrongSortConfig
 
 pytestmark = pytest.mark.cuda
@@ -203,3 +212,181 @@ def test_strongsort_pipeline_card_equals_cpu(dev):
             np.testing.assert_array_equal(b.boxes.id, a.boxes.id)
             rows += len(a)
     assert rows > 0
+
+
+def _smooth_planes(n, h=180, w=320, seed=0, affine=False):
+    """n periodic sum-of-sinusoid images and the same images panned
+    (np.roll, an exact translation) by a different (dx, dy) each; pair
+    n - 1 carries noise, so the trimming threshold is active. With
+    ``affine`` the current image is instead rotated and scaled about the
+    centre as well as panned: the sinusoids evaluated at the moved
+    coordinates, so nothing is resampled; no pair is noisy then, because
+    on a noisy pair far from convergence a change of one unit in the
+    last place of the input can move a pixel across the trimming
+    threshold and the result by 2.6e-4 px (seen with the plain version),
+    more than the tolerance."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    prev, cur = [], []
+    for k in range(n):
+        waves = []
+        for _ in range(12):
+            fy, fx = rng.integers(1, 6) / h, rng.integers(1, 6) / w
+            waves.append((fx, fy, rng.uniform(10, 40),
+                          rng.uniform(0, 2 * np.pi)))
+
+        def image(xs, ys):
+            img = np.full((h, w), 128.0, np.float32)
+            for fx, fy, amp, ph in waves:
+                img += amp * np.sin(2 * np.pi * (fx * xs + fy * ys) + ph)
+            return img
+
+        img = image(x, y)
+        dx, dy = (int(v) for v in rng.integers(-20, 21, 2))
+        if affine:  # cur(q) = prev(a^-1 q), a about the centre
+            th, sc = rng.uniform(-0.03, 0.03), rng.uniform(0.97, 1.03)
+            cx, cy = (w - 1) / 2, (h - 1) / 2
+            u, v = x - cx - dx, y - cy - dy
+            c = image((np.cos(th) * u + np.sin(th) * v) / sc + cx,
+                      (-np.sin(th) * u + np.cos(th) * v) / sc + cy)
+        else:
+            c = np.roll(img, (dy, dx), axis=(0, 1))
+        if k == n - 1 and not affine:
+            c = c + rng.normal(0, 20, c.shape).astype(np.float32)
+        prev.append(img)
+        cur.append(c)
+    return (torch.from_numpy(np.stack(prev)), torch.from_numpy(np.stack(cur)))
+
+
+def _assert_lk_close(got, want):
+    """1e-4 base px on the translation, 1e-6 on the linear part."""
+    d = (got.cpu() - want).abs()
+    assert float(d[:, [2, 5]].max()) * 160 <= 1e-4, d
+    assert float(d[:, [0, 1, 3, 4]].max()) <= 1e-6, d
+
+
+def _lk_twice(dev, pp, pc, params, iters):
+    """Two K5 launches on the same input: counted, and bit-identical."""
+    before = lk_pyramid.launches
+    got = lk_pyramid([x.to(dev) for x in pp], [x.to(dev) for x in pc],
+                     params.to(dev), iters)
+    again = lk_pyramid([x.to(dev) for x in pp], [x.to(dev) for x in pc],
+                       params.to(dev), iters)
+    torch.cuda.synchronize()
+    assert lk_pyramid.launches == before + 2
+    assert torch.equal(got, again)
+    return got
+
+
+@pytest.mark.parametrize("n,levels", [(1, 3), (8, 3), (33, 3), (5, 1)])
+def test_lk_kernel_equals_plain(dev, n, levels):
+    """K5 against its plain version on the CPU, on pans it converges on;
+    two launches on the same input are bit-identical (no atomics)."""
+    prev, cur = _smooth_planes(n, seed=n)
+    pp, pc = pyramid(prev)[:levels], pyramid(cur)[:levels]
+    params = torch.tensor([1.0, 0.0, 0.0, 0.0, 1.0, 0.0]).repeat(n, 1)
+    iters = (2, 5, 8) if levels == 3 else (8,)
+    want = lk_pyramid_plain(pp, pc, params, iters)
+    _assert_lk_close(_lk_twice(dev, pp, pc, params, iters), want)
+
+
+@pytest.mark.parametrize("n", [3, 8])
+def test_lk_kernel_equals_plain_unconverged(dev, n):
+    """Rotated, scaled and panned pairs with one Gauss-Newton step per
+    level, far from converged: each step's arithmetic shows in the
+    result, which must still agree with the plain version."""
+    prev, cur = _smooth_planes(n, seed=40 + n, affine=True)
+    pp, pc = pyramid(prev), pyramid(cur)
+    params = torch.tensor([1.0, 0.0, 0.0, 0.0, 1.0, 0.0]).repeat(n, 1)
+    want = lk_pyramid_plain(pp, pc, params, (1, 1, 1))
+    done = lk_pyramid_plain(pp, pc, params, (2, 5, 8))
+    assert float((want - done).abs()[:, [2, 5]].max()) * 160 > 0.1
+    _assert_lk_close(_lk_twice(dev, pp, pc, params, (1, 1, 1)), want)
+
+
+def test_lk_kernel_rejects_what_it_does_not_take(dev):
+    plane = torch.zeros(2, 45, 80, device=dev)
+    params = torch.zeros(2, 6, device=dev)
+    with pytest.raises(ValueError):  # float64 params
+        lk_pyramid([plane], [plane], params.double(), (2,))
+    with pytest.raises(ValueError):  # pair count differs
+        lk_pyramid([plane], [plane[:1]], params, (2,))
+    with pytest.raises(ValueError):  # a plane on the CPU
+        lk_pyramid([plane], [plane.cpu()], params, (2,))
+    with pytest.raises(ValueError):  # more levels than the kernel takes
+        lk_pyramid([plane] * 4, [plane] * 4, params, (2, 2, 2, 2))
+    with pytest.raises(ValueError):  # not one iteration count per level
+        lk_pyramid([plane] * 2, [plane] * 2, params, (2,))
+
+
+def test_flow_pipeline_card_equals_cpu(dev):
+    """BoT-SORT with gmc_method="flow_tpu" over 2 panned streams: the
+    card (K1-K3, K5) against the CPU (plain versions), float32 with TF32
+    off; equal ids, boxes within 1e-3 px, and equal warps within 2e-3
+    (the LK's sums run in another order on the two sides)."""
+    rng = np.random.default_rng(5)
+    bg = (rng.uniform(0, 0.3, (2, 240, 320, 3)) * 255).astype(np.uint8)
+    frames = []
+    for t in range(6):
+        f = np.stack([np.roll(bg[0], (-2 * t, 3 * t), axis=(0, 1)),
+                      np.roll(bg[1], (t, -4 * t), axis=(0, 1))])
+        f[:, 60 + 3 * t:140 + 3 * t, 80:170] = 210
+        frames.append(f)
+    outs, warps = {}, {}
+    for device in ("cpu", "cuda"):
+        pipe = Pipeline(
+            DetectorConfig(weights=CKPT, imgsz=160, half=False, max_det=16),
+            tracker=ByteTrackConfig(tracker_type="botsort",
+                                    gmc_method="flow_tpu"),
+            track_slots=16, tracker_max_dets=16, device=device,
+        )
+        bp = BatchedPipeline(pipe, 2, (240, 320))
+        before = lk_pyramid.launches
+        outs[device], warps[device] = [], []
+        for f in frames:
+            outs[device].append(bp.step(f))
+            warps[device].append(bp.last_warps.cpu().numpy())
+        if device == "cuda":
+            assert lk_pyramid.launches == before + len(frames)
+    np.testing.assert_allclose(warps["cuda"], warps["cpu"], atol=2e-3)
+    rows = 0
+    for a_t, b_t in zip(outs["cpu"], outs["cuda"]):
+        for a, b in zip(a_t, b_t):
+            assert len(a) == len(b)
+            np.testing.assert_allclose(b.boxes.xyxy, a.boxes.xyxy, atol=1e-3)
+            np.testing.assert_array_equal(b.boxes.id, a.boxes.id)
+            rows += len(a)
+    assert rows > 0
+
+
+def test_track_chunk_card_equals_track_calls(dev):
+    """On the card in float32: one track_chunk of T frames (one detect
+    batch, one K5 launch) against T track calls (T launches), BoT-SORT
+    with flow_tpu; equal ids and boxes within 1e-3 px."""
+    rng = np.random.default_rng(6)
+    bg = (rng.uniform(0, 0.3, (240, 320, 3)) * 255).astype(np.uint8)
+    frames = []
+    for t in range(6):
+        f = np.roll(bg, (2 * t, -3 * t), axis=(0, 1))
+        f[60 + 2 * t:140 + 2 * t, 70:160] = 200
+        frames.append(f)
+    rows = {}
+    for mode in ("track", "chunk"):
+        pipe = Pipeline(
+            DetectorConfig(weights=CKPT, imgsz=160, half=False, max_det=16),
+            tracker=ByteTrackConfig(tracker_type="botsort",
+                                    gmc_method="flow_tpu"),
+            track_slots=16, tracker_max_dets=16, device=dev,
+        )
+        before = lk_pyramid.launches
+        if mode == "track":
+            out = [pipe.track(f) for f in frames]
+        else:
+            out = pipe.track_chunk(np.stack(frames))
+        assert lk_pyramid.launches == before + (len(frames) if mode == "track"
+                                                else 1)
+        rows[mode] = [(r.boxes.id, r.boxes.xyxy) for r in out]
+    assert sum(len(i) for i, _ in rows["track"]) > 0
+    for (wi, wb), (gi, gb) in zip(rows["track"], rows["chunk"]):
+        np.testing.assert_array_equal(gi, wi)
+        np.testing.assert_allclose(gb, wb, atol=1e-3)

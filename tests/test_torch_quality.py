@@ -2,8 +2,11 @@
 itself to (BASELINE.md): the ByteTrack public-detection baseline on the
 committed MOT-synth01 fixture, the trained synth160 checkpoint end to
 end on rendered video, and StrongSORT with the trained OSNet through the
-occlusion bounce. Same bars as tests/test_mot_baseline.py,
-tests/test_trained_e2e.py and tests/test_reid_quality.py.
+occlusion bounce, and again through a panning camera with the device
+camera-motion compensation (``gmc_method="flow_tpu"``). Same bars as
+tests/test_mot_baseline.py, tests/test_trained_e2e.py and
+tests/test_reid_quality.py; the panning bar comes from the JAX package's
+``tools/eval_sequence.run_arm`` on the same clip.
 """
 
 import os
@@ -13,7 +16,7 @@ import pytest
 import torch
 
 from strongsort_yolo_tpu.data.mot import MotSequence, evaluate_sequence
-from strongsort_yolo_tpu.media.video import SyntheticDetSource
+from strongsort_yolo_tpu.media.video import OcclusionRelayClip, SyntheticDetSource
 from strongsort_yolo_tpu.utils.metrics import evaluate_mot
 from strongsort_yolo_tpu_torch.config import DetectorConfig, load_tracker_config
 from strongsort_yolo_tpu_torch.pipeline import Pipeline
@@ -108,3 +111,34 @@ def test_reid_recovery_with_trained_embedder():
     m = evaluate_mot(gt, hyp)
     assert m["idf1"] > 0.73, m
     assert m["idsw"] <= 3, m
+
+
+def test_panning_relay_with_flow_gmc():
+    """One occlusion-relay cycle per pair (190 frames, 320x320) under a
+    Lissajous camera pan of amplitude 10 px, StrongSORT + trained OSNet
+    with the device LK estimate of camera motion. The JAX package's
+    ``run_arm(OcclusionRelayClip(cycles=1, pan_amp=10), lam=0.98,
+    gmc=...)`` on the CPU measured, visible-only protocol: flow_tpu MOTA
+    0.7261, IDF1 0.6328, 7 id switches; gmc none MOTA 0.7070, IDF1
+    0.6125, 7 id switches. The port measured the flow_tpu numbers."""
+    pipe = Pipeline(
+        DetectorConfig(weights=CKPT, imgsz=160, conf=0.3, iou=0.4,
+                       max_det=16, half=False),
+        tracker=StrongSortConfig(gmc_method="flow_tpu", max_age=60,
+                                 lambda_appearance=0.98),
+        track_slots=16, tracker_max_dets=16, reid_weights=OSNET,
+        device="cpu",
+    )
+    clip = OcclusionRelayClip(cycles=1, pan_amp=10)
+    gt, hyp = [], []
+    for t, frame in enumerate(clip):
+        r = pipe.track(frame)
+        gt.append([tuple(g) for g in clip.truth(t)])
+        hyp.append([(int(r.boxes.id[i]), *r.boxes.xyxy[i])
+                    for i in range(len(r.boxes))])
+    m = evaluate_mot(gt, hyp)
+    # between the JAX package's gmc-none and flow_tpu numbers: the bar
+    # holds only with the camera motion compensated
+    assert m["mota"] >= 0.715, m
+    assert m["idf1"] >= 0.62, m
+    assert m["idsw"] <= 7, m
