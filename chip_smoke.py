@@ -18,7 +18,9 @@ raises and the process exits nonzero:
    taken in phase 3, on the StrongSORT path's own crop batch; K5: the
    LK params of S=8 and of T=32 panned pyramid pairs, and of S=8
    rotated and scaled pairs after one step per level, within 1e-4 base
-   px and 1e-6, and two launches bit-identical);
+   px and 1e-6, and two launches bit-identical; K6: each of the three
+   fused OSNet-x0_25 stages on G=480 seeded crops, float32 within 1e-4
+   and bfloat16 bit-identical, two launches bit-identical);
 3. the main paths at full width: yolov8n (nc=80, imgsz 640, bf16,
    seeded random weights with the class-head bias calibrated to about
    120 candidates per frame), BatchedPipeline over S=8 streams of
@@ -26,7 +28,11 @@ raises and the process exits nonzero:
    compensation (K1-K3); StrongSORT with OSNet-x0_25 (random weights
    from a seed, 256 track slots, 128 tracker dets, reid_topk 128),
    which runs K1-K4, K4 once per tick, then K4 and its plain version
-   timed on the last tick's crop batch; BoT-SORT with
+   timed on the last tick's crop batch; the same with reid_fused=True
+   (K1-K4 and K6, K6 three times per tick), its ms/tick beside the
+   unfused path's and OSNet on one crop batch fused against unfused;
+   the fused path with reid_cadence=2 (the embed masks alternate, the
+   crop batch about halves); BoT-SORT with
    gmc_method="flow_tpu" on a smooth periodic scene that each stream
    pans by its own integer step per tick (K1-K3 and K5, K5 once per
    tick, each pan recovered within 2 frame px from tick 1 on), with its
@@ -41,14 +47,24 @@ raises and the process exits nonzero:
 4. the trained synth160 checkpoints on rendered frames, on the card with
    the kernels and on the CPU with the plain versions (float32, TF32
    off), for ByteTrack, for StrongSORT with the trained OSNet
-   (assets/osnet_x0_25_synth.npz) and for BoT-SORT with flow_tpu on a
-   panned copy of the frames: equal rows, boxes within 1e-3 px, equal
-   track ids (and flow warps within 2e-3).
+   (assets/osnet_x0_25_synth.npz), unfused and fused, and for BoT-SORT
+   with flow_tpu on a panned copy of the frames: equal rows, boxes
+   within 1e-3 px, equal track ids (and flow warps within 2e-3).
 
-The line before the last is one JSON object with one entry per kernel
-(its launches counted on the flow path, K4's on the StrongSORT path);
-the last line is {"ok": true, "device": {...}}. Without a CUDA device
-the script exits nonzero before printing any result.
+The JSON line before the card's name is one object with one entry per
+kernel: its launches (K1-K3 and K5 counted on the flow path, K4 on the
+StrongSORT path, K6 on the fused one), its largest difference from its
+plain version, its time and its plain version's (CUDA events), its
+bound (the larger of its bytes, each input read once and each output
+written once, over 3.35 TB/s, where K1 and K4 read only the 32-byte
+sectors of their input that hold a pixel their taps weigh above zero,
+and its operations over the peak for their type: 989 TFLOP/s in bf16,
+67 TFLOP/s in float32 outside the tensor cores, the H100 SXM's
+published rates) with what sets it, and
+library_ms, the time of one PyTorch call computing the same function
+(null: none does). The last line is {"ok": true, "device": {...}}.
+Without a CUDA device the script exits nonzero before printing any
+result.
 """
 
 from __future__ import annotations
@@ -67,6 +83,8 @@ CKPT = os.path.join(ROOT, "assets", "yolov8n_synth160.npz")
 OSNET = os.path.join(ROOT, "assets", "osnet_x0_25_synth.npz")
 TARGET_DETS = 120  # candidates per frame the class bias is set for
 S_MAIN, TICKS = 8, 10
+HBM_BYTES_PER_MS = 3.35e9  # H100 SXM, 3.35 TB/s
+PEAK_OPS_PER_MS = {"bf16": 989e9, "f32": 67e9}  # tensor cores; CUDA cores
 
 
 def log(msg: str) -> None:
@@ -97,6 +115,75 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: int, ops: float, kind: str = "f32") -> tuple[float, str]:
+    """The least time the card could take: the larger of ``nbytes`` over
+    the memory rate and ``ops`` over the peak of their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_MS
+    t_ops = ops / PEAK_OPS_PER_MS[kind]
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+SECTOR = 32  # bytes: the least the card's memory moves at once
+
+
+def sector_bytes(touched, elem: int) -> int:
+    """Bytes of the 32-byte sectors of a row-major buffer of ``elem``-byte
+    elements that hold an element ``touched`` (bool, the buffer's shape,
+    rows a whole number of sectors long) marks."""
+    if touched.shape[-1] * elem % SECTOR:
+        raise ValueError("rows must be a whole number of sectors long")
+    return int(touched.reshape(-1, SECTOR // elem).any(-1).sum()) * SECTOR
+
+
+def k1_bytes(frames, lp, taps, out) -> int:
+    """Bytes K1 must move: the 32-byte sectors of each frame that hold a
+    pixel some tap weighs above zero (1080p -> 360x640 weighs every third
+    row and column; a row's weighed pixels lie closer than a sector, so
+    those rows move whole), the tap tables and the output."""
+    import torch
+
+    s, h, w, c = frames.shape
+
+    def weighed(cut):
+        return taps.idx[:, cut].long()[taps.w[:, cut] != 0].unique()
+
+    rows, cols = weighed(slice(0, lp.new_h)), weighed(slice(lp.new_h, None))
+    touched = torch.zeros((h, w, c), dtype=torch.bool, device=frames.device)
+    touched[rows[:, None], cols[None, :]] = True
+    return (s * sector_bytes(touched.reshape(h, w * c), 1)
+            + nbytes(taps.idx, taps.w, out))
+
+
+def k4_bytes(pyr, scal, ints, slot_frame, crops) -> int:
+    """Bytes K4 must move: the 32-byte sectors of the pyramid stack that
+    hold a pixel some slot's taps weigh above zero (each read once,
+    however many slots share it), the slot parameters and the crops."""
+    import torch
+
+    from strongsort_yolo_tpu_torch.ops.cuda.crop_kernel import _axis_taps
+
+    s, c, sum_h, width = pyr.stack.shape
+    oh, ow = crops.shape[-2:]
+    dt = pyr.stack.dtype
+    y_lo, y_hi, _, wy1 = _axis_taps(scal[:, 0], scal[:, 1], oh, scal[:, 4], dt)
+    x_lo, x_hi, _, wx1 = _axis_taps(scal[:, 2], scal[:, 3], ow, scal[:, 5], dt)
+    # a lo tap always weighs above zero: it stands in for a hi tap of 0
+    rows = torch.cat([y_lo, torch.where(wy1 != 0, y_hi, y_lo)], 1)
+    cols = torch.cat([x_lo, torch.where(wx1 != 0, x_hi, x_lo)], 1)
+    rows = rows + pyr.row_off.long()[ints[:, 2].long()][:, None]
+    touched = torch.zeros((s, sum_h, width), dtype=torch.bool,
+                          device=crops.device)
+    touched[slot_frame.long()[:, None, None], rows[:, :, None],
+            cols[:, None, :]] = True
+    # each channel's plane is read where the first one is
+    return (c * sector_bytes(touched, pyr.stack.element_size())
+            + nbytes(pyr.row_off, scal, ints, slot_frame, crops))
 
 
 def make_frames(h: int, w: int, n: int = 8, seed: int = 0) -> list[np.ndarray]:
@@ -221,11 +308,18 @@ def phase_kernels(card: str) -> list[dict]:
             )
     log(f"K1 time (8,1080,1920,3)->bf16 640: kernel {k1_times[0]:.4f} ms, "
         f"plain {k1_times[1]:.4f} ms [{card}]")
+    frames = torch.zeros((8, 1080, 1920, 3), dtype=torch.uint8, device=dev)
+    lp = letterbox_params(1080, 1920, 640)
+    taps = resize_taps((1080, 1920), lp, dev)
+    out = letterbox_u8(frames, lp, dtype=torch.bfloat16, taps=taps)
+    # about 4 operations per output value: the taps' weighted sum, /255
+    k1_bound = bound(k1_bytes(frames, lp, taps, out), 4 * out.numel())
     report.append(dict(
         name="letterbox_u8", route="cuda",
         source="strongsort_yolo_tpu_torch/csrc/letterbox.cu",
         replaces="strongsort_yolo_tpu/ops/pallas/resize_kernel.py:198",
         max_abs_err=k1_err, ms=k1_times[0], plain_ms=k1_times[1],
+        bound_ms=k1_bound[0], bound_by=k1_bound[1], library_ms=None,
     ))
 
     # K2: 8 frames of 512 score-sorted candidates, dense clusters
@@ -253,11 +347,14 @@ def phase_kernels(card: str) -> list[dict]:
     )
     log(f"K2 nms_keep (8,512): bit-identical, {int(got.sum())} kept; kernel "
         f"{k2_times[0]:.4f} ms, plain {k2_times[1]:.4f} ms [{card}]")
+    # about 15 operations per candidate pair: the IoU and its comparison
+    k2_bound = bound(nbytes(boxes, conf, got), 15 * S * K * (K - 1) / 2)
     report.append(dict(
         name="nms_keep", route="cuda",
         source="strongsort_yolo_tpu_torch/csrc/nms_keep.cu",
         replaces="strongsort_yolo_tpu/ops/pallas/nms_kernel.py:172",
         max_abs_err=0.0, ms=k2_times[0], plain_ms=k2_times[1],
+        bound_ms=k2_bound[0], bound_by=k2_bound[1], library_ms=None,
     ))
 
     # K3: 24 problems of 256 slots x 128 detections
@@ -298,14 +395,19 @@ def phase_kernels(card: str) -> list[dict]:
     log(f"K3 auction (24,256,128): identical r2c/c2r, {int((r2c >= 0).sum())} "
         f"matches, scipy objective agrees on 4; kernel {k3_times[0]:.4f} ms, "
         f"plain {k3_times[1]:.4f} ms [{card}]")
+    # the bidding rounds depend on the costs; the least any solver needs
+    # is one look at each cost
+    k3_bound = bound(nbytes(*args, *got), P * R * C)
     report.append(dict(
         name="auction", route="cuda",
         source="strongsort_yolo_tpu_torch/csrc/auction.cu",
         replaces="strongsort_yolo_tpu/ops/pallas/auction_kernel.py:156",
         max_abs_err=0.0, ms=k3_times[0], plain_ms=k3_times[1],
+        bound_ms=k3_bound[0], bound_by=k3_bound[1], library_ms=None,
     ))
     report.append(check_k4(rng))
     report.append(check_k5(card))
+    report.append(check_k6(card))
     return report
 
 
@@ -403,6 +505,13 @@ def check_k5(card: str) -> dict:
         timing = ""
         if not affine:
             times[n] = (cuda_ms(run), cuda_ms(run_plain, iters=3, warmup=1))
+            if n == S_MAIN:
+                # about 90 operations per pixel and Gauss-Newton step (the
+                # bilinear taps, gradients, residual, 27 products summed)
+                steps = sum(lv.shape[1] * lv.shape[2] * it
+                            for lv, it in zip(pyr[0], iters))
+                k5_bound = bound(nbytes(*pyr[0], *pyr[1], params, got),
+                                 90 * n * steps)
             timing = (f"; kernel {times[n][0]:.4f} ms, plain "
                       f"{times[n][1]:.4f} ms [{card}]")
         log(f"K5 lk_pyramid {case}, 180x320/90x160/45x80: bit-identical "
@@ -414,6 +523,93 @@ def check_k5(card: str) -> dict:
         replaces="strongsort_yolo_tpu/ops/pallas/lk_kernel.py:225 and "
                  "strongsort_yolo_tpu/ops/pallas/lk_kernel.py:268",
         max_abs_err=max_err, ms=times[S_MAIN][0], plain_ms=times[S_MAIN][1],
+        bound_ms=k5_bound[0], bound_by=k5_bound[1], library_ms=None,
+    )
+
+
+def stage_macs(spec) -> int:
+    """Multiply-adds of one crop through one fused OSNet stage: two OS
+    blocks (conv1, ten lite convs, four gates, conv3, the down conv where
+    the widths differ) and the transition or conv5."""
+    p, mid, ci, co = spec.h * spec.w, spec.mid, spec.c_in, spec.c_out
+    lites = 10 * (p * mid * mid + 9 * p * mid)
+    gates = 4 * 2 * mid * max(mid // 16, 1)
+    block_a = p * mid * ci + lites + gates + p * co * mid + (
+        p * co * ci if ci != co else 0)
+    block_b = p * mid * co + lites + gates + p * co * mid
+    return block_a + block_b + p * co * co
+
+
+def check_k6(card: str) -> dict:
+    """K6 against os_stage_plain on the card: each of the three stages of
+    the main path's OSNet-x0_25 (random weights from seed 1, as the
+    pipeline's) on G=480 seeded crops, float32 within 1e-4 (the sums run
+    in another order) and bfloat16 bit-identical (their differences stay
+    below its rounding), two launches bit-identical; times in bfloat16,
+    the main path's dtype."""
+    import torch
+
+    from strongsort_yolo_tpu_torch.models.osnet import (
+        OsnetConfig, init_osnet, osnet_from_state_dict,
+    )
+    from strongsort_yolo_tpu_torch.ops.cuda.osnet_kernel import (
+        os_stage, os_stage_plain, stage_specs, stage_weights,
+    )
+
+    dev = torch.device("cuda")
+    cfg = OsnetConfig()
+    model = osnet_from_state_dict(
+        init_osnet(cfg, torch.Generator().manual_seed(1)), cfg)
+    rng = np.random.default_rng(6)
+    g = 480
+    max_err, total = 0.0, {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                           "ops_ms": 0.0, "bytes_ms": 0.0}
+    for i, spec in enumerate(stage_specs(cfg.channels)):
+        x32 = torch.from_numpy(rng.normal(
+            0, 1, (g, spec.c_in, spec.h, spec.w)).astype(np.float32)).to(dev)
+        for dt in (torch.float32, torch.bfloat16):
+            w = stage_weights(model, i, dt).to(dev)
+            x = x32.to(dt)
+            got, again = os_stage(x, w, spec), os_stage(x, w, spec)
+            want = os_stage_plain(x, w, spec)
+            torch.cuda.synchronize()
+            name = f"K6 os_stage stage {i + 2} {tuple(x.shape)} {dt}"
+            if not torch.equal(got, again):
+                raise AssertionError(f"{name}: two launches differ")
+            err = float((got.float() - want.float()).abs().max())
+            if dt == torch.float32 and not err <= 1e-4:
+                raise AssertionError(f"{name}: max |err| {err} > 1e-4")
+            if dt == torch.bfloat16 and not torch.equal(got, want):
+                raise AssertionError(f"{name}: max |err| {err}, not "
+                                     "bit-identical")
+            max_err = max(max_err, err)
+            kind = "bf16" if dt == torch.bfloat16 else "f32"
+            flops = 2 * stage_macs(spec) * g
+            b = bound(nbytes(x, got, w.mats, w.vecs), flops, kind)
+            ms = cuda_ms(lambda: os_stage(x, w, spec))
+            plain = cuda_ms(lambda: os_stage_plain(x, w, spec), iters=5)
+            log(f"{name}: max |err| {err:.3g}; kernel {ms:.4f} ms, plain "
+                f"{plain:.4f} ms, "
+                f"bound {b[0]:.4f} ms ({b[1]}, {flops / 1e9:.2f} GFLOP), "
+                f"{b[0] / ms:.1%} of it [{card}]")
+            if kind == "bf16":
+                total["ms"] += ms
+                total["plain_ms"] += plain
+                total["bound_ms"] += b[0]
+                total["ops_ms"] += flops / PEAK_OPS_PER_MS[kind]
+                total["bytes_ms"] += nbytes(x, got, w.mats,
+                                            w.vecs) / HBM_BYTES_PER_MS
+    log(f"K6 three stages at G={g} bf16: kernel {total['ms']:.4f} ms, plain "
+        f"{total['plain_ms']:.4f} ms, bound {total['bound_ms']:.4f} ms [{card}]")
+    return dict(
+        name="os_stage", route="cuda",
+        source="strongsort_yolo_tpu_torch/csrc/os_stage.cu",
+        replaces="strongsort_yolo_tpu/ops/pallas/osnet_kernel.py:292",
+        max_abs_err=max_err, ms=total["ms"], plain_ms=total["plain_ms"],
+        bound_ms=total["bound_ms"],
+        bound_by=("operations" if total["ops_ms"] >= total["bytes_ms"]
+                  else "bytes"),
+        library_ms=None,
     )
 
 
@@ -491,7 +687,7 @@ def check_k4(rng) -> dict:
         source="strongsort_yolo_tpu_torch/csrc/banded_crop.cu",
         replaces="strongsort_yolo_tpu/ops/pallas/crop_kernel.py:147 and "
                  "strongsort_yolo_tpu/ops/pallas/crop_kernel.py:292",
-        max_abs_err=max_err,
+        max_abs_err=max_err, library_ms=None,
     )
 
 
@@ -552,14 +748,14 @@ def _ms_line(times: list[float]) -> str:
             f"first {times[0]:.2f}; all {[round(x, 2) for x in times]}")
 
 
-def _main_pipeline(tracker, pool):
+def _main_pipeline(tracker, pool, *, fused: bool = False, cadence: int = 1):
     from strongsort_yolo_tpu_torch.config import DetectorConfig
     from strongsort_yolo_tpu_torch.pipeline import Pipeline
 
     pipe = Pipeline(
         DetectorConfig(weights="yolov8n", imgsz=640, half=True, max_det=1000),
-        tracker=tracker, track_slots=256, tracker_max_dets=128,
-        reid_topk=128, seed=0, device="cuda",
+        tracker=tracker, track_slots=256, tracker_max_dets=128, reid_topk=128,
+        reid_cadence=cadence, reid_fused=fused, seed=0, device="cuda",
     )
     calibrate_candidates(pipe, pool[0], pipe.det_cfg.conf, TARGET_DETS)
     return pipe
@@ -733,9 +929,22 @@ def phase_flow_path(card: str, kernels):
     return counts, median
 
 
+def _record_slots(pipe) -> list[int]:
+    """Note G, the crop slots, of every embed of ``pipe``."""
+    slot_counts, embed_slots = [], pipe.embed_slots
+
+    def recording(det, mask=None):
+        slots = embed_slots(det, mask)
+        slot_counts.append(slots.shape[1])
+        return slots
+
+    pipe.embed_slots = recording
+    return slot_counts
+
+
 def phase_strongsort_path(card: str, kernels):
     """StrongSORT + OSNet-x0_25 at full width: K1-K4. -> (launch counts,
-    K4 and plain ms on the last tick's crop batch)."""
+    K4's entries, median ms/tick, the pipeline, the ticks, G per tick)."""
     import torch
 
     from strongsort_yolo_tpu_torch.ops.cuda.crop_kernel import (
@@ -749,15 +958,8 @@ def phase_strongsort_path(card: str, kernels):
     pipe = _main_pipeline(StrongSortConfig(gmc_method="none"), pool)
     ticks = [np.stack([pool[(s + t) % len(pool)] for s in range(S_MAIN)])
              for t in range(TICKS)]
-    slot_counts = []
     embed_slots = pipe.embed_slots
-
-    def recording_slots(det):  # note G of every tick
-        slots = embed_slots(det)
-        slot_counts.append(slots.shape[1])
-        return slots
-
-    pipe.embed_slots = recording_slots
+    slot_counts = _record_slots(pipe)
     counts, times, results = _drive(
         BatchedPipeline(pipe, S_MAIN, (h, w)), ticks, kernels)
     log(f"strongsort path: yolov8n 640 bf16 + osnet_x0_25 (feat 512, crops "
@@ -808,10 +1010,97 @@ def phase_strongsort_path(card: str, kernels):
         + f" [{card}]")
     k4_times = (cuda_ms(lambda: banded_crop(pyr, *params)),
                 cuda_ms(lambda: banded_crop_plain(pyr, *params), iters=5))
+    # about 7 operations per output value: two column taps, two row taps
+    k4_bound = bound(k4_bytes(pyr, *params, crops), 7 * crops.numel())
     log(f"K4 time on the path's crop batch (G={slots.shape[1]} slots of "
         f"{S_MAIN} 1080p frames, bf16 -> (G,3,128,64)): kernel "
-        f"{k4_times[0]:.4f} ms, plain {k4_times[1]:.4f} ms [{card}]")
-    return counts, k4_times
+        f"{k4_times[0]:.4f} ms, plain {k4_times[1]:.4f} ms, bound "
+        f"{k4_bound[0]:.4f} ms ({k4_bound[1]}) [{card}]")
+    k4 = dict(ms=k4_times[0], plain_ms=k4_times[1], bound_ms=k4_bound[0],
+              bound_by=k4_bound[1])
+    median = sorted(times[2:])[len(times[2:]) // 2]
+    return counts, k4, median, pipe, ticks, slot_counts
+
+
+def phase_fused_strongsort_path(card: str, kernels, unfused):
+    """The StrongSORT path with the fused OSNet: K1-K4 and K6, K6 three
+    times and K4 once per tick; its ms/tick beside the unfused path's,
+    OSNet on one crop batch fused against unfused (CUDA events); then
+    the fused path with reid_cadence=2. -> launch counts."""
+    import torch
+
+    from strongsort_yolo_tpu_torch.ops.cuda.crop_kernel import banded_crop
+    from strongsort_yolo_tpu_torch.pipeline import BatchedPipeline
+    from strongsort_yolo_tpu_torch.track.strongsort import StrongSortConfig
+
+    unfused_ms, upipe, ticks, unfused_g = unfused
+    h, w = 1080, 1920
+    pool = make_frames(h, w, seed=1)
+    pipe = _main_pipeline(StrongSortConfig(gmc_method="none"), pool,
+                          fused=True)
+    if pipe.reid._stages is None:
+        raise AssertionError("reid_fused=True built an unfused OSNet")
+    recorded = _record_slots(pipe)
+    counts, times, results = _drive(
+        BatchedPipeline(pipe, S_MAIN, (h, w)), ticks, kernels)
+    slot_counts = list(recorded)
+    log(f"fused strongsort path (reid_fused=True), otherwise as the "
+        f"strongsort path; launches over {TICKS} ticks: {counts}")
+    for name, n in counts.items():
+        if n == 0:
+            raise AssertionError(f"fused strongsort path never launched {name}")
+    if counts["os_stage"] != 3 * TICKS or counts["banded_crop"] != TICKS:
+        raise AssertionError(
+            f"K6 launched {counts['os_stage']} and K4 {counts['banded_crop']} "
+            f"times in {TICKS} ticks, not 3 and 1 per tick")
+    tracks = _check_results("fused strongsort path", results)
+    median = sorted(times[2:])[len(times[2:]) // 2]
+    log(f"fused strongsort path G per tick {slot_counts} (unfused path "
+        f"{unfused_g}); active tracks per stream {tracks}")
+    log(f"strongsort ms/tick (S={S_MAIN}, 1080p, host clock, synchronized): "
+        f"fused {_ms_line(times)}; median fused {median:.2f} vs unfused "
+        f"{unfused_ms:.2f} [{card}]")
+
+    # OSNet on the last tick's crop batch, fused against unfused
+    frames = pipe._upload(ticks[-1])
+    det = pipe.detect(frames)
+    slots = pipe.embed_slots(det)
+    with torch.no_grad():
+        pyr = pipe.pyramid(frames)
+        crops = banded_crop(pyr, *pipe.crop_params(pyr, det, slots))
+        f_fused, f_plain = pipe.reid(crops), upipe.reid(crops)
+        cos = (f_fused * f_plain).sum(-1)
+        if not (torch.isfinite(f_fused).all() and float(cos.mean()) >= 0.99):
+            raise AssertionError(f"fused OSNet: cosine to the unfused "
+                                 f"embedding {float(cos.mean())} on average")
+        osnet_ms = (cuda_ms(lambda: pipe.reid(crops)),
+                    cuda_ms(lambda: upipe.reid(crops)))
+    log(f"OSNet-x0_25 bf16 on the last tick's crop batch (G={crops.shape[0]}):"
+        f" fused (3 K6 launches) {osnet_ms[0]:.4f} ms, unfused "
+        f"{osnet_ms[1]:.4f} ms (CUDA events, mean of 20); embedding cosine "
+        f"fused vs unfused min {float(cos.min()):.5f}, mean "
+        f"{float(cos.mean()):.5f} [{card}]")
+
+    # cadence 2: each tick embeds the streams with (s + tick) % 2 == 0
+    cpipe = _main_pipeline(StrongSortConfig(gmc_method="none"), pool,
+                           fused=True, cadence=2)
+    cad_g, masks = _record_slots(cpipe), []
+    counts2, times2, results2 = _drive(
+        BatchedPipeline(cpipe, S_MAIN, (h, w)), ticks, kernels,
+        lambda b: masks.append(b.last_embed_mask))
+    for t, m in enumerate(masks):
+        if not np.array_equal(m, (np.arange(S_MAIN) + t) % 2 == 0):
+            raise AssertionError(f"cadence 2: tick {t} embed mask {m}")
+    ratio = sum(cad_g) / sum(slot_counts)
+    if not 0.35 <= ratio <= 0.65:
+        raise AssertionError(f"cadence 2 cropped {ratio:.2f} of cadence 1's "
+                             "slots, not about half")
+    _check_results("cadence 2 path", results2)
+    log(f"cadence 2 (fused, S={S_MAIN}): embed masks alternate "
+        f"({masks[0].astype(int).tolist()}, then its complement); G per tick "
+        f"{cad_g} against {slot_counts} at cadence 1 ({ratio:.2f}); launches "
+        f"{counts2}; ms/tick {_ms_line(times2)} [{card}]")
+    return counts
 
 
 def phase_trained_checkpoint():
@@ -834,6 +1123,8 @@ def phase_trained_checkpoint():
         ("bytetrack", "bytetrack.yaml", None, 2, frames),
         ("strongsort + trained osnet", StrongSortConfig(gmc_method="none"),
          OSNET, 3, frames),
+        ("strongsort + trained osnet, fused",
+         StrongSortConfig(gmc_method="none"), OSNET, 3, frames),
         ("botsort flow_tpu, panned", ByteTrackConfig(
             tracker_type="botsort", gmc_method="flow_tpu"), None, 2, panned),
     ):
@@ -843,7 +1134,8 @@ def phase_trained_checkpoint():
                 DetectorConfig(weights=CKPT, imgsz=160, half=False,
                                max_det=16),
                 tracker=tracker, track_slots=16, tracker_max_dets=16,
-                reid_weights=reid, device=device,
+                reid_weights=reid, reid_fused=name.endswith("fused"),
+                device=device,
             )
             bp = BatchedPipeline(pipe, S, (320, 320))
             outs[device], warps[device] = [], []
@@ -882,6 +1174,7 @@ def main() -> int:
     from strongsort_yolo_tpu_torch.ops.cuda.crop_kernel import banded_crop
     from strongsort_yolo_tpu_torch.ops.cuda.lk_kernel import lk_pyramid
     from strongsort_yolo_tpu_torch.ops.cuda.nms_kernel import nms_keep
+    from strongsort_yolo_tpu_torch.ops.cuda.osnet_kernel import os_stage
     from strongsort_yolo_tpu_torch.ops.cuda.resize_kernel import letterbox_u8
 
     torch.backends.cudnn.allow_tf32 = False
@@ -890,21 +1183,27 @@ def main() -> int:
     phase_environment()
     report = phase_kernels(card)
     _, none_ms = phase_main_path(card, (letterbox_u8, nms_keep, auction))
-    ss_counts, k4_times = phase_strongsort_path(
+    ss_counts, k4, ss_ms, ss_pipe, ss_ticks, ss_g = phase_strongsort_path(
         card, (letterbox_u8, nms_keep, auction, banded_crop))
+    fused_counts = phase_fused_strongsort_path(
+        card, (letterbox_u8, nms_keep, auction, banded_crop, os_stage),
+        (ss_ms, ss_pipe, ss_ticks, ss_g))
+    del ss_pipe
     counts, flow_ms = phase_flow_path(
         card, (letterbox_u8, nms_keep, auction, lk_pyramid))
     log(f"botsort median ms/tick, S={S_MAIN} 1080p: gmc none {none_ms:.2f}, "
         f"flow_tpu {flow_ms:.2f} [{card}]")
     counts["banded_crop"] = ss_counts["banded_crop"]
+    counts["os_stage"] = fused_counts["os_stage"]
     for entry in report:
         entry["launches"] = counts[entry["name"]]
         if entry["name"] == "banded_crop":
-            entry["ms"], entry["plain_ms"] = k4_times
+            entry.update(k4)
     phase_trained_checkpoint()
     log(json.dumps({"kernels": [
         {k: e[k] for k in ("name", "route", "source", "replaces", "launches",
-                           "max_abs_err", "ms", "plain_ms")}
+                           "max_abs_err", "ms", "plain_ms", "bound_ms",
+                           "bound_by", "library_ms")}
         for e in report
     ]}))
     log(card)

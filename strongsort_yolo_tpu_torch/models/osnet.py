@@ -15,6 +15,11 @@ plain ``(x - mean) / std`` before the stem (the JAX package folds it into
 the stem conv, a TPU layout device). Frames are BGR: a model built with
 ``channel_order="bgr"`` holds its stem weights and mean/std reversed
 once, at load, so crops cut from BGR frames embed like RGB crops.
+
+:meth:`OSNet.use_fused_stages` switches the three backbone stages to the
+fused stage kernel K6 (``ops/cuda/osnet_kernel.os_stage``), as
+``osnet_apply(fused=True)`` does in the JAX package; the stem, max-pool
+and fc head stay as they are.
 """
 
 from __future__ import annotations
@@ -25,6 +30,12 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from strongsort_yolo_tpu_torch.ops.cuda.osnet_kernel import (
+    os_stage,
+    stage_specs,
+    stage_weights,
+)
 
 BN_EPS = 1e-5  # torch BatchNorm default (torchreid checkpoints)
 
@@ -172,6 +183,18 @@ class OSNet(nn.Module):
         self.b4a, self.b4b = OSBlock(c3, c4), OSBlock(c4, c4)
         self.conv5 = ConvBN(c4, c4, 1)
         self.fc = FcHead(c4, cfg.feat_dim)
+        self._specs = stage_specs(cfg.channels, cfg.crop_hw)
+        self._stages = None  # packed K6 weights, once use_fused_stages ran
+
+    def use_fused_stages(self, dtype: torch.dtype) -> None:
+        """Run the backbone stages as three K6 launches in compute
+        ``dtype``. The stage weights are packed now, from this model's
+        float32 weights: call it before casting the model, whose cast
+        would round the biases and tap weights that K6 keeps in float32.
+        The packed weights are kept out of the buffers, which ``.to(dtype)``
+        would round, and follow the crops' device."""
+        self._stages = tuple(stage_weights(self, i, dtype)
+                             for i in range(len(self._specs)))
 
     def forward(self, crops: torch.Tensor) -> torch.Tensor:
         dt = self.stem.w.dtype
@@ -180,12 +203,18 @@ class OSNet(nn.Module):
         mean, std = self._norm
         x = ((crops.float() - mean) / std).to(dt)
         x = F.max_pool2d(self.stem(x), 3, 2, 1)  # pads with -inf
-        x = self.b2b(self.b2a(x))
-        x = F.avg_pool2d(self.t2(x), 2)
-        x = self.b3b(self.b3a(x))
-        x = F.avg_pool2d(self.t3(x), 2)
-        x = self.b4b(self.b4a(x))
-        x = self.conv5(x).mean((2, 3))
+        if self._stages is not None:
+            if self._stages[0].mats.device != x.device:
+                self._stages = tuple(w.to(x.device) for w in self._stages)
+            for spec, w in zip(self._specs, self._stages):
+                x = os_stage(x, w, spec)
+        else:
+            x = self.b2b(self.b2a(x))
+            x = F.avg_pool2d(self.t2(x), 2)
+            x = self.b3b(self.b3a(x))
+            x = F.avg_pool2d(self.t3(x), 2)
+            x = self.b4b(self.b4a(x))
+            x = self.conv5(x).mean((2, 3))
         feat = F.relu(self.fc(x)).float()
         return feat / torch.clamp(feat.norm(dim=-1, keepdim=True), min=1e-12)
 

@@ -48,6 +48,7 @@ _SIGNATURES = {
     "ssyt_auction": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     "ssyt_banded_crop": (_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _P),
+    "ssyt_os_stage": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -8,7 +8,11 @@ batch-S forward, NMS of all S frames (one K2 launch), the rescale to
 frame coordinates, for ReID trackers the embed (pyramid, one K4 crop
 launch, one OSNet forward over the real detections of all S frames),
 and the tracker over all S streams (one K3 launch per association
-stage).
+stage). With ``reid_fused`` OSNet runs its three backbone stages as the
+fused stage kernel K6 (three launches per embed; the CPU runs its plain
+version). With ``reid_cadence`` k > 1 a StrongSORT
+:class:`BatchedPipeline` embeds stream s only on ticks where (s + tick)
+% k == 0; the other streams associate by motion alone.
 
 Camera-motion compensation on the device is ``gmc_method="flow_tpu"``
 (``track/gmc_flow.py``): each tick takes the gray of every uploaded frame
@@ -181,10 +185,15 @@ class Pipeline:
     ``"osnet_x0_25"``) initialised at random from ``seed + 1``, or else
     the path of an OSNet ``.npz`` of the JAX package. The top ``reid_topk`` detections of
     each frame that reach the tracker are embedded; the rest carry a
-    zero feature.
+    zero feature. ``reid_cadence``: a :class:`BatchedPipeline` with a
+    StrongSORT tracker embeds each stream on one tick in ``reid_cadence``
+    (``track`` and ``track_chunk`` embed every frame). ``reid_fused``:
+    OSNet's three backbone stages run as the fused stage kernel K6; None
+    takes the JAX package's switch, ``SSYT_OSNET=fused`` in the
+    environment when the pipeline is built.
     ``device``: where everything runs; CUDA launches the kernels, the
-    CPU runs their plain versions. Default: the current CUDA device if
-    there is one, else the CPU.
+    CPU runs their plain versions (``device="cpu"``). Default: the
+    current CUDA device; without one, a ``RuntimeError``.
     A BoT-SORT or StrongSORT tracker with ``gmc_method="flow_tpu"``
     estimates camera motion on the device from the stream's previous
     gray frame, which ``gmc`` (a :class:`FlowGMC`, else None) keeps; it
@@ -205,10 +214,20 @@ class Pipeline:
         reid_params: dict[str, torch.Tensor] | None = None,
         reid_topk: int = 128,
         tracker_max_dets: int = 128,
+        reid_cadence: int = 1,
+        reid_fused: bool | None = None,
         device: torch.device | str | None = None,
     ):
         if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "Pipeline runs on the CUDA device by default and none "
+                    "was found; pass device='cpu' to run the kernels' "
+                    "plain versions on the CPU")
+            device = "cuda"
+        if reid_cadence < 1:
+            raise ValueError(f"reid_cadence must be >= 1, got {reid_cadence}")
+        self.reid_cadence = int(reid_cadence)
         self.device = torch.device(device)
         self.det_cfg = det_cfg
         if params is None and os.path.exists(det_cfg.weights):
@@ -246,9 +265,14 @@ class Pipeline:
                 reid_weights, reid_params, seed + 1)
             # BN folded in float32 before the cast; the stem takes the
             # frames' BGR order
-            self.reid = osnet_from_state_dict(
-                reid_params, reid_cfg, channel_order="bgr"
-            ).to(self.device, self.compute_dtype).eval()
+            reid = osnet_from_state_dict(reid_params, reid_cfg,
+                                         channel_order="bgr")
+            if reid_fused is None:
+                reid_fused = os.environ.get("SSYT_OSNET") == "fused"
+            if reid_fused:
+                # K6's weights are packed from the float32 folded model
+                reid.use_fused_stages(self.compute_dtype)
+            self.reid = reid.to(self.device, self.compute_dtype).eval()
             self.feat_dim = reid_cfg.feat_dim
         self.reid_topk = reid_topk
         self.track_slots = track_slots
@@ -304,15 +328,19 @@ class Pipeline:
             boxes=torch.where(det.valid[..., None], boxes, 0.0)
         )
 
-    def embed_slots(self, det: Detections) -> np.ndarray:
+    def embed_slots(self, det: Detections,
+                    mask: np.ndarray | None = None) -> np.ndarray:
         """The packed crop slots of one tick, from the real detection
         count: stream s gets min(count_s, cap) slots rounded up to
         ``PACK_G``, streams in order (cap = min(reid_topk,
-        tracker_max_dets)). -> (3, G) int64 host array of [frame, row,
-        real] per slot; padding slots have real = 0. Reading the (S,)
-        counts is the tick's one extra device-to-host copy."""
+        tracker_max_dets)), none where the (S,) bool ``mask`` is False.
+        -> (3, G) int64 host array of [frame, row, real] per slot;
+        padding slots have real = 0. Reading the (S,) counts is the
+        tick's one extra device-to-host copy."""
         cap = min(self.reid_topk, self.tracker_max_dets)
         counts = np.minimum(det.count.cpu().numpy().astype(np.int64), cap)
+        if mask is not None:
+            counts = counts * mask
         padded = -(-counts // PACK_G) * PACK_G
         frame = np.repeat(np.arange(len(counts)), padded)
         starts = np.repeat(np.cumsum(padded) - padded, padded)
@@ -344,18 +372,20 @@ class Pipeline:
         return scal, ints, frame.to(torch.int32)
 
     @torch.no_grad()
-    def embed(self, frames: torch.Tensor, det: Detections) -> torch.Tensor | None:
+    def embed(self, frames: torch.Tensor, det: Detections,
+              mask: np.ndarray | None = None) -> torch.Tensor | None:
         """ReID features (S, tracker_max_dets, D) float32 of each frame's
         detections, or None for a tracker without ReID. One crop batch
         covers the real detections of all S frames (sized from the
         counts, so it grows with the load, not with S); rows past a
-        frame's count, or past ``reid_topk``, get a zero feature."""
+        frame's count, or past ``reid_topk``, and every row of a frame
+        whose (S,) ``mask`` entry is False get a zero feature."""
         if self.reid is None:
             return None
         s, t = frames.shape[0], self.tracker_max_dets
         feats = torch.zeros((s, t, self.feat_dim), dtype=torch.float32,
                             device=self.device)
-        slots = self.embed_slots(det)
+        slots = self.embed_slots(det, mask)
         real = slots[2].astype(bool)
         if real.any():
             pyr = self.pyramid(frames)
@@ -372,11 +402,13 @@ class Pipeline:
         self, states: TrackState, det: Detections,
         warps: torch.Tensor | None = None,
         feats: torch.Tensor | None = None,
+        has_app: torch.Tensor | None = None,
     ) -> tuple[TrackState, TrackOutputs]:
         """The tracker tail of S streams: the top ``tracker_max_dets`` rows
         of each frame's detections (exact: rows are confidence-sorted)
         with their ReID ``feats`` (from :meth:`embed`), and the count of
-        valid rows below that cut recorded."""
+        valid rows below that cut recorded. ``has_app`` (S,) bool, for
+        StrongSORT: False where a stream's features were not computed."""
         if self.gmc_method != "none" and warps is None:
             raise ValueError(
                 f"gmc_method={self.gmc_method!r} needs (S, 2, 3) warps from "
@@ -389,7 +421,8 @@ class Pipeline:
                 det.valid[:, :t])
         if self.is_strongsort:
             states, out = strongsort_step(
-                states, *rows, feats, self.tracker_cfg, warp=warp
+                states, *rows, feats, self.tracker_cfg, warp=warp,
+                has_app=has_app,
             )
         else:
             states, out = bytetrack_step(
@@ -519,7 +552,11 @@ class BatchedPipeline:
     (``prev_grays`` (S, BASE_H, BASE_W) and ``has_prev`` (S,) bool, both
     on the device and updated in place, so a tick copies nothing to the
     device for them); ``last_warps`` holds the (S, 2, 3) warps the last
-    step applied."""
+    step applied. With the pipeline's ``reid_cadence`` k > 1 and a
+    StrongSORT tracker, stream s embeds on ticks where (s + tick) % k ==
+    0 (tick counting steps from 0), so each tick crops about S / k
+    streams; ``last_embed_mask`` holds the last step's (S,) bool mask
+    (None at cadence 1)."""
 
     def __init__(self, pipeline: Pipeline, num_streams: int, src_hw):
         self.pipeline = pipeline
@@ -536,6 +573,17 @@ class BatchedPipeline:
         self.has_prev = torch.zeros(num_streams, dtype=torch.bool,
                                     device=pipeline.device)
         self.last_warps: torch.Tensor | None = None
+        self.cadence = pipeline.reid_cadence if pipeline.reid is not None else 1
+        if self.cadence > 1 and not pipeline.is_strongsort:
+            raise ValueError(
+                "reid_cadence > 1 needs a StrongSORT tracker (its stage-1 "
+                "cost falls back to motion alone); BoT-SORT keeps cadence 1")
+        self.tick = 0
+        self.last_embed_mask: np.ndarray | None = None
+        if self.cadence > 1:  # the (k, S) masks of one cycle, host and device
+            cycle = np.arange(self.cadence)[:, None] + np.arange(num_streams)
+            self._masks = cycle % self.cadence == 0
+            self._has_app = torch.from_numpy(self._masks).to(pipeline.device)
 
     def reset_stream(self, i: int) -> None:
         """Reinitialise one stream's tracker state in place; its next
@@ -561,11 +609,17 @@ class BatchedPipeline:
             w = batched_warps(self.prev_grays, grays, self.src_hw,
                               self.has_prev)
         det = p.detect(frames)
+        mask = has_app = None
+        if self.cadence > 1:
+            phase = self.tick % self.cadence
+            mask, has_app = self._masks[phase], self._has_app[phase]
+        self.tick += 1
         self.states, out = p.associate(self.states, det, w,
-                                       p.embed(frames, det))
+                                       p.embed(frames, det, mask), has_app)
         if self.flow:
             self.prev_grays = grays
             self.has_prev.fill_(True)
         self.last_warps = w
+        self.last_embed_mask = mask
         packed = _pack_outputs(out)
         return [p._track_results(packed[s]) for s in range(self.num_streams)]

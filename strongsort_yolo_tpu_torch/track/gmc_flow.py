@@ -173,7 +173,7 @@ class FlowGMC:
     ``reset``/``apply`` is the per-frame protocol of ``track/gmc.py``
     (numpy in, (2, 3) numpy out)."""
 
-    def __init__(self, device: torch.device | str = "cpu"):
+    def __init__(self, device: torch.device | str):
         self.device = torch.device(device)
         self.prev: torch.Tensor | None = None  # (BASE_H, BASE_W) float32
 

@@ -18,6 +18,11 @@ written out as the leading dimension of every tensor:
      ``max_age`` missed frames; unmatched usable detections spawn
      tentative tracks.
 
+A stream whose ``has_app`` is False this frame (an embed-cadence skip:
+its detection features are all zero) associates in stage 2 by motion
+alone, Mahalanobis within the chi-square gate scaled so that
+``match_thresh`` spans the whole gate, and its EMA bank holds.
+
 Confirmed is TRACKED with ``activated``, tentative TRACKED without.
 """
 
@@ -76,8 +81,10 @@ def _kf_update_slots(
     det_cls: torch.Tensor,
     det_feats: torch.Tensor,  # (S, N, D)
     cfg: StrongSortConfig,
+    has_app: torch.Tensor | None = None,  # (S,) bool
 ) -> TrackState:
-    """NSA-KF update of matched slots, EMA feature update, confirmation."""
+    """NSA-KF update of matched slots, EMA feature update (not for a
+    stream without appearance), confirmation."""
     idx = slot_det.clamp(0, det_meas.shape[1] - 1)
     conf = _take(det_scores, idx)
     new_mean, new_cov = kalman.update(
@@ -87,6 +94,7 @@ def _kf_update_slots(
     new_hits = state.hits + 1
     confirmed = state.activated | (new_hits >= cfg.n_init)
     mixed = ema_feature(state.feat, _take(det_feats, idx), cfg.ema_alpha)
+    upd = m if has_app is None else m & has_app[:, None]
     return state._replace(
         mean=torch.where(m[..., None], new_mean, state.mean),
         cov=torch.where(m[..., None, None], new_cov, state.cov),
@@ -95,7 +103,7 @@ def _kf_update_slots(
         activated=torch.where(m, confirmed, state.activated),
         hits=torch.where(m, new_hits, state.hits),
         end_frame=torch.where(m, state.frame_id[:, None], state.end_frame),
-        feat=torch.where(m[..., None], mixed, state.feat),
+        feat=torch.where(upd[..., None], mixed, state.feat),
     )
 
 
@@ -109,8 +117,10 @@ def strongsort_step(
     cfg: StrongSortConfig = StrongSortConfig(),
     *,
     warp: torch.Tensor | None = None,  # (S, 2, 3) camera-motion affine
+    has_app: torch.Tensor | None = None,  # (S,) bool: det_feats are real
 ) -> tuple[TrackState, TrackOutputs]:
-    """One tracker frame for S streams. Pure function of its inputs."""
+    """One tracker frame for S streams. Pure function of its inputs.
+    ``has_app`` None means every stream has appearance this frame."""
     form = cfg.form
     state = state._replace(frame_id=state.frame_id + 1)
     usable = det_valid & (det_scores >= cfg.det_thresh)
@@ -138,6 +148,13 @@ def strongsort_step(
     blended = torch.where(
         emb / 2.0 > cfg.max_cosine_distance, costs.INF_COST, blended
     )
+    if has_app is not None:
+        # a skip frame's features are all zero, so the cosine gate would
+        # forbid every pair: motion only, the ranking kept
+        gate = torch.full((), cfg.gate, device=maha.device)
+        motion_only = torch.where(maha > cfg.gate, costs.INF_COST,
+                                  (maha / gate) * cfg.match_thresh)
+        blended = torch.where(has_app[:, None, None], blended, motion_only)
     c1 = costs.mask_cost(blended, confirmed, usable)
     a1 = solve_assignment(c1, cfg.match_thresh, confirmed, usable)
     m1 = a1.row_to_col >= 0
@@ -159,7 +176,7 @@ def strongsort_step(
     slot_det = torch.where(m1, a1.row_to_col, a2.row_to_col)
     state = _kf_update_slots(
         state, matched, slot_det, det_meas, det_scores, det_cls, det_feats,
-        cfg,
+        cfg, has_app,
     )
 
     # 4. deaths: unmatched tentative now, confirmed past max_age

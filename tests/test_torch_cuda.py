@@ -13,8 +13,11 @@ its params agree within 1e-4 base px and 1e-6 (a wrong damping
 constant moves them by more than 3e-3 px, a step more or less by
 pixels), on pans it has converged on and on rotated and scaled pairs
 it has not (one step per level), and two of its launches are
-bit-identical; the pipelines compare float32 runs with TF32 off,
-boxes within 1e-3 px and identical ids.
+bit-identical; K6 (the fused OSNet stage) sums in another order than
+its plain version, so it is held to 1e-4 in float32; in bfloat16 the
+sums' differences stay below the rounding, and K6 must equal its plain
+version bit for bit; its launches are bit-identical; the pipelines compare float32 runs with TF32 off, boxes
+within 1e-3 px and identical ids.
 """
 
 import os
@@ -24,6 +27,11 @@ import pytest
 import torch
 
 from strongsort_yolo_tpu_torch.config import DetectorConfig
+from strongsort_yolo_tpu_torch.models.osnet import (
+    OsnetConfig,
+    init_osnet,
+    osnet_from_state_dict,
+)
 from strongsort_yolo_tpu_torch.ops.crops import banded_prep, pyramid_stack
 from strongsort_yolo_tpu_torch.ops.cuda.auction_kernel import auction, auction_plain
 from strongsort_yolo_tpu_torch.ops.cuda.crop_kernel import (
@@ -33,6 +41,12 @@ from strongsort_yolo_tpu_torch.ops.cuda.crop_kernel import (
 )
 from strongsort_yolo_tpu_torch.ops.cuda.lk_kernel import lk_pyramid, lk_pyramid_plain
 from strongsort_yolo_tpu_torch.ops.cuda.nms_kernel import nms_keep, nms_keep_plain
+from strongsort_yolo_tpu_torch.ops.cuda.osnet_kernel import (
+    os_stage,
+    os_stage_plain,
+    stage_specs,
+    stage_weights,
+)
 from strongsort_yolo_tpu_torch.ops.cuda.resize_kernel import letterbox_u8
 from strongsort_yolo_tpu_torch.ops.letterbox import letterbox, letterbox_params
 from strongsort_yolo_tpu_torch.pipeline import BatchedPipeline, Pipeline
@@ -189,7 +203,7 @@ def test_banded_crop_rejects_what_it_does_not_take(dev):
                     torch.zeros(4, dtype=torch.int32, device=dev))
 
 
-def test_strongsort_pipeline_card_equals_cpu(dev):
+def test_strongsort_pipeline_card_equals_cpu(dev, reid_fused=False):
     rng = np.random.default_rng(4)
     frames = (rng.uniform(0, 0.3, (6, 2, 320, 320, 3)) * 255).astype(np.uint8)
     for t in range(6):
@@ -200,7 +214,8 @@ def test_strongsort_pipeline_card_equals_cpu(dev):
         pipe = Pipeline(
             DetectorConfig(weights=CKPT, imgsz=160, half=False, max_det=16),
             tracker=StrongSortConfig(gmc_method="none"), track_slots=16,
-            tracker_max_dets=16, reid_weights=OSNET, device=device,
+            tracker_max_dets=16, reid_weights=OSNET, reid_fused=reid_fused,
+            device=device,
         )
         bp = BatchedPipeline(pipe, 2, (320, 320))
         outs[device] = [bp.step(f) for f in frames]
@@ -390,3 +405,72 @@ def test_track_chunk_card_equals_track_calls(dev):
     for (wi, wb), (gi, gb) in zip(rows["track"], rows["chunk"]):
         np.testing.assert_array_equal(gi, wi)
         np.testing.assert_allclose(gb, wb, atol=1e-3)
+
+
+@pytest.mark.parametrize("i", [0, 1, 2], ids=["stage2", "stage3", "stage4-gap"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_os_stage_kernel_equals_plain(dev, i, dtype):
+    cfg = OsnetConfig()
+    model = osnet_from_state_dict(
+        init_osnet(cfg, torch.Generator().manual_seed(i)), cfg)
+    spec = stage_specs(cfg.channels)[i]
+    w = stage_weights(model, i, dtype).to(dev)
+    rng = np.random.default_rng(i)
+    x = torch.from_numpy(rng.normal(0, 1, (37, spec.c_in, spec.h, spec.w))
+                         .astype(np.float32)).to(dev, dtype)
+    before = os_stage.launches
+    got, again = os_stage(x, w, spec), os_stage(x, w, spec)
+    assert os_stage.launches == before + 2
+    want = os_stage_plain(x, w, spec)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    if dtype == torch.float32:
+        assert float((got - want).abs().max()) <= 1e-4
+    else:
+        assert torch.equal(got, want)
+    assert os_stage(x[:0], w, spec).shape == (0, *spec.out_shape)
+    with pytest.raises(ValueError):  # weights packed for another dtype
+        os_stage(x.double(), w, spec)
+
+
+def test_strongsort_fused_pipeline_card_equals_cpu(dev):
+    """StrongSORT with the fused OSNet stages: K6 on the card against its
+    plain version on the CPU, float32, as the unfused pipeline test."""
+    before = os_stage.launches
+    test_strongsort_pipeline_card_equals_cpu(dev, reid_fused=True)
+    n = os_stage.launches - before  # three per embed on the card
+    assert n > 0 and n % 3 == 0
+
+
+def test_cadence_two_card_equals_cpu(dev):
+    """A StrongSORT BatchedPipeline with reid_cadence=2 on the card and on
+    the CPU: the same masks, ids and boxes within 1e-3 px."""
+    rng = np.random.default_rng(8)
+    frames = (rng.uniform(0, 0.3, (6, 2, 320, 320, 3)) * 255).astype(np.uint8)
+    for t in range(6):
+        frames[t, :, 60 + 3 * t:160 + 3 * t, 80:150] = 210
+        frames[t, :, 170:250, 200 - 2 * t:270 - 2 * t] = 140
+    outs, masks = {}, {}
+    for device in ("cpu", "cuda"):
+        pipe = Pipeline(
+            DetectorConfig(weights=CKPT, imgsz=160, half=False, max_det=16),
+            tracker=StrongSortConfig(gmc_method="none"), track_slots=16,
+            tracker_max_dets=16, reid_weights=OSNET, reid_cadence=2,
+            device=device,
+        )
+        bp = BatchedPipeline(pipe, 2, (320, 320))
+        outs[device], masks[device] = [], []
+        for f in frames:
+            outs[device].append(bp.step(f))
+            masks[device].append(bp.last_embed_mask)
+    np.testing.assert_array_equal(np.stack(masks["cuda"]),
+                                  np.stack(masks["cpu"]))
+    assert (np.stack(masks["cuda"]).sum(1) == 1).all()
+    rows = 0
+    for a_t, b_t in zip(outs["cpu"], outs["cuda"]):
+        for a, b in zip(a_t, b_t):
+            assert len(a) == len(b)
+            np.testing.assert_allclose(b.boxes.xyxy, a.boxes.xyxy, atol=1e-3)
+            np.testing.assert_array_equal(b.boxes.id, a.boxes.id)
+            rows += len(a)
+    assert rows > 0

@@ -350,7 +350,7 @@ def test_scale_back_matches_jax_anisotropic():
 
 
 def test_flow_gmc_protocol(rng):
-    g = FlowGMC()
+    g = FlowGMC(device="cpu")
     frame = rng.integers(0, 255, (360, 640, 3), dtype=np.uint8)
     w0 = g.apply(frame)
     np.testing.assert_array_equal(w0, np.eye(2, 3, dtype=np.float32))

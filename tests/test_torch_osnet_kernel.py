@@ -1,0 +1,253 @@
+"""K6's plain version (``ops/cuda/osnet_kernel.os_stage_plain``) and the
+port's fused OSNet route against the JAX package's fused stage kernel
+(``ops/pallas/osnet_kernel.os_stage``, run in interpret mode), on the same
+seeded inputs and the same weights (JAX-initialised, and the trained
+``assets/osnet_x0_25_synth.npz``, through the port's converter).
+
+Tolerances:
+
+- one stage in float32: within 1e-4 absolute (the JAX package holds its
+  kernel to 2e-4); sums run in another order (measured: 3.4e-05 at
+  outputs up to 48);
+- one stage in bfloat16, with the port's packed weights: the mean
+  absolute difference within 2e-4 of the largest output. Measured on
+  these inputs: 1.6e-05, 1.1e-04 and 0 of it for the three stages (a
+  float32 sum in another order, or a BN scale one unit in the last place
+  apart, flips some bf16 roundings: 2%, 15% and 0% of the outputs, by
+  one unit). Tap weights rounded to bf16, which the TPU kernel keeps in
+  float32, give 4.4e-04, 5.7e-04 and 3.9e-04: the bound fails them;
+- the whole embedding, fused route against the JAX fused route: float32
+  within 5e-4; bfloat16 cosine >= 0.999 averaged over the crops and >=
+  0.998 on every crop (measured, trained weights: 0.99932 and 0.99889;
+  JAX-initialised: 0.99997 and 0.99981). That is the bf16 noise floor,
+  not a fault of the stages: against the float32 embedding every bf16
+  route lands at a least cosine of 0.9974-0.9988 on these crops, and the
+  two stems round differently (the port normalises in float32 and casts,
+  the JAX package folds the normalisation into its bf16 stem conv). The
+  port's fused route against its own unfused one in bfloat16: cosine >=
+  0.995 on every crop, the JAX package's bar for its kernel (measured
+  0.99852). The crops hold whole multiples of 1/255, as crops of uint8
+  frames do.
+
+A mutation test shows the bounds can fail: mirrored stencil taps and a
+stream whose gate is skipped break the float32 bound, bf16-rounded tap
+weights the bfloat16 one.
+"""
+
+import dataclasses
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from strongsort_yolo_tpu.models import osnet as josnet
+from strongsort_yolo_tpu.ops.pallas import osnet_kernel as jk
+from strongsort_yolo_tpu_torch.models.osnet import (
+    OsnetConfig,
+    osnet_from_state_dict,
+)
+from strongsort_yolo_tpu_torch.models.porting import osnet_params_from_jax
+from strongsort_yolo_tpu_torch.ops.cuda import osnet_kernel as tk
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+NPZ = os.path.join(ROOT, "assets", "osnet_x0_25_synth.npz")
+SPECS = tk.stage_specs(OsnetConfig().channels)
+BLOCKS = (("b2", "t2"), ("b3", "t3"), ("b4", "conv5"))
+G = 8  # crops per stage call: one TPU tile
+F32_TOL = 1e-4
+BF16_MEAN_TOL = 2e-4  # of the largest output
+DTYPES = {"f32": (torch.float32, jnp.float32),
+          "bf16": (torch.bfloat16, jnp.bfloat16)}
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def jparams():
+    return jax.device_get(josnet.init_osnet(jax.random.PRNGKey(7)))
+
+
+@pytest.fixture(scope="module")
+def model(jparams):
+    return osnet_from_state_dict(osnet_params_from_jax(jparams, OsnetConfig()))
+
+
+def _stage_input(i):
+    spec = SPECS[i]
+    return np.random.default_rng(i).normal(
+        0, 1, (G, spec.c_in, spec.h, spec.w)).astype(np.float32)
+
+
+_JAX_STAGES = {}
+
+
+def _jax_stage(jparams, i, dt):
+    """JAX os_stage in interpret mode, cached per stage and dtype."""
+    if (i, dt) not in _JAX_STAGES:
+        spec, (blk, ep) = SPECS[i], BLOCKS[i]
+        jspec = jk.StageSpec(**dataclasses.asdict(spec))
+        jdt = DTYPES[dt][1]
+        folded = jk.fold_stage(jparams[blk + "a"], jparams[blk + "b"],
+                               jparams[ep], jspec, wdtype=jdt, tm=8)
+        out = jk.os_stage(jnp.asarray(_stage_input(i), jdt), folded,
+                          spec=jspec, tm=8, interpret=True)
+        _JAX_STAGES[i, dt] = np.asarray(out.astype(jnp.float32))
+    return _JAX_STAGES[i, dt]
+
+
+def _port_stage(weights, i, dt):
+    x = torch.from_numpy(_stage_input(i)).to(DTYPES[dt][0])
+    return tk.os_stage_plain(x, weights, SPECS[i]).float().numpy()
+
+
+def _bf16_mean_err(got, want) -> float:
+    return float(np.abs(got - want).mean() / np.abs(want).max())
+
+
+@pytest.mark.parametrize("i", [0, 1, 2], ids=["stage2", "stage3", "stage4-gap"])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_stage_plain_vs_jax(jparams, model, i, dt):
+    want = _jax_stage(jparams, i, dt)
+    weights = tk.stage_weights(model, i, DTYPES[dt][0])
+    got = _port_stage(weights, i, dt)
+    assert got.shape == want.shape == (G, *SPECS[i].out_shape)
+    if dt == "f32":
+        np.testing.assert_allclose(got, want, rtol=0, atol=F32_TOL)
+    else:
+        assert _bf16_mean_err(got, want) <= BF16_MEAN_TOL
+
+
+def _mirror_taps(v):
+    for k, t in v.items():
+        if k.endswith(".taps"):
+            t.copy_(t.flip(0))
+
+
+def _round_taps(v):
+    for k, t in v.items():
+        if k.endswith(".taps"):
+            t.copy_(t.to(torch.bfloat16).float())
+
+
+@pytest.mark.parametrize("mutation", ["mirrored_taps", "skipped_gate",
+                                      "bf16_taps"])
+def test_mutations_break_the_bounds(jparams, model, monkeypatch, mutation):
+    """Each wrong variant of the plain version, against the JAX kernel,
+    must fail the bound its dtype is held to, at every stage."""
+    dt = "bf16" if mutation == "bf16_taps" else "f32"
+    for i, spec in enumerate(SPECS):
+        w = tk.stage_weights(model, i, DTYPES[dt][0])
+        w = tk.StageWeights(w.mats, w.vecs.clone(), w.offs)
+        if mutation == "mirrored_taps":
+            _mirror_taps(tk._views(w, spec))
+        elif mutation == "bf16_taps":
+            _round_taps(tk._views(w, spec))
+        else:  # the second stream of each block goes ungated
+            gate, calls = tk._gate, []
+
+            def skip_second(s, v, blk, dt_, gate=gate, calls=calls):
+                calls.append(blk)
+                return s if len(calls) % 4 == 2 else gate(s, v, blk, dt_)
+
+            monkeypatch.setattr(tk, "_gate", skip_second)
+        got = _port_stage(w, i, dt)
+        monkeypatch.undo()
+        want = _jax_stage(jparams, i, dt)
+        if dt == "f32":
+            assert np.abs(got - want).max() > F32_TOL, (mutation, i)
+        else:
+            assert _bf16_mean_err(got, want) > BF16_MEAN_TOL, (mutation, i)
+
+
+def _jax_tree(source):
+    if source == "init":
+        return jax.device_get(josnet.init_osnet(jax.random.PRNGKey(3)))
+    return jax.device_get(josnet.load_osnet_npz(NPZ)[0])
+
+
+def _crops(m=8):
+    """m crops in whole multiples of 1/255, one of them smooth."""
+    rng = np.random.default_rng(11)
+    x = rng.integers(0, 256, (m, 128, 64, 3)).astype(np.float32)
+    x[1] = np.round(np.linspace(50, 230, 128))[:, None, None]
+    return x / np.float32(255.0)
+
+
+def _port_embed(sd, crops, dt, fused: bool):
+    model = osnet_from_state_dict(sd, OsnetConfig())
+    if fused:
+        model.use_fused_stages(dt)  # packed from float32, before the cast
+    model = model.to(dtype=dt).eval()
+    inp = torch.from_numpy(crops).permute(0, 3, 1, 2).contiguous()
+    with torch.no_grad():
+        return model(inp).numpy()
+
+
+@pytest.mark.parametrize("source", ["init", "trained"])
+def test_fused_osnet_vs_jax_fused(source):
+    params = _jax_tree(source)
+    sd = osnet_params_from_jax(params, OsnetConfig())
+    crops = _crops()
+    want = np.asarray(josnet.osnet_apply(params, jnp.asarray(crops),
+                                         fused=True, interpret=True))
+    got = _port_embed(sd, crops, torch.float32, fused=True)
+    np.testing.assert_allclose(got, want, rtol=0, atol=5e-4)
+
+    want16 = np.asarray(josnet.osnet_apply(
+        params, jnp.asarray(crops), compute_dtype=jnp.bfloat16, fused=True,
+        interpret=True))
+    got16 = _port_embed(sd, crops, torch.bfloat16, fused=True)
+    cos = (got16 * want16).sum(-1)
+    assert cos.mean() >= 0.999 and cos.min() >= 0.998, cos
+    # and against the port's own unfused bf16 route
+    plain16 = _port_embed(sd, crops, torch.bfloat16, fused=False)
+    assert (got16 * plain16).sum(-1).min() >= 0.995
+
+
+def test_stage_weights_layout(model):
+    """The packed blobs: matrices in the compute dtype, biases and taps in
+    float32 whatever the dtype; the second OS block has no ``down``;
+    packing a cast model is refused."""
+    for i, spec in enumerate(SPECS):
+        w32 = tk.stage_weights(model, i, torch.float32)
+        w16 = tk.stage_weights(model.state_dict(), i, torch.bfloat16)
+        assert w16.mats.dtype == torch.bfloat16 and w16.vecs.dtype == torch.float32
+        assert torch.equal(w16.vecs, w32.vecs) and torch.equal(w16.offs, w32.offs)
+        assert torch.equal(w16.mats, w32.mats.to(torch.bfloat16))
+        v = tk._views(w32, spec)
+        assert "a.wd" in v and "b.wd" not in v
+        assert len(w32.offs) == 102 and int(w32.offs[tk._B_WD]) == -1
+        assert v["a.l9.taps"].shape == (9, spec.mid)
+    blk = "b3a.streams.3.2.dw.w"
+    taps = tk._views(tk.stage_weights(model, 1, torch.float32),
+                     SPECS[1])["a.l8.taps"]
+    assert torch.equal(taps[1], model.state_dict()[blk][:, 0, 0, 1])
+    with pytest.raises(ValueError, match="float32"):
+        tk.stage_weights(model.state_dict() | {
+            "stem.w": model.stem.w.detach().bfloat16()}, 0, torch.bfloat16)
+    assert [dataclasses.astuple(s) for s in SPECS] == [
+        dataclasses.astuple(s) for s in jk.stage_specs((16, 64, 96, 128))]
+
+
+def test_os_stage_wrapper_on_cpu(model):
+    """On a CPU tensor the wrapper runs the plain version and launches
+    nothing; it refuses a wrong shape or mismatched dtypes."""
+    spec = SPECS[2]
+    w = tk.stage_weights(model, 2, torch.float32)
+    x = torch.from_numpy(_stage_input(2))
+    before = tk.os_stage.launches
+    assert torch.equal(tk.os_stage(x, w, spec), tk.os_stage_plain(x, w, spec))
+    assert tk.os_stage.launches == before
+    with pytest.raises(ValueError):
+        tk.os_stage(x[:, :10], w, spec)
+    with pytest.raises(ValueError):
+        tk.os_stage(x.bfloat16(), w, spec)

@@ -119,6 +119,15 @@ def test_step_requires_warps_when_gmc_is_on():
     assert int(bp.states.frame_id[1]) == 0 and int(bp.states.frame_id[0]) == 1
 
 
+def test_default_device_is_cuda_and_never_the_cpu(monkeypatch):
+    """Without a device the pipeline runs on CUDA; where there is none it
+    raises and names device="cpu" instead of dropping to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Pipeline(DetectorConfig(weights=CKPT, imgsz=160, half=False,
+                                max_det=16), tracker="bytetrack.yaml")
+
+
 def test_port_imports_no_jax():
     mods = []
     for dirpath, _, files in os.walk(PKG):

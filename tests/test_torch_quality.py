@@ -142,3 +142,50 @@ def test_panning_relay_with_flow_gmc():
     assert m["mota"] >= 0.715, m
     assert m["idf1"] >= 0.62, m
     assert m["idsw"] <= 7, m
+
+
+@pytest.fixture(scope="module")
+def relay_arms():
+    """StrongSORT + trained OSNet over one occlusion-relay cycle per pair,
+    through Pipeline.track, with appearance (lambda 0.98) and without
+    (lambda 0, the cosine gate open): the arms of the JAX package's
+    tests/test_sequence_quality.py (``tools/eval_sequence.run_arm``),
+    visible-only protocol."""
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    out = {}
+    for name, lam in (("reid", 0.98), ("lambda0", 0.0)):
+        extra = {} if lam > 0 else dict(max_cosine_distance=1.0)
+        pipe = Pipeline(
+            DetectorConfig(weights=CKPT, imgsz=160, conf=0.3, iou=0.4,
+                           max_det=16, half=False),
+            tracker=StrongSortConfig(gmc_method="none", max_age=60,
+                                     lambda_appearance=lam, **extra),
+            track_slots=16, tracker_max_dets=16, reid_weights=OSNET,
+            device="cpu",
+        )
+        clip = OcclusionRelayClip(cycles=1)
+        gt, hyp = [], []
+        for t, frame in enumerate(clip):
+            r = pipe.track(frame)
+            gt.append([tuple(g) for g in clip.truth(t)])
+            hyp.append([(int(r.boxes.id[i]), *r.boxes.xyxy[i])
+                        for i in range(len(r.boxes))])
+        out[name] = evaluate_mot(gt, hyp)
+    torch.set_num_threads(n_threads)
+    return out
+
+
+def test_appearance_reduces_id_switches(relay_arms):
+    assert relay_arms["reid"]["idsw"] < relay_arms["lambda0"]["idsw"], relay_arms
+
+
+def test_appearance_earns_idf1(relay_arms):
+    assert (relay_arms["reid"]["idf1"]
+            > relay_arms["lambda0"]["idf1"] + 0.01), relay_arms
+
+
+def test_absolute_quality_floor(relay_arms):
+    m = relay_arms["reid"]
+    assert m["mota"] > 0.6, m
+    assert m["idf1"] > 0.65, m
