@@ -18,9 +18,16 @@ raises and the process exits nonzero:
    taken in phase 3, on the StrongSORT path's own crop batch; K5: the
    LK params of S=8 and of T=32 panned pyramid pairs, and of S=8
    rotated and scaled pairs after one step per level, within 1e-4 base
-   px and 1e-6, and two launches bit-identical; K6: each of the three
-   fused OSNet-x0_25 stages on G=480 seeded crops, float32 within 1e-4
-   and bfloat16 bit-identical, two launches bit-identical);
+   px and 1e-6, and two launches bit-identical, and K5 with one level,
+   the form of the TPU's lk_level_pallas, on S=8 180x320 pairs; K6: each
+   of the three fused OSNet-x0_25 stages on G=480 seeded crops, float32
+   within 1e-4 and bfloat16 bit-identical, two launches bit-identical;
+   K7: every conv shape that the K7 rule picks in yolo11n-pose and
+   yolov8n at 640, S=8, NCHW, in both forms (taps and im2col), float32
+   within 2e-5 x max(1, |ref|) and bfloat16 within one bf16 unit at 1.0
+   of the output scaled by max(1, |ref|), two launches bit-identical, the
+   NHWC layout on four of them; times in bfloat16 beside the plain
+   version's and cuDNN's F.silu(F.conv2d(x, w, b)), two launches);
 3. the main paths at full width: yolov8n (nc=80, imgsz 640, bf16,
    seeded random weights with the class-head bias calibrated to about
    120 candidates per frame), BatchedPipeline over S=8 streams of
@@ -42,18 +49,28 @@ raises and the process exits nonzero:
    180x320 gray aliases a hard edge panned by a fraction of that);
    then one stream's 10 frames through 10 Pipeline.track
    calls (K5 10 launches) and through one Pipeline.track_chunk (K5
-   once), timed; each path's launch counts are zeroed before it and
-   must all have moved after it;
+   once), timed; yolo11n-pose with BoT-SORT (K1-K3, keypoints on every
+   track row); the same with conv_kernel=True (K1-K3 and K7, K7 once per
+   picked conv and tick), its ms/tick beside the route-off path's and
+   the model forward with and without the route (CUDA events); and
+   yolov8n-seg with BoT-SORT (K1-K3, a mask and a polygon per track
+   row, the polygons traced on the host and timed apart from the tick);
+   each path's launch counts are zeroed before it and must all have
+   moved after it;
 4. the trained synth160 checkpoints on rendered frames, on the card with
    the kernels and on the CPU with the plain versions (float32, TF32
    off), for ByteTrack, for StrongSORT with the trained OSNet
    (assets/osnet_x0_25_synth.npz), unfused and fused, and for BoT-SORT
    with flow_tpu on a panned copy of the frames: equal rows, boxes
-   within 1e-3 px, equal track ids (and flow warps within 2e-3).
+   within 1e-3 px, equal track ids (and flow warps within 2e-3); and the
+   trained yolov8n-seg, yolov8n-pose and yolo11n-pose synth160 task
+   checkpoints with ByteTrack, the K7 route off and on: equal rows and
+   ids, boxes and keypoints within 1e-3 px, equal mask polygons.
 
 The JSON line before the card's name is one object with one entry per
 kernel: its launches (K1-K3 and K5 counted on the flow path, K4 on the
-StrongSORT path, K6 on the fused one), its largest difference from its
+StrongSORT path, K6 on the fused one, K7 on yolo11n-pose with the
+route), its largest difference from its
 plain version, its time and its plain version's (CUDA events), its
 bound (the larger of its bytes, each input read once and each output
 written once, over 3.35 TB/s, where K1 and K4 read only the 32-byte
@@ -62,7 +79,9 @@ and its operations over the peak for their type: 989 TFLOP/s in bf16,
 67 TFLOP/s in float32 outside the tensor cores, the H100 SXM's
 published rates) with what sets it, and
 library_ms, the time of one PyTorch call computing the same function
-(null: none does). The last line is {"ok": true, "device": {...}}.
+(null where none does; K7's is cuDNN's conv with bias, then SiLU). K7's
+times and bound are summed over the convs it takes in one S=8
+yolo11n-pose forward. The last line is {"ok": true, "device": {...}}.
 Without a CUDA device the script exits nonzero before printing any
 result.
 """
@@ -80,6 +99,8 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(ROOT, "assets", "yolov8n_synth160.npz")
+TASK_CKPTS = {name: os.path.join(ROOT, "assets", name + ".npz") for name in (
+    "yolov8n_seg_synth160", "yolov8n_pose_synth160", "yolo11n_pose_synth160")}
 OSNET = os.path.join(ROOT, "assets", "osnet_x0_25_synth.npz")
 TARGET_DETS = 120  # candidates per frame the class bias is set for
 S_MAIN, TICKS = 8, 10
@@ -408,6 +429,7 @@ def phase_kernels(card: str) -> list[dict]:
     report.append(check_k4(rng))
     report.append(check_k5(card))
     report.append(check_k6(card))
+    report.append(check_k7(card))
     return report
 
 
@@ -517,6 +539,7 @@ def check_k5(card: str) -> dict:
         log(f"K5 lk_pyramid {case}, 180x320/90x160/45x80: bit-identical "
             f"across launches; vs plain max |err| translation {trans_px:.3g} "
             f"base px, linear {lin:.3g}{timing}")
+    check_k5_level(card, rng)
     return dict(
         name="lk_pyramid", route="cuda",
         source="strongsort_yolo_tpu_torch/csrc/lk_pyramid.cu",
@@ -525,6 +548,54 @@ def check_k5(card: str) -> dict:
         max_abs_err=max_err, ms=times[S_MAIN][0], plain_ms=times[S_MAIN][1],
         bound_ms=k5_bound[0], bound_by=k5_bound[1], library_ms=None,
     )
+
+
+def check_k5_level(card: str, rng) -> None:
+    """K5 with one level, the form of the TPU's lk_level_pallas, against
+    lk_level_plain: S=8 clean 180x320 blurred pairs panned by up to 4 px,
+    5 Gauss-Newton steps; the tolerance of check_k5, two launches
+    bit-identical; time, plain time and bound logged (PERF.md row #9)."""
+    import torch
+
+    from strongsort_yolo_tpu_torch.ops.cuda.lk_kernel import (
+        lk_level_plain, lk_pyramid,
+    )
+    from strongsort_yolo_tpu_torch.track.gmc_flow import BASE_H, BASE_W, _blur
+
+    dev = torch.device("cuda")
+    prev, cur = [], []
+    for k in range(S_MAIN):
+        img = smooth_image(BASE_H, BASE_W, seed=200 + k)
+        dx, dy = (int(v) for v in rng.integers(-4, 5, 2))
+        prev.append(img)
+        cur.append(np.roll(img, (dy, dx), axis=(0, 1)))
+    p0, c0 = (_blur(torch.from_numpy(np.stack(v)).to(dev)) for v in (prev, cur))
+    params = torch.tensor([1.0, 0.0, 0.0, 0.0, 1.0, 0.0],
+                          device=dev).repeat(S_MAIN, 1)
+    iters = 5
+
+    def run():
+        return lk_pyramid((p0,), (c0,), params, (iters,))
+
+    def run_plain():
+        return lk_level_plain(p0, c0, params, iters)
+
+    got, again, want = run(), run(), run_plain()
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError("K5 one level: two launches differ")
+    d = (got - want).abs()
+    trans_px = float(d[:, [2, 5]].max()) * BASE_W / 2
+    lin = float(d[:, [0, 1, 3, 4]].max())
+    if not (trans_px <= 1e-4 and lin <= 1e-6):
+        raise AssertionError(f"K5 one level: translation off by {trans_px} "
+                             f"base px, linear part by {lin}")
+    ms, plain = cuda_ms(run), cuda_ms(run_plain, iters=3, warmup=1)
+    b = bound(nbytes(p0, c0, params, got), 90 * S_MAIN * BASE_H * BASE_W * iters)
+    log(f"K5 lk_level (one level, S={S_MAIN} 180x320 pairs, {iters} steps): "
+        f"bit-identical across launches; vs plain max |err| translation "
+        f"{trans_px:.3g} base px, linear {lin:.3g}; kernel {ms:.4f} ms, plain "
+        f"{plain:.4f} ms, bound {b[0]:.6f} ms ({b[1]}) [{card}]")
 
 
 def stage_macs(spec) -> int:
@@ -610,6 +681,123 @@ def check_k6(card: str) -> dict:
         bound_by=("operations" if total["ops_ms"] >= total["bytes_ms"]
                   else "bytes"),
         library_ms=None,
+    )
+
+
+def k7_picks(name: str, imgsz: int = 640):
+    """The convs that the K7 rule picks in the fused model ``name``."""
+    from strongsort_yolo_tpu_torch.models.yolo import (
+        YoloModel, build_model, kernel_picks,
+    )
+
+    return kernel_picks(YoloModel(build_model(name), fused=True),
+                        (imgsz, imgsz))
+
+
+K7_REQUIRED = {(80, 80, 32, 32, 3), (40, 40, 64, 64, 3), (40, 40, 192, 128, 1),
+               (80, 80, 64, 51, 3)}
+
+
+def check_k7(card: str) -> dict:
+    """K7 against conv_act_plain on the card: every distinct conv that the
+    K7 rule picks in yolo11n-pose and yolov8n at 640 (S=8, NCHW, seeded
+    inputs and weights), in both forms and both dtypes, two launches
+    bit-identical; float32 within 2e-5 x max(1, |ref|) and bfloat16
+    within one bf16 unit at 1.0 of the output scaled by max(1, |ref|)
+    (the plain version is cuDNN's float32 conv, TF32 off: another
+    summation order); the NHWC layout on K7_REQUIRED. Times in bfloat16:
+    each form, the plain version, the bound and cuDNN's F.silu(F.conv2d(x,
+    w, b)) (two launches); the entry sums them over the convs of one
+    yolo11n-pose forward, the path that runs the route."""
+    import torch
+    import torch.nn.functional as F
+
+    from strongsort_yolo_tpu_torch.ops.cuda.conv_kernel import (
+        FORMS, conv_act_kernel, conv_act_plain,
+    )
+
+    dev = torch.device("cuda")
+    pose = k7_picks("yolo11n-pose")
+    shapes = sorted({p[1:] for p in pose + k7_picks("yolov8n")})
+    if not K7_REQUIRED <= {s[:5] for s in shapes}:
+        raise AssertionError("K7 check: a required shape is not picked")
+    rng = np.random.default_rng(7)
+    max_err, rows = 0.0, {}
+    for h, w, c_in, c_out, k, act in shapes:
+        x32 = torch.from_numpy(rng.normal(0, 1, (S_MAIN, c_in, h, w))
+                               .astype(np.float32)).to(dev)
+        wt = torch.from_numpy((rng.normal(0, 1, (k * k * c_in, c_out))
+                               * (2.0 / (k * k * c_in)) ** 0.5)
+                              .astype(np.float32)).to(dev)
+        b = torch.from_numpy(rng.normal(0, 0.3, c_out).astype(np.float32)).to(dev)
+        shape = (h, w, c_in, c_out, k, act)
+        for dt in (torch.float32, torch.bfloat16):
+            tol = 2e-5 if dt == torch.float32 else 2.0 ** -7
+            layouts = ("nchw", "nhwc") if (
+                shape[:5] in K7_REQUIRED and dt == torch.bfloat16) else ("nchw",)
+            for layout in layouts:
+                x = x32.to(dt)
+                if layout == "nhwc":
+                    x = x.permute(0, 2, 3, 1)
+                want = conv_act_plain(x, wt, b, k=k, act=act, layout=layout)
+                for form in FORMS:
+                    got = conv_act_kernel(x, wt, b, k=k, act=act,
+                                          layout=layout, form=form)
+                    again = conv_act_kernel(x, wt, b, k=k, act=act,
+                                            layout=layout, form=form)
+                    torch.cuda.synchronize()
+                    name = f"K7 conv_act {form} {layout} {shape} S={S_MAIN} {dt}"
+                    if not torch.equal(got, again):
+                        raise AssertionError(f"{name}: two launches differ")
+                    diff = (got.float() - want.float()).abs()
+                    scaled = float((diff / want.float().abs().clamp(min=1.0)).max())
+                    if not scaled <= tol:
+                        raise AssertionError(f"{name}: scaled |err| {scaled} "
+                                             f"> {tol}")
+                    max_err = max(max_err, float(diff.max()))
+        x = x32.to(torch.bfloat16)
+        w4 = (wt.reshape(k, k, c_in, c_out).permute(3, 2, 0, 1)
+              .to(torch.bfloat16).contiguous())
+        b16 = b.to(torch.bfloat16)
+        row = {form: cuda_ms(lambda f=form: conv_act_kernel(
+            x, wt, b, k=k, act=act, layout="nchw", form=f)) for form in FORMS}
+        row["plain"] = cuda_ms(lambda: conv_act_plain(
+            x, wt, b, k=k, act=act, layout="nchw"), iters=5)
+        row["library"] = cuda_ms(
+            (lambda: F.silu(F.conv2d(x, w4, b16, 1, k // 2))) if act
+            else (lambda: F.conv2d(x, w4, b16, 1, k // 2)))
+        flops = 2 * k * k * c_in * c_out * S_MAIN * h * w
+        out_bytes = S_MAIN * c_out * h * w * 2
+        row["bound"] = bound(nbytes(x, b) + wt.numel() * 2 + out_bytes,
+                             flops, "bf16")
+        rows[shape] = row
+        log(f"K7 conv_act {h}x{w} {c_in}->{c_out} k{k} act={act} S={S_MAIN} "
+            f"bf16: taps {row['taps']:.4f} ms, im2col {row['im2col']:.4f} ms, "
+            f"plain {row['plain']:.4f} ms, cuDNN {row['library']:.4f} ms, "
+            f"bound {row['bound'][0]:.6f} ms ({row['bound'][1]}, "
+            f"{flops / 1e9:.3f} GFLOP); taps {flops / row['taps'] / 1e9:.2f} "
+            f"TFLOP/s [{card}]")
+    total = {key: sum(rows[p[1:]][key] for p in pose)
+             for key in ("taps", "im2col", "plain", "library")}
+    t_bound = sum(rows[p[1:]]["bound"][0] for p in pose)
+    by_ops = sum(rows[p[1:]]["bound"][0] for p in pose
+                 if rows[p[1:]]["bound"][1] == "operations")
+    log(f"K7 over the {len(pose)} convs of one yolo11n-pose S={S_MAIN} 640 "
+        f"forward, bf16: taps {total['taps']:.4f} ms, im2col "
+        f"{total['im2col']:.4f} ms, plain {total['plain']:.4f} ms, cuDNN "
+        f"conv + SiLU {total['library']:.4f} ms, bound {t_bound:.6f} ms "
+        f"({by_ops:.6f} of it from convs bound by operations); "
+        f"{len(shapes)} shapes checked, both forms, max |err| {max_err:.3g} "
+        f"[{card}]")
+    return dict(
+        name="conv_act", route="cuda",
+        source="strongsort_yolo_tpu_torch/csrc/conv_act.cu",
+        replaces="tools/prof/conv_kernel.py:164 pallas_conv_act and "
+                 "tools/prof/_prof_conv2.py:145 call",
+        max_abs_err=max_err, ms=total["taps"], plain_ms=total["plain"],
+        bound_ms=t_bound,
+        bound_by="operations" if by_ops >= t_bound / 2 else "bytes",
+        library_ms=total["library"],
     )
 
 
@@ -702,7 +890,7 @@ def calibrate_candidates(pipe, frame: np.ndarray, conf: float, target: int):
     img = letterbox(torch.from_numpy(frame[None]).to(pipe.device), lp,
                     dtype=pipe.compute_dtype)
     with torch.no_grad():
-        _, cls = pipe.model(img)
+        cls = pipe.model(img)["cls_logits"]
     logits = cls[0].float().amax(-1).cpu().numpy()
     kth = np.partition(logits, -target)[-target]
     # land above the threshold with margin: bf16 logits tie heavily
@@ -714,8 +902,8 @@ def calibrate_candidates(pipe, frame: np.ndarray, conf: float, target: int):
 
 def _drive(bp, ticks, kernels, record=None):
     """Step ``bp`` through ``ticks`` with every launch count zeroed just
-    before, calling ``record(bp)`` after each timed step; -> (counts read
-    just after, ms per tick, last results)."""
+    before, calling ``record(bp, results)`` after each timed step; ->
+    (counts read just after, ms per tick, last results)."""
     import torch
 
     for k in kernels:
@@ -728,8 +916,9 @@ def _drive(bp, ticks, kernels, record=None):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         if record is not None:
-            record(bp)
-    return {k.__name__: k.launches for k in kernels}, times, results
+            record(bp, results)
+    counts = {k.__name__: k.launches for k in kernels}
+    return counts, times, results
 
 
 def _check_results(name: str, results) -> list[int]:
@@ -748,14 +937,16 @@ def _ms_line(times: list[float]) -> str:
             f"first {times[0]:.2f}; all {[round(x, 2) for x in times]}")
 
 
-def _main_pipeline(tracker, pool, *, fused: bool = False, cadence: int = 1):
+def _main_pipeline(tracker, pool, *, fused: bool = False, cadence: int = 1,
+                   model: str = "yolov8n", conv_kernel: bool = False):
     from strongsort_yolo_tpu_torch.config import DetectorConfig
     from strongsort_yolo_tpu_torch.pipeline import Pipeline
 
     pipe = Pipeline(
-        DetectorConfig(weights="yolov8n", imgsz=640, half=True, max_det=1000),
+        DetectorConfig(weights=model, imgsz=640, half=True, max_det=1000),
         tracker=tracker, track_slots=256, tracker_max_dets=128, reid_topk=128,
-        reid_cadence=cadence, reid_fused=fused, seed=0, device="cuda",
+        reid_cadence=cadence, reid_fused=fused, conv_kernel=conv_kernel,
+        seed=0, device="cuda",
     )
     calibrate_candidates(pipe, pool[0], pipe.det_cfg.conf, TARGET_DETS)
     return pipe
@@ -843,7 +1034,8 @@ def phase_flow_path(card: str, kernels):
     warps = []
     bp = BatchedPipeline(pipe, S_MAIN, (h, w))
     counts, times, results = _drive(
-        bp, ticks, kernels, lambda b: warps.append(b.last_warps.cpu().numpy()))
+        bp, ticks, kernels,
+        lambda b, _: warps.append(b.last_warps.cpu().numpy()))
     log(f"flow path: yolov8n 640 bf16, S={S_MAIN} 1080p, botsort gmc "
         f"flow_tpu, pans (frame px/tick) {PANS}; launches over {TICKS} "
         f"ticks: {counts}")
@@ -1087,7 +1279,7 @@ def phase_fused_strongsort_path(card: str, kernels, unfused):
     cad_g, masks = _record_slots(cpipe), []
     counts2, times2, results2 = _drive(
         BatchedPipeline(cpipe, S_MAIN, (h, w)), ticks, kernels,
-        lambda b: masks.append(b.last_embed_mask))
+        lambda b, _: masks.append(b.last_embed_mask))
     for t, m in enumerate(masks):
         if not np.array_equal(m, (np.arange(S_MAIN) + t) % 2 == 0):
             raise AssertionError(f"cadence 2: tick {t} embed mask {m}")
@@ -1101,6 +1293,222 @@ def phase_fused_strongsort_path(card: str, kernels, unfused):
         f"{cad_g} against {slot_counts} at cadence 1 ({ratio:.2f}); launches "
         f"{counts2}; ms/tick {_ms_line(times2)} [{card}]")
     return counts
+
+
+def _check_task_results(name: str, results, task: str) -> int:
+    """Every track row carries its keypoints or mask, finite and shaped;
+    -> the number of rows."""
+    rows = 0
+    for r in results:
+        extra = r.keypoints if task == "pose" else r.masks
+        if extra is None or len(extra) != len(r):
+            raise AssertionError(f"{name}: a {task} result without one extra "
+                                 "per track row")
+        data = extra.data
+        if not np.isfinite(data).all():
+            raise AssertionError(f"{name}: non-finite {task} extras")
+        if task == "pose" and data.shape[1:] != (17, 3):
+            raise AssertionError(f"{name}: keypoints of shape {data.shape}")
+        if task == "segment" and data.shape[1:] != (160, 160):
+            raise AssertionError(f"{name}: masks of shape {data.shape}")
+        rows += len(r)
+    return rows
+
+
+def _forward_ms(pipe, frames) -> float:
+    """The model's forward on one letterboxed S-frame batch (CUDA events)."""
+    import torch
+
+    from strongsort_yolo_tpu_torch.ops.letterbox import letterbox, letterbox_params
+
+    lp = letterbox_params(*frames.shape[1:3], pipe.det_cfg.imgsz)
+    img = letterbox(pipe._upload(frames), lp, dtype=pipe.compute_dtype)
+    with torch.no_grad():
+        return cuda_ms(lambda: pipe.model(img))
+
+
+def _extras_split(label: str, pipe, frames, results, card: str) -> None:
+    """The task extras' share of a tick: detect with and without the
+    extras of the top tracker_max_dets rows (CUDA events), and the copy
+    of the track rows' extras to the host (synchronized host clock)."""
+    import torch
+
+    dev_frames = pipe._upload(frames)
+    k = pipe.tracker_max_dets
+    det_ms = cuda_ms(lambda: pipe.detect(dev_frames))
+    ext_ms = cuda_ms(lambda: pipe.detect_with_extras(dev_frames, k))
+    _, extras = pipe.detect_with_extras(dev_frames, k)
+    rows = [np.arange(len(r)) for r in results]
+    copy_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe._extras_rows(extras, rows)
+        copy_ms.append((time.perf_counter() - t0) * 1e3)
+    log(f"{label} extras split (S={S_MAIN}, last tick): detect {det_ms:.4f} ms, "
+        f"with the extras of {k} rows per frame {ext_ms:.4f} ms (CUDA events, "
+        f"mean of 20); copy of {sum(map(len, rows))} rows' extras to the host "
+        f"{sorted(copy_ms)[2]:.3f} ms (median of 5) [{card}]")
+
+
+def phase_task_paths(card: str, kernels, conv_act) -> dict:
+    """yolo11n-pose (K1-K3), yolo11n-pose with conv_kernel=True (K1-K3 and
+    K7, once per picked conv and tick) and yolov8n-seg (K1-K3) with
+    BoT-SORT at full width. -> the route's launch counts."""
+    from strongsort_yolo_tpu_torch.pipeline import BatchedPipeline
+    from strongsort_yolo_tpu_torch.track.bytetrack import ByteTrackConfig
+
+    h, w = 1080, 1920
+    pool = make_frames(h, w, seed=2)
+    ticks = [np.stack([pool[(s + t) % len(pool)] for s in range(S_MAIN)])
+             for t in range(TICKS)]
+    tracker = ByteTrackConfig(tracker_type="botsort", gmc_method="none")
+    runs = {}
+    for label, model, route in (("yolo11n-pose", "yolo11n-pose", False),
+                                ("yolo11n-pose conv_kernel", "yolo11n-pose", True),
+                                ("yolov8n-seg", "yolov8n-seg", False)):
+        task = "pose" if "pose" in model else "segment"
+        pipe = _main_pipeline(tracker, pool, model=model, conv_kernel=route)
+        polygon_ms, rows = [], []
+
+        def record(bp, results):
+            if task == "segment":
+                t0 = time.perf_counter()
+                polys = [r.masks.xy for r in results]
+                polygon_ms.append((time.perf_counter() - t0) * 1e3)
+                if any(len(p) != len(r) for p, r in zip(polys, results)):
+                    raise AssertionError(f"{label}: a polygon list per mask")
+                rows.append(sum(len(q) > 0 for p in polys for q in p))
+
+        ks = kernels + ((conv_act,) if route else ())
+        counts, times, results = _drive(BatchedPipeline(pipe, S_MAIN, (h, w)),
+                                        ticks, ks, record)
+        for name, n in counts.items():
+            if n == 0:
+                raise AssertionError(f"{label} path never launched {name}")
+        picks = k7_picks(model)
+        if route and counts["conv_act"] != len(picks) * TICKS:
+            raise AssertionError(
+                f"{label}: K7 launched {counts['conv_act']} times in {TICKS} "
+                f"ticks, not {len(picks)} per tick")
+        tracks = _check_results(label, results)
+        n_rows = _check_task_results(label, results, task)
+        median = sorted(times[2:])[len(times[2:]) // 2]
+        runs[label] = (counts, median, pipe)
+        log(f"{label} path: 640 bf16, S={S_MAIN} 1080p, botsort gmc none; "
+            f"launches over {TICKS} ticks: {counts}"
+            + (f" ({len(picks)} convs picked by the K7 rule per forward)"
+               if route else "")
+            + f"; active tracks per stream {tracks}, {n_rows} rows with "
+            f"{'keypoints' if task == 'pose' else 'masks'} on the last tick")
+        log(f"{label} ms/tick (S={S_MAIN}, 1080p, host clock, synchronized): "
+            f"{_ms_line(times)} [{card}]")
+        if not route:
+            _extras_split(label, pipe, ticks[-1], results, card)
+        if task == "segment":
+            if sum(rows) == 0:
+                raise AssertionError(f"{label}: no polygon traced")
+            log(f"{label} host polygons (traced when .masks.xy is read, after "
+                f"the tick): ms per tick {[round(v, 2) for v in polygon_ms]}, "
+                f"median {sorted(polygon_ms)[len(polygon_ms) // 2]:.2f}; "
+                f"nonempty polygons per tick {rows} [{card}]")
+    off, on = runs["yolo11n-pose"], runs["yolo11n-pose conv_kernel"]
+    fwd = (_forward_ms(off[2], ticks[-1]), _forward_ms(on[2], ticks[-1]))
+    log(f"yolo11n-pose median ms/tick: route off {off[1]:.2f}, conv_kernel "
+        f"{on[1]:.2f}; model forward on one S={S_MAIN} batch (CUDA events, "
+        f"mean of 20): cuDNN convs {fwd[0]:.4f} ms, K7 route {fwd[1]:.4f} ms "
+        f"[{card}]")
+    return on[0]
+
+
+TASK_KPT_BGR = [(0, 0, 255), (0, 255, 0), (255, 0, 0), (0, 255, 255),
+                (255, 0, 255)]
+
+
+def render_task(task: str, num_frames: int, streams: int, seed: int) -> np.ndarray:
+    """(T, S, 320, 320, 3) uint8 BGR: per stream two objects moving a few
+    px per frame on noise; ellipses of the class-1 shade for a segment
+    model, boxes of the class-0 shade with five coloured dots for a pose
+    model, the scenes the synth160 task checkpoints were trained on."""
+    rng = np.random.default_rng(seed)
+    size = 320
+    yy, xx = np.mgrid[0:size, 0:size]
+    out = np.empty((num_frames, streams, size, size, 3), np.uint8)
+    for s in range(streams):
+        objs = [(rng.uniform(60, 110) + 140 * i, rng.uniform(60, 250),
+                 rng.uniform(-4, 4), rng.uniform(-4, 4)) for i in range(2)]
+        dots = rng.uniform(0.15, 0.85, (5, 2))
+        for t in range(num_frames):
+            f = (rng.uniform(0, 0.3, (size, size, 3)) * 255).astype(np.uint8)
+            for cx, cy, vx, vy in objs:
+                cx, cy = cx + vx * t, cy + vy * t
+                if task == "segment":
+                    f[((xx - cx) / 48) ** 2 + ((yy - cy) / 34) ** 2 <= 1] = 168
+                else:
+                    x1, y1 = int(cx - 50), int(cy - 40)
+                    f[y1:y1 + 80, x1:x1 + 100] = 127
+                    for (u, v), color in zip(dots, TASK_KPT_BGR):
+                        ix, iy = int(x1 + u * 100), int(y1 + v * 80)
+                        f[iy - 4:iy + 5, ix - 4:ix + 5] = color
+            out[t, s] = f
+    return out
+
+
+def phase_trained_tasks(conv_act) -> None:
+    """The trained task checkpoints through BatchedPipeline with ByteTrack,
+    on the card with the kernels and on the CPU with the plain versions
+    (float32, TF32 off), the K7 route off and on: equal rows and ids,
+    boxes and keypoints within 1e-3 px, equal mask polygons."""
+    from strongsort_yolo_tpu_torch.config import DetectorConfig
+    from strongsort_yolo_tpu_torch.pipeline import BatchedPipeline, Pipeline
+
+    S, T = 2, 10
+    for name, path in TASK_CKPTS.items():
+        task = "segment" if "seg" in name else "pose"
+        clip = render_task(task, T, S, seed=len(name))
+        for route in (False, True):
+            outs = {}
+            conv_act.launches = 0
+            for device in ("cuda", "cpu"):
+                pipe = Pipeline(
+                    DetectorConfig(weights=path, imgsz=160, half=False,
+                                   max_det=16),
+                    tracker="bytetrack.yaml", track_slots=16,
+                    tracker_max_dets=16, conv_kernel=route, device=device,
+                )
+                bp = BatchedPipeline(pipe, S, (320, 320))
+                outs[device] = [bp.step(clip[t]) for t in range(T)]
+            if (conv_act.launches > 0) != route:
+                raise AssertionError(f"{name}: K7 launched {conv_act.launches} "
+                                     f"times with conv_kernel={route}")
+            rows = polys = 0
+            for t in range(T):
+                for s in range(S):
+                    a, b = outs["cpu"][t][s], outs["cuda"][t][s]
+                    what = f"{name} conv_kernel={route} t={t} s={s}"
+                    if len(a) != len(b):
+                        raise AssertionError(f"{what}: {len(b)} rows vs {len(a)}")
+                    np.testing.assert_allclose(b.boxes.xyxy, a.boxes.xyxy,
+                                               atol=1e-3, err_msg=what)
+                    np.testing.assert_array_equal(b.boxes.id, a.boxes.id)
+                    if task == "pose":
+                        np.testing.assert_allclose(
+                            b.keypoints.xy, a.keypoints.xy, atol=1e-3,
+                            err_msg=what)
+                    else:
+                        for pa, pb in zip(a.masks.xy, b.masks.xy):
+                            np.testing.assert_array_equal(pb, pa, err_msg=what)
+                            polys += len(pa) > 0
+                    rows += len(a)
+            if rows < S * 2 * (T - 2) or (task == "segment" and polys == 0):
+                raise AssertionError(f"{name}: only {rows} track rows")
+            log(f"trained task checkpoint {name} (imgsz 160, f32, TF32 off, "
+                f"conv_kernel={route}, K7 launches on the card "
+                f"{conv_act.launches}): card == CPU on {S}x{T} frames, {rows} "
+                f"track rows, same ids, boxes"
+                + (" and keypoints" if task == "pose" else "")
+                + " within 1e-3"
+                + (f", {polys} polygons equal" if task == "segment" else ""))
 
 
 def phase_trained_checkpoint():
@@ -1171,6 +1579,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from strongsort_yolo_tpu_torch.ops.cuda.auction_kernel import auction
+    from strongsort_yolo_tpu_torch.ops.cuda.conv_kernel import conv_act
     from strongsort_yolo_tpu_torch.ops.cuda.crop_kernel import banded_crop
     from strongsort_yolo_tpu_torch.ops.cuda.lk_kernel import lk_pyramid
     from strongsort_yolo_tpu_torch.ops.cuda.nms_kernel import nms_keep
@@ -1193,13 +1602,17 @@ def main() -> int:
         card, (letterbox_u8, nms_keep, auction, lk_pyramid))
     log(f"botsort median ms/tick, S={S_MAIN} 1080p: gmc none {none_ms:.2f}, "
         f"flow_tpu {flow_ms:.2f} [{card}]")
+    task_counts = phase_task_paths(card, (letterbox_u8, nms_keep, auction),
+                                   conv_act)
     counts["banded_crop"] = ss_counts["banded_crop"]
     counts["os_stage"] = fused_counts["os_stage"]
+    counts["conv_act"] = task_counts["conv_act"]
     for entry in report:
         entry["launches"] = counts[entry["name"]]
         if entry["name"] == "banded_crop":
             entry.update(k4)
     phase_trained_checkpoint()
+    phase_trained_tasks(conv_act)
     log(json.dumps({"kernels": [
         {k: e[k] for k in ("name", "route", "source", "replaces", "launches",
                            "max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -36,6 +36,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _IP = ctypes.POINTER(ctypes.c_int)  # a host array of ints
 # C entry point -> argtypes; every pointer and the stream are c_void_p so
 # ctypes passes them as 64-bit values
@@ -49,6 +50,8 @@ _SIGNATURES = {
     "ssyt_banded_crop": (_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _P),
     "ssyt_os_stage": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "ssyt_conv_act": (_P, _P, _P, _P, _I, _I, _I, _I, _I, *(_L,) * 8,
+                      _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -1,16 +1,20 @@
 """Detect -> NMS -> (ReID embed) -> track, for one stream or S in lockstep.
 
-Counterpart of ``strongsort_yolo_tpu/pipeline.py`` for YOLOv8 detect
-with ByteTrack, BoT-SORT (with or without ReID) or StrongSORT (no
-seg/pose). One tick of :class:`BatchedPipeline` uploads the (S, H, W, 3)
-uint8 frames once, then runs the letterbox (K1), the model as one
-batch-S forward, NMS of all S frames (one K2 launch), the rescale to
-frame coordinates, for ReID trackers the embed (pyramid, one K4 crop
+Counterpart of ``strongsort_yolo_tpu/pipeline.py`` for the YOLOv8 and
+YOLO11 detect, pose and segment models with ByteTrack, BoT-SORT (with
+or without ReID) or StrongSORT. One tick of :class:`BatchedPipeline`
+uploads the (S, H, W, 3) uint8 frames once, then runs the letterbox
+(K1), the model as one batch-S forward, NMS of all S frames (one K2
+launch), the rescale to frame coordinates, the task extras of the rows
+that can reach the tracker (pose: keypoints decoded and mapped to the
+frame; segment: masks from the prototypes, cropped to the frame boxes),
+for ReID trackers the embed (pyramid, one K4 crop
 launch, one OSNet forward over the real detections of all S frames),
 and the tracker over all S streams (one K3 launch per association
-stage). With ``reid_fused`` OSNet runs its three backbone stages as the
-fused stage kernel K6 (three launches per embed; the CPU runs its plain
-version). With ``reid_cadence`` k > 1 a StrongSORT
+stage). With ``conv_kernel`` the model computes the convs that the K7
+rule picks with K7 (``ops/cuda/conv_kernel.py``). With ``reid_fused``
+OSNet runs its three backbone stages as the fused stage kernel K6 (three
+launches per embed; the CPU runs its plain version). With ``reid_cadence`` k > 1 a StrongSORT
 :class:`BatchedPipeline` embeds stream s only on ticks where (s + tick)
 % k == 0; the other streams associate by motion alone.
 
@@ -25,8 +29,12 @@ warps from the caller, and a step without them raises ``ValueError``.
 semantics of T ``track`` calls: one detect batch, one embed batch, one
 K5 launch over the T frame pairs, then the tracker frame by frame.
 
-``Results``/``Boxes`` mirror the ultralytics result surface
-(``.boxes{.xyxy,.conf,.cls,.id}``, ``.names``).
+``Results``/``Boxes``/``Masks``/``Keypoints`` mirror the ultralytics
+result surface (``.boxes{.xyxy,.conf,.cls,.id}``, ``.masks.xy``,
+``.keypoints.xy``, ``.names``). A track row takes the extras of the
+detection that updated it (``TrackOutputs.det_index``), zeros where none
+did. The mask polygons are traced on the host when ``.masks.xy`` is
+first read, one mask at a time.
 """
 
 from __future__ import annotations
@@ -70,12 +78,15 @@ from strongsort_yolo_tpu_torch.ops.crops import (
 )
 from strongsort_yolo_tpu_torch.ops.cuda.crop_kernel import banded_crop
 from strongsort_yolo_tpu_torch.ops.cuda.resize_kernel import letterbox_u8
+from strongsort_yolo_tpu_torch.ops.decode import anchors_from_indices
+from strongsort_yolo_tpu_torch.ops.keypoints import decode_keypoints, scale_keypoints
 from strongsort_yolo_tpu_torch.ops.letterbox import (
     LetterboxParams,
     ResizeTaps,
     letterbox_params,
     resize_taps,
 )
+from strongsort_yolo_tpu_torch.ops.masks import masks_to_polygons, process_masks
 from strongsort_yolo_tpu_torch.ops.nms import Detections, nms_from_logits
 from strongsort_yolo_tpu_torch.track.bytetrack import ByteTrackConfig, bytetrack_step
 from strongsort_yolo_tpu_torch.track.gmc_flow import (
@@ -124,11 +135,65 @@ class Boxes:
             )
 
 
-class Results:
-    """One frame's results: .boxes, .names, .orig_img."""
+class Masks:
+    """.data: (n, Hm, Wm) float32 masks on the prototype grid; .xy: one
+    (P, 2) float32 polygon per mask in frame coordinates, the largest
+    outer contour above 0.5 (``ops/masks.masks_to_polygons``), traced on
+    the host when first read."""
 
-    def __init__(self, boxes, names, orig_img=None):
+    def __init__(self, data, lp: LetterboxParams, src_hw, input_hw):
+        self.data = data
+        self._geometry = (lp, tuple(src_hw), tuple(input_hw))
+        self._xy = None
+
+    @property
+    def xy(self) -> list[np.ndarray]:
+        if self._xy is None:
+            lp, src_hw, input_hw = self._geometry
+            self._xy = masks_to_polygons(self.data, len(self.data), lp.gain,
+                                         (lp.pad_x, lp.pad_y), src_hw, input_hw)
+        return self._xy
+
+    def __len__(self):
+        return len(self.data)
+
+
+class Keypoints:
+    """.xy (n, K, 2) and .conf (n, K) in frame coordinates; invisible
+    keypoints are those with conf < 0.5 (the reference sees them as (0, 0),
+    which ``xy_masked`` reproduces)."""
+
+    def __init__(self, data):
+        self.data = np.asarray(data, np.float32)  # (n, K, 3)
+
+    @property
+    def xy(self):
+        return self.data[..., :2]
+
+    @property
+    def conf(self):
+        return self.data[..., 2]
+
+    @property
+    def xy_masked(self):
+        vis = self.data[..., 2:3] >= 0.5
+        return np.where(vis, self.data[..., :2], 0.0)
+
+    def __len__(self):
+        return len(self.data)
+
+    def __iter__(self):
+        for i in range(len(self.data)):
+            yield Keypoints(self.data[i : i + 1])
+
+
+class Results:
+    """One frame's results: .boxes, .masks, .keypoints, .names, .orig_img."""
+
+    def __init__(self, boxes, names, masks=None, keypoints=None, orig_img=None):
         self.boxes = boxes
+        self.masks = masks
+        self.keypoints = keypoints
         self.names = names
         self.orig_img = orig_img
 
@@ -176,7 +241,19 @@ class Pipeline:
     :func:`~strongsort_yolo_tpu_torch.models.porting.params_from_jax`),
     fused or not. Without it the weights come from ``det_cfg.weights``:
     an ``.npz`` checkpoint of the JAX package, or a model name such as
-    ``"yolov8n"`` initialised at random from ``seed``.
+    ``"yolov8n"``, ``"yolo11n-pose"`` or ``"yolov8n-seg"`` initialised at
+    random from ``seed``. Pose models give each result row its
+    ``keypoints``, segment models its ``masks``: computed for the top
+    ``max_det`` rows in ``predict`` and the top ``tracker_max_dets`` rows
+    (those that can reach the tracker) when tracking.
+    ``conv_kernel``: the fused model computes every conv whose input the
+    K7 rule picks (``ops/cuda/conv_kernel.eligible``, the JAX package's
+    rule for its ``conv_act`` entry point: stride-1 'same' convs, k 1 or
+    3, on planes of 1600 pixels or more with at most 192 input channels)
+    with K7, its bias added in float32 and the output rounded once; the
+    CPU runs K7's plain version. Off by default, as in the JAX package,
+    whose product path leaves every conv to XLA; in bfloat16 its rounding
+    differs from the default convs', so detections move slightly.
     ``tracker``: a built-in name or YAML path, or a config object;
     StrongSORT and BoT-SORT with ``with_reid`` embed detections with
     OSNet, whose weights come from ``reid_params`` (an OSNet checkpoint
@@ -216,6 +293,7 @@ class Pipeline:
         tracker_max_dets: int = 128,
         reid_cadence: int = 1,
         reid_fused: bool | None = None,
+        conv_kernel: bool = False,
         device: torch.device | str | None = None,
     ):
         if device is None:
@@ -243,6 +321,9 @@ class Pipeline:
             model = model_from_state_dict(params, self.model_cfg)
         if det_cfg.fuse:
             model = fuse_model(model)
+        if conv_kernel:
+            # K7 keeps its biases in float32: taken before the cast
+            model.use_conv_kernel()
         self.compute_dtype = torch.bfloat16 if det_cfg.half else torch.float32
         self.model = model.to(self.device, self.compute_dtype).eval()
         self.names = names or dict(COCO_NAMES)
@@ -301,17 +382,27 @@ class Pipeline:
             )
         return self._geoms[src_hw]
 
-    @torch.no_grad()
     def detect(self, frames: torch.Tensor) -> Detections:
         """(B, H, W, 3) uint8 BGR on the pipeline's device -> confidence-
         sorted detections (B, max_det, ...) in frame coordinates."""
+        return self.detect_with_extras(frames, 0)[0]
+
+    @torch.no_grad()
+    def detect_with_extras(
+        self, frames: torch.Tensor, extras_k: int
+    ) -> tuple[Detections, dict[str, torch.Tensor]]:
+        """:meth:`detect` and the task extras of each frame's top
+        ``extras_k`` rows, on the device: 'keypoints' (B, k, K, 3) in frame
+        coordinates for a pose model, 'masks' (B, k, Hm, Wm) float32 for a
+        segment model, each cropped to its clipped frame box mapped back
+        to the model input; rows past the count are zero."""
         cfg, det_cfg = self.model_cfg, self.det_cfg
         geo = self._geometry(frames.shape[1:3])
         size = det_cfg.imgsz
         img = letterbox_u8(frames, geo.lp, dtype=self.compute_dtype, taps=geo.taps)
-        box_logits, cls_logits = self.model(img)
+        out = self.model(img)
         det = nms_from_logits(
-            box_logits, cls_logits,
+            out["box_logits"], out["cls_logits"],
             feat_dims=feat_hw((size, size), cfg.strides),
             level_strides=cfg.strides,
             reg_max=cfg.reg_max,
@@ -321,12 +412,33 @@ class Pipeline:
             agnostic=det_cfg.agnostic_nms,
             class_filter=self._class_filter,
         )
-        boxes = scale_boxes(
-            det.boxes, geo.lp.gain, (geo.lp.pad_x, geo.lp.pad_y), geo.src_hw
-        )
-        return det._replace(
-            boxes=torch.where(det.valid[..., None], boxes, 0.0)
-        )
+        lp = geo.lp
+        boxes = scale_boxes(det.boxes, lp.gain, (lp.pad_x, lp.pad_y), geo.src_hw)
+        det = det._replace(boxes=torch.where(det.valid[..., None], boxes, 0.0))
+        extras = {}
+        k = min(extras_k, det_cfg.max_det)
+        if k == 0 or cfg.task == "detect":
+            return det, extras
+        idx = det.index[:, :k].long()
+        if cfg.task == "pose":
+            rows = torch.gather(out["kpt_raw"], 1,
+                                idx[..., None].expand(-1, -1, cfg.nk))
+            anchors, strides = anchors_from_indices(
+                idx, feat_hw((size, size), cfg.strides), cfg.strides)
+            kpts = decode_keypoints(rows, anchors, strides, cfg.kpt[0])
+            extras["keypoints"] = scale_keypoints(
+                kpts, lp.gain, (lp.pad_x, lp.pad_y), geo.src_hw)
+        else:
+            coefs = torch.gather(out["mask_coef"], 1,
+                                 idx[..., None].expand(-1, -1, cfg.nm))
+            pad = torch.tensor([lp.pad_x, lp.pad_y] * 2, dtype=torch.float32,
+                               device=self.device)
+            # crop to the clipped frame boxes mapped back to the model input
+            crop = torch.where(det.valid[:, :k, None],
+                               det.boxes[:, :k] * lp.gain + pad, 0.0)
+            extras["masks"] = process_masks(coefs, out["proto"], crop,
+                                            (size, size))
+        return det, extras
 
     def embed_slots(self, det: Detections,
                     mask: np.ndarray | None = None) -> np.ndarray:
@@ -457,13 +569,50 @@ class Pipeline:
             )
         return torch.from_numpy(frames).to(self.device)
 
-    def _track_results(self, out: np.ndarray, orig_img=None) -> Results:
-        """Results of one stream from its packed (K, 8) track outputs."""
-        rows = out[:, 7] > 0.5
-        return Results(
-            Boxes(out[rows, :4], out[rows, 5], out[rows, 6], id=out[rows, 4]),
-            self.names, orig_img=orig_img,
-        )
+    def _extras_rows(self, extras: dict, rows: list[np.ndarray]) -> list[dict]:
+        """The extras of the given detection rows of each frame (``rows[f]``,
+        -1 for none, which gets zeros) -> per frame, name -> host array.
+        Only the selected rows leave the device, one copy per name."""
+        if not extras:
+            return [{} for _ in rows]
+        frame = np.repeat(np.arange(len(rows)), [len(r) for r in rows])
+        flat = np.concatenate(rows).astype(np.int64)
+        k = next(iter(extras.values())).shape[1]
+        sel = (torch.from_numpy(frame).to(self.device),
+               torch.from_numpy(np.clip(flat, 0, k - 1)).to(self.device))
+        split = np.cumsum([len(r) for r in rows])[:-1]
+        out = [{} for _ in rows]
+        for name, value in extras.items():
+            data = value[sel].cpu().numpy()
+            data[flat < 0] = 0.0
+            for f, part in enumerate(np.split(data, split)):
+                out[f][name] = part
+        return out
+
+    def _results(self, boxes: Boxes, extras: dict, src_hw, orig_img=None) -> Results:
+        masks = keypoints = None
+        if "masks" in extras:
+            size = self.det_cfg.imgsz
+            masks = Masks(extras["masks"], self._geometry(src_hw).lp, src_hw,
+                          (size, size))
+        if "keypoints" in extras:
+            keypoints = Keypoints(extras["keypoints"])
+        return Results(boxes, self.names, masks=masks, keypoints=keypoints,
+                       orig_img=orig_img)
+
+    def _track_results(self, packed: np.ndarray, extras: dict, src_hw,
+                       orig_imgs=None) -> list[Results]:
+        """Results of each frame from its packed (K, 9) track outputs and
+        the task extras of its detections (:meth:`detect_with_extras`)."""
+        active = [out[:, 7] > 0.5 for out in packed]
+        rows = self._extras_rows(
+            extras, [out[a, 8].astype(np.int64) for out, a in zip(packed, active)])
+        return [
+            self._results(
+                Boxes(out[a, :4], out[a, 5], out[a, 6], id=out[a, 4]), ex,
+                src_hw, None if orig_imgs is None else orig_imgs[f])
+            for f, (out, a, ex) in enumerate(zip(packed, active, rows))
+        ]
 
     # -- host-facing API ------------------------------------------------
 
@@ -474,16 +623,16 @@ class Pipeline:
             self.gmc.reset()
 
     def predict(self, frame_bgr: np.ndarray) -> Results:
-        """Detect without tracking."""
-        det = self.detect(self._upload(frame_bgr[None]))
+        """Detect without tracking; pose and segment extras for every row."""
+        det, extras = self.detect_with_extras(self._upload(frame_bgr[None]),
+                                              self.det_cfg.max_det)
         n = int(det.count[0])
-        return Results(
-            Boxes(
-                det.boxes[0, :n].cpu().numpy(), det.scores[0, :n].cpu().numpy(),
-                det.classes[0, :n].cpu().numpy(),
-            ),
-            self.names, orig_img=frame_bgr,
+        boxes = Boxes(
+            det.boxes[0, :n].cpu().numpy(), det.scores[0, :n].cpu().numpy(),
+            det.classes[0, :n].cpu().numpy(),
         )
+        ex = self._extras_rows(extras, [np.arange(n)])[0]
+        return self._results(boxes, ex, frame_bgr.shape[:2], frame_bgr)
 
     def track(self, frame_bgr: np.ndarray, warp=None) -> Results:
         """Detect + track one frame of this pipeline's stream; ``warp``
@@ -492,11 +641,12 @@ class Pipeline:
         w = None if warp is None else self._warps(np.asarray(warp)[None], 1)
         if self.gmc is not None:
             w = self.gmc.warps(frames)
-        det = self.detect(frames)
+        det, extras = self.detect_with_extras(frames, self.tracker_max_dets)
         self.track_state, out = self.associate(
             self.track_state, det, w, self.embed(frames, det)
         )
-        return self._track_results(_pack_outputs(out)[0], frame_bgr)
+        return self._track_results(_pack_outputs(out), extras,
+                                   frame_bgr.shape[:2], [frame_bgr])[0]
 
     def track_chunk(self, frames_bgr: np.ndarray, warps=None) -> list[Results]:
         """T consecutive frames (T, H, W, 3) of this pipeline's stream ->
@@ -510,7 +660,7 @@ class Pipeline:
         w = self._warps(warps, t)
         if self.gmc is not None:
             w = self.gmc.warps(frames)
-        det = self.detect(frames)
+        det, extras = self.detect_with_extras(frames, self.tracker_max_dets)
         feats = self.embed(frames, det)
         outs = []
         for k in range(t):
@@ -520,14 +670,14 @@ class Pipeline:
                 None if feats is None else feats[k:k + 1],
             )
             outs.append(out)
-        packed = _pack_outputs(*outs)
-        return [self._track_results(packed[k], frames_bgr[k]) for k in range(t)]
+        return self._track_results(_pack_outputs(*outs), extras,
+                                   frames_bgr.shape[1:3], frames_bgr)
 
 
 def _pack_outputs(*outs: TrackOutputs) -> np.ndarray:
-    """(sum S, K, 8) float32 host array [x1 y1 x2 y2 id score cls active]
-    of one or more steps' outputs in one device-to-host copy (ids and
-    classes are exact in float32)."""
+    """(sum S, K, 9) float32 host array [x1 y1 x2 y2 id score cls active
+    det_index] of one or more steps' outputs in one device-to-host copy
+    (ids, classes and detection rows are exact in float32)."""
     packed = torch.cat([
         torch.cat(
             [
@@ -536,6 +686,7 @@ def _pack_outputs(*outs: TrackOutputs) -> np.ndarray:
                 out.score[..., None],
                 out.cls.float()[..., None],
                 out.active.float()[..., None],
+                out.det_index.float()[..., None],
             ],
             dim=-1,
         )
@@ -608,7 +759,7 @@ class BatchedPipeline:
             grays = frame_to_gray(frames)
             w = batched_warps(self.prev_grays, grays, self.src_hw,
                               self.has_prev)
-        det = p.detect(frames)
+        det, extras = p.detect_with_extras(frames, p.tracker_max_dets)
         mask = has_app = None
         if self.cadence > 1:
             phase = self.tick % self.cadence
@@ -621,5 +772,4 @@ class BatchedPipeline:
             self.has_prev.fill_(True)
         self.last_warps = w
         self.last_embed_mask = mask
-        packed = _pack_outputs(out)
-        return [p._track_results(packed[s]) for s in range(self.num_streams)]
+        return p._track_results(_pack_outputs(out), extras, self.src_hw)

@@ -16,8 +16,13 @@ it has not (one step per level), and two of its launches are
 bit-identical; K6 (the fused OSNet stage) sums in another order than
 its plain version, so it is held to 1e-4 in float32; in bfloat16 the
 sums' differences stay below the rounding, and K6 must equal its plain
-version bit for bit; its launches are bit-identical; the pipelines compare float32 runs with TF32 off, boxes
-within 1e-3 px and identical ids.
+version bit for bit; its launches are bit-identical; K7 (the fused conv)
+sums in another order than its plain version (cuDNN's float32 conv with
+TF32 off): float32 within 2e-5 x max(1, |ref|), bfloat16 within one bf16
+unit at 1.0 of the output scaled by max(1, |ref|), in both forms and
+both layouts, two launches bit-identical; the pipelines compare float32
+runs with TF32 off, boxes (and keypoints) within 1e-3 px, identical ids
+(and mask polygons).
 """
 
 import os
@@ -34,6 +39,12 @@ from strongsort_yolo_tpu_torch.models.osnet import (
 )
 from strongsort_yolo_tpu_torch.ops.crops import banded_prep, pyramid_stack
 from strongsort_yolo_tpu_torch.ops.cuda.auction_kernel import auction, auction_plain
+from strongsort_yolo_tpu_torch.ops.cuda.conv_kernel import (
+    FORMS,
+    conv_act,
+    conv_act_kernel,
+    conv_act_plain,
+)
 from strongsort_yolo_tpu_torch.ops.cuda.crop_kernel import (
     banded_crop,
     banded_crop_frames,
@@ -472,5 +483,94 @@ def test_cadence_two_card_equals_cpu(dev):
             assert len(a) == len(b)
             np.testing.assert_allclose(b.boxes.xyxy, a.boxes.xyxy, atol=1e-3)
             np.testing.assert_array_equal(b.boxes.id, a.boxes.id)
+            rows += len(a)
+    assert rows > 0
+
+
+@pytest.mark.parametrize("shape", [(80, 80, 32, 32, 3), (40, 40, 64, 64, 3),
+                                   (40, 40, 192, 128, 1), (80, 80, 64, 51, 3),
+                                   (37, 53, 16, 20, 3), (8, 200, 64, 64, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["nchw", "nhwc"])
+def test_conv_act_kernel_equals_plain(dev, shape, dtype, layout):
+    h, w, c_in, c_out, k = shape
+    rng = np.random.default_rng(c_in + c_out)
+    x = torch.from_numpy(rng.normal(0, 1, (3, c_in, h, w)).astype(np.float32))
+    x = x.to(dev, dtype)
+    if layout == "nhwc":
+        x = x.permute(0, 2, 3, 1)  # a strided view: K7 reads it in place
+    wt = torch.from_numpy((rng.normal(0, 1, (k * k * c_in, c_out))
+                           * (2.0 / (k * k * c_in)) ** 0.5).astype(np.float32)).to(dev)
+    b = torch.from_numpy(rng.normal(0, 0.3, c_out).astype(np.float32)).to(dev)
+    for act in (True, False):
+        want = conv_act_plain(x, wt, b, k=k, act=act, layout=layout).float()
+        scale = want.abs().clamp(min=1.0)
+        tol = 2e-5 if dtype == torch.float32 else 2.0 ** -7
+        for form in FORMS:
+            before = conv_act.launches
+            got = conv_act_kernel(x, wt, b, k=k, act=act, layout=layout, form=form)
+            again = conv_act_kernel(x, wt, b, k=k, act=act, layout=layout,
+                                    form=form)
+            assert conv_act.launches == before + 2
+            torch.cuda.synchronize()
+            assert got.shape == want.shape and got.dtype == dtype
+            assert torch.equal(got, again)
+            err = float(((got.float() - want) / scale).abs().max())
+            assert err <= tol, (form, act, err)
+
+
+def test_conv_act_grad_on_the_card(dev):
+    """Forward K7, backward the plain formulation's autograd."""
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(0, 1, (2, 40, 40, 32)).astype(np.float32))
+    wt = torch.from_numpy(rng.normal(0, 0.1, (9 * 32, 16)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(0, 0.3, 16).astype(np.float32))
+    grads = {}
+    for device in ("cpu", "cuda"):
+        leaves = [t.detach().to(device).requires_grad_() for t in (x, wt, b)]
+        (conv_act(*leaves, k=3, act=True) ** 2).sum().backward()
+        grads[device] = [t.grad.cpu() for t in leaves]
+    for a, c in zip(grads["cpu"], grads["cuda"]):
+        np.testing.assert_allclose(c.numpy(), a.numpy(), rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("asset", ["yolov8n_seg_synth160", "yolo11n_pose_synth160"])
+@pytest.mark.parametrize("conv_kernel", [False, True])
+def test_task_pipeline_card_equals_cpu(dev, asset, conv_kernel):
+    """The trained task checkpoints through BatchedPipeline, card against
+    CPU, with the K7 route off and on: rows, ids, boxes and keypoints
+    within 1e-3 px, mask polygons equal."""
+    rng = np.random.default_rng(9)
+    frames = (rng.uniform(0, 0.3, (5, 2, 320, 320, 3)) * 255).astype(np.uint8)
+    yy, xx = np.mgrid[0:320, 0:320]
+    for t in range(5):
+        for s in range(2):
+            ell = ((xx - 100 - 4 * t - 90 * s) / 48) ** 2 + (
+                (yy - 150) / 34) ** 2 <= 1
+            frames[t, s][ell] = 209
+    outs = {}
+    before = conv_act.launches
+    for device in ("cpu", "cuda"):
+        pipe = Pipeline(
+            DetectorConfig(weights=os.path.join(ASSETS, asset + ".npz"),
+                           imgsz=160, half=False, max_det=8),
+            tracker="bytetrack.yaml", track_slots=8, tracker_max_dets=8,
+            conv_kernel=conv_kernel, device=device,
+        )
+        bp = BatchedPipeline(pipe, 2, (320, 320))
+        outs[device] = [bp.step(f) for f in frames]
+    assert (conv_act.launches > before) == conv_kernel
+    rows = 0
+    for a_t, b_t in zip(outs["cpu"], outs["cuda"]):
+        for a, b in zip(a_t, b_t):
+            assert len(a) == len(b)
+            np.testing.assert_allclose(b.boxes.xyxy, a.boxes.xyxy, atol=1e-3)
+            np.testing.assert_array_equal(b.boxes.id, a.boxes.id)
+            if a.keypoints is not None:
+                np.testing.assert_allclose(b.keypoints.xy, a.keypoints.xy,
+                                           atol=1e-3)
+            if a.masks is not None:
+                for pa, pb in zip(a.masks.xy, b.masks.xy):
+                    np.testing.assert_array_equal(pb, pa)
             rows += len(a)
     assert rows > 0
