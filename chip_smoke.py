@@ -13,21 +13,28 @@ raises and the process exits nonzero:
    here, from the checkout, one nvcc per source, all at once);
 2. each hand-written kernel against its plain PyTorch version on the
    card, at the shapes the main path gives it, with CUDA-event times of
-   both sides (K4: float32 within 1e-6, bfloat16 within one unit in the
-   last place, in its fixed-width and its packed form; its times are
-   taken in phase 3, on the StrongSORT path's own crop batch; K5: the
-   LK params of S=8 and of T=32 panned pyramid pairs, and of S=8
-   rotated and scaled pairs after one step per level, within 1e-4 base
-   px and 1e-6, and two launches bit-identical, and K5 with one level,
-   the form of the TPU's lk_level_pallas, on S=8 180x320 pairs; K6: each
-   of the three fused OSNet-x0_25 stages on G=480 seeded crops, float32
-   within 1e-4 and bfloat16 bit-identical, two launches bit-identical;
-   K7: every conv shape that the K7 rule picks in yolo11n-pose and
-   yolov8n at 640, S=8, NCHW, in both forms (taps and im2col), float32
-   within 2e-5 x max(1, |ref|) and bfloat16 within one bf16 unit at 1.0
-   of the output scaled by max(1, |ref|), two launches bit-identical, the
-   NHWC layout on four of them; times in bfloat16 beside the plain
-   version's and cuDNN's F.silu(F.conv2d(x, w, b)), two launches);
+   both sides (K3: also (256, 256), (512, 250) and (1100, 300)
+   problems, whose benefit block K3 holds in its global scratch,
+   bit-identical, with the form each took; K4: float32 within 1e-6,
+   bfloat16 within one unit in the last place, in its fixed-width and
+   its packed form; its times are taken in phase 3, on the StrongSORT
+   path's own crop batch; K5: the LK params of S=8 and of T=32 panned
+   pyramid pairs, and of S=8 rotated and scaled pairs after one step per
+   level, within 1e-4 base px and 1e-6, and two launches bit-identical,
+   and K5 with one level, the form of the TPU's lk_level_pallas, on S=8
+   180x320 pairs; K6: each of the three fused OSNet stages of the four
+   released widths x0_25, x0_5, x0_75 and x1_0, on G=480 seeded crops
+   for x0_25 and K6_G_WIDE for the others, float32 within 1e-4 and
+   bfloat16 bit-identical, two launches bit-identical; K7: HGMMA
+   instructions in every mma kernel of the built library (cuobjdump
+   -sass), then every conv shape that the K7 rule picks in yolo11n-pose
+   and yolov8n at 640, S=8, NCHW, in every form (mma, the tensor-core
+   form, in bfloat16; taps and im2col in both dtypes), float32 within
+   2e-5 x max(1, |ref|) and bfloat16 within one bf16 unit at 1.0 of the
+   output scaled by max(1, |ref|), two launches bit-identical, the NHWC
+   layout on four of them; device times (CUDA graph replay) in bfloat16
+   beside the plain version's and cuDNN's F.silu(F.conv2d(x, w, b)), two
+   launches);
 3. the main paths at full width: yolov8n (nc=80, imgsz 640, bf16,
    seeded random weights with the class-head bias calibrated to about
    120 candidates per frame), BatchedPipeline over S=8 streams of
@@ -39,7 +46,11 @@ raises and the process exits nonzero:
    (K1-K4 and K6, K6 three times per tick), its ms/tick beside the
    unfused path's and OSNet on one crop batch fused against unfused;
    the fused path with reid_cadence=2 (the embed masks alternate, the
-   crop batch about halves); BoT-SORT with
+   crop batch about halves); the fused path with OSNet-x1_0 (seeded
+   random weights, WIDE_TICKS ticks, K6 three times per tick) and its
+   float32 embeddings on the card against the CPU; ByteTrack with
+   tracker_max_dets=256 on 256 slots (CROWD_TICKS ticks, K3 on 256 x 256
+   problems in its global-scratch form); BoT-SORT with
    gmc_method="flow_tpu" on a smooth periodic scene that each stream
    pans by its own integer step per tick (K1-K3 and K5, K5 once per
    tick, each pan recovered within 2 frame px from tick 1 on), with its
@@ -50,19 +61,21 @@ raises and the process exits nonzero:
    then one stream's 10 frames through 10 Pipeline.track
    calls (K5 10 launches) and through one Pipeline.track_chunk (K5
    once), timed; yolo11n-pose with BoT-SORT (K1-K3, keypoints on every
-   track row); the same with conv_kernel=True (K1-K3 and K7, K7 once per
-   picked conv and tick), its ms/tick beside the route-off path's and
-   the model forward with and without the route (CUDA events); and
-   yolov8n-seg with BoT-SORT (K1-K3, a mask and a polygon per track
-   row, the polygons traced on the host and timed apart from the tick);
-   each path's launch counts are zeroed before it and must all have
-   moved after it;
+   track row); the same with conv_kernel=True (K1-K3 and K7's mma form,
+   K7 once per picked conv and tick), its ms/tick beside the route-off
+   path's and the model forward with and without the route (CUDA
+   events); and yolov8n-seg with BoT-SORT (K1-K3, a mask and a polygon
+   per track row, the polygons traced on the host and timed apart from
+   the tick); each path's launch counts are zeroed before it and must
+   all have moved after it;
 4. the trained synth160 checkpoints on rendered frames, on the card with
    the kernels and on the CPU with the plain versions (float32, TF32
    off), for ByteTrack, for StrongSORT with the trained OSNet
-   (assets/osnet_x0_25_synth.npz), unfused and fused, and for BoT-SORT
-   with flow_tpu on a panned copy of the frames: equal rows, boxes
-   within 1e-3 px, equal track ids (and flow warps within 2e-3); and the
+   (assets/osnet_x0_25_synth.npz), unfused and fused, for StrongSORT
+   with a seeded OSNet-x1_0, fused, for ByteTrack at 256 slots x 256
+   tracker dets (K3's global-scratch form) and for BoT-SORT with
+   flow_tpu on a panned copy of the frames: equal rows, boxes within
+   1e-3 px, equal track ids (and flow warps within 2e-3); and the
    trained yolov8n-seg, yolov8n-pose and yolo11n-pose synth160 task
    checkpoints with ByteTrack, the K7 route off and on: equal rows and
    ids, boxes and keypoints within 1e-3 px, equal mask polygons.
@@ -80,8 +93,10 @@ and its operations over the peak for their type: 989 TFLOP/s in bf16,
 published rates) with what sets it, and
 library_ms, the time of one PyTorch call computing the same function
 (null where none does; K7's is cuDNN's conv with bias, then SiLU). K7's
-times and bound are summed over the convs it takes in one S=8
-yolo11n-pose forward. The last line is {"ok": true, "device": {...}}.
+times (its mma form, the route's in bfloat16, and cuDNN's, both device
+times from CUDA graph replay) and bound are summed over the convs it
+takes in one S=8 yolo11n-pose forward. The last line is {"ok": true,
+"device": {...}}.
 Without a CUDA device the script exits nonzero before printing any
 result.
 """
@@ -104,12 +119,22 @@ TASK_CKPTS = {name: os.path.join(ROOT, "assets", name + ".npz") for name in (
 OSNET = os.path.join(ROOT, "assets", "osnet_x0_25_synth.npz")
 TARGET_DETS = 120  # candidates per frame the class bias is set for
 S_MAIN, TICKS = 8, 10
+CROWD_TICKS, WIDE_TICKS = 6, 4  # ticks of the paths added for K3's and K6's
+# large forms
 HBM_BYTES_PER_MS = 3.35e9  # H100 SXM, 3.35 TB/s
 PEAK_OPS_PER_MS = {"bf16": 989e9, "f32": 67e9}  # tensor cores; CUDA cores
 
 
+T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def mark(phase: str) -> None:
+    """A line with the seconds since the script started, before a phase."""
+    log(f"[{time.perf_counter() - T0:.1f} s] {phase}")
 
 
 def card_line() -> str:
@@ -267,7 +292,9 @@ def phase_environment():
     t0 = time.perf_counter()
     _build.lib()
     log(f"kernel build: {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {_build.build_seconds} s)")
+        f"(nvcc {_build.build_seconds} s; per source, in parallel: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in
+                    sorted(_build.compile_seconds.items())) + ")")
 
 
 def _bf16_ulps(a, b) -> int:
@@ -426,11 +453,51 @@ def phase_kernels(card: str) -> list[dict]:
         max_abs_err=0.0, ms=k3_times[0], plain_ms=k3_times[1],
         bound_ms=k3_bound[0], bound_by=k3_bound[1], library_ms=None,
     ))
+    check_k3_large(card, np.random.default_rng(3))
     report.append(check_k4(rng))
     report.append(check_k5(card))
     report.append(check_k6(card))
     report.append(check_k7(card))
     return report
+
+
+K3_LARGE = ((8, 256, 256), (8, 512, 250), (4, 1100, 300))
+
+
+def check_k3_large(card: str, rng) -> None:
+    """K3 at association sizes whose benefit block passes a block's shared
+    memory (tracker_max_dets 256 on 256 slots, 250 dets on 512 slots, and
+    1100 x 300): bit-identical to auction_plain, timed, with the form
+    each took (the benefit block in shared memory or in the global
+    scratch). Half the problems are tracker-like, half uniform costs with
+    masked rows and columns."""
+    import torch
+
+    from strongsort_yolo_tpu_torch.ops.cuda.auction_kernel import (
+        auction, auction_plain, shared_form,
+    )
+
+    dev = torch.device("cuda")
+    for P, R, C in K3_LARGE:
+        cost = rng.uniform(0, 1, (P, R, C)).astype(np.float32)
+        rv = rng.uniform(size=(P, R)) < 0.5
+        cv = rng.uniform(size=(P, C)) < 0.8
+        for p in range(1, P, 2):  # tracker-like: a diagonal of good matches
+            n = min(R, C) // 2
+            cost[p] = 1.0
+            cost[p, np.arange(n), np.arange(n)] = rng.uniform(0.05, 0.4, n)
+        args = (torch.from_numpy(cost).to(dev), torch.full((P,), 0.8, device=dev),
+                torch.from_numpy(rv).to(dev), torch.from_numpy(cv).to(dev))
+        got, want = auction(*args), auction_plain(*args)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"K3 {(P, R, C)}: differs from the plain version")
+        ms = cuda_ms(lambda: auction(*args), iters=5, warmup=1)
+        plain = cuda_ms(lambda: auction_plain(*args), iters=1, warmup=0)
+        form = ("shared memory" if shared_form(R, C)
+                else f"global scratch ({P},{C},{R}) f32")
+        log(f"K3 auction {(P, R, C)}: identical r2c/c2r, "
+            f"{int((got[0] >= 0).sum())} matches; benefit block in {form}; "
+            f"kernel {ms:.4f} ms, plain {plain:.4f} ms [{card}]")
 
 
 def smooth_image(h: int, w: int, seed: int, moved=None) -> np.ndarray:
@@ -611,13 +678,20 @@ def stage_macs(spec) -> int:
     return block_a + block_b + p * co * co
 
 
+K6_WIDTHS = ("osnet_x0_25", "osnet_x0_5", "osnet_x0_75", "osnet_x1_0")
+K6_G_WIDE = 96  # crops per stage call for the widths off the main path
+
+
 def check_k6(card: str) -> dict:
     """K6 against os_stage_plain on the card: each of the three stages of
-    the main path's OSNet-x0_25 (random weights from seed 1, as the
-    pipeline's) on G=480 seeded crops, float32 within 1e-4 (the sums run
-    in another order) and bfloat16 bit-identical (their differences stay
-    below its rounding), two launches bit-identical; times in bfloat16,
-    the main path's dtype."""
+    the four released OSNet widths (random weights from seed 1, as the
+    pipeline's) on seeded crops, G=480 for the main path's x0_25 and
+    K6_G_WIDE for the others, float32 within 1e-4 (the sums run in
+    another order) and bfloat16 bit-identical (their differences stay
+    below its rounding), two launches bit-identical; times beside the
+    bound, in both dtypes with the plain version's for x0_25 and in
+    bfloat16, the main path's dtype, for the others. The entry is
+    x0_25's three stages at G=480, the fused path's work."""
     import torch
 
     from strongsort_yolo_tpu_torch.models.osnet import (
@@ -626,52 +700,70 @@ def check_k6(card: str) -> dict:
     from strongsort_yolo_tpu_torch.ops.cuda.osnet_kernel import (
         os_stage, os_stage_plain, stage_specs, stage_weights,
     )
+    from strongsort_yolo_tpu_torch.ops.cuda import _build
 
     dev = torch.device("cuda")
-    cfg = OsnetConfig()
-    model = osnet_from_state_dict(
-        init_osnet(cfg, torch.Generator().manual_seed(1)), cfg)
     rng = np.random.default_rng(6)
-    g = 480
     max_err, total = 0.0, {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                            "ops_ms": 0.0, "bytes_ms": 0.0}
-    for i, spec in enumerate(stage_specs(cfg.channels)):
-        x32 = torch.from_numpy(rng.normal(
-            0, 1, (g, spec.c_in, spec.h, spec.w)).astype(np.float32)).to(dev)
-        for dt in (torch.float32, torch.bfloat16):
-            w = stage_weights(model, i, dt).to(dev)
-            x = x32.to(dt)
-            got, again = os_stage(x, w, spec), os_stage(x, w, spec)
-            want = os_stage_plain(x, w, spec)
-            torch.cuda.synchronize()
-            name = f"K6 os_stage stage {i + 2} {tuple(x.shape)} {dt}"
-            if not torch.equal(got, again):
-                raise AssertionError(f"{name}: two launches differ")
-            err = float((got.float() - want.float()).abs().max())
-            if dt == torch.float32 and not err <= 1e-4:
-                raise AssertionError(f"{name}: max |err| {err} > 1e-4")
-            if dt == torch.bfloat16 and not torch.equal(got, want):
-                raise AssertionError(f"{name}: max |err| {err}, not "
-                                     "bit-identical")
-            max_err = max(max_err, err)
-            kind = "bf16" if dt == torch.bfloat16 else "f32"
-            flops = 2 * stage_macs(spec) * g
-            b = bound(nbytes(x, got, w.mats, w.vecs), flops, kind)
-            ms = cuda_ms(lambda: os_stage(x, w, spec))
-            plain = cuda_ms(lambda: os_stage_plain(x, w, spec), iters=5)
-            log(f"{name}: max |err| {err:.3g}; kernel {ms:.4f} ms, plain "
-                f"{plain:.4f} ms, "
-                f"bound {b[0]:.4f} ms ({b[1]}, {flops / 1e9:.2f} GFLOP), "
-                f"{b[0] / ms:.1%} of it [{card}]")
-            if kind == "bf16":
-                total["ms"] += ms
-                total["plain_ms"] += plain
-                total["bound_ms"] += b[0]
-                total["ops_ms"] += flops / PEAK_OPS_PER_MS[kind]
-                total["bytes_ms"] += nbytes(x, got, w.mats,
-                                            w.vecs) / HBM_BYTES_PER_MS
-    log(f"K6 three stages at G={g} bf16: kernel {total['ms']:.4f} ms, plain "
-        f"{total['plain_ms']:.4f} ms, bound {total['bound_ms']:.4f} ms [{card}]")
+    for variant in K6_WIDTHS:
+        main = variant == "osnet_x0_25"
+        g = 480 if main else K6_G_WIDE
+        cfg = OsnetConfig(variant=variant)
+        model = osnet_from_state_dict(
+            init_osnet(cfg, torch.Generator().manual_seed(1)), cfg)
+        width_ms = 0.0
+        for i, spec in enumerate(stage_specs(cfg.channels)):
+            x32 = torch.from_numpy(rng.normal(
+                0, 1, (g, spec.c_in, spec.h, spec.w)).astype(np.float32)).to(dev)
+            for dt in (torch.float32, torch.bfloat16):
+                w = stage_weights(model, i, dt).to(dev)
+                x = x32.to(dt)
+                got, again = os_stage(x, w, spec), os_stage(x, w, spec)
+                want = os_stage_plain(x, w, spec)
+                torch.cuda.synchronize()
+                shared = _build.lib().ssyt_os_stage_smem_bytes(
+                    spec.c_in, spec.c_out, spec.mid, spec.h, spec.w,
+                    int(dt == torch.bfloat16)) <= _build.MAX_SMEM
+                name = (f"K6 os_stage {variant} stage {i + 2} {tuple(x.shape)} "
+                        f"{dt} ({'shared' if shared else 'global'} workspace)")
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{name}: two launches differ")
+                err = float((got.float() - want.float()).abs().max())
+                if dt == torch.float32 and not err <= 1e-4:
+                    raise AssertionError(f"{name}: max |err| {err} > 1e-4")
+                if dt == torch.bfloat16 and not torch.equal(got, want):
+                    raise AssertionError(f"{name}: max |err| {err}, not "
+                                         "bit-identical")
+                max_err = max(max_err, err)
+                kind = "bf16" if dt == torch.bfloat16 else "f32"
+                if not (main or kind == "bf16"):
+                    log(f"{name}: max |err| {err:.3g}")
+                    continue
+                flops = 2 * stage_macs(spec) * g
+                b = bound(nbytes(x, got, w.mats, w.vecs), flops, kind)
+                ms = cuda_ms(lambda: os_stage(x, w, spec), iters=20 if main else 3,
+                             warmup=1)
+                plain = (cuda_ms(lambda: os_stage_plain(x, w, spec), iters=5)
+                         if main else None)
+                log(f"{name}: max |err| {err:.3g}; kernel {ms:.4f} ms, "
+                    + (f"plain {plain:.4f} ms, " if main else "")
+                    + f"bound {b[0]:.4f} ms ({b[1]}, {flops / 1e9:.2f} GFLOP), "
+                    f"{b[0] / ms:.1%} of it [{card}]")
+                if kind == "bf16":
+                    width_ms += ms
+                if main and kind == "bf16":
+                    total["ms"] += ms
+                    total["plain_ms"] += plain
+                    total["bound_ms"] += b[0]
+                    total["ops_ms"] += flops / PEAK_OPS_PER_MS[kind]
+                    total["bytes_ms"] += nbytes(x, got, w.mats,
+                                                w.vecs) / HBM_BYTES_PER_MS
+        log(f"K6 {variant} three stages at G={g} bf16: kernel {width_ms:.4f} ms "
+            f"[{card}]")
+    log(f"K6 osnet_x0_25 three stages at G=480 bf16: kernel {total['ms']:.4f} "
+        f"ms, plain {total['plain_ms']:.4f} ms, bound {total['bound_ms']:.4f} "
+        f"ms [{card}]")
     return dict(
         name="os_stage", route="cuda",
         source="strongsort_yolo_tpu_torch/csrc/os_stage.cu",
@@ -698,24 +790,55 @@ K7_REQUIRED = {(80, 80, 32, 32, 3), (40, 40, 64, 64, 3), (40, 40, 192, 128, 1),
                (80, 80, 64, 51, 3)}
 
 
+def check_hgmma() -> None:
+    """The built library's K7 mma kernels run on the tensor cores: every
+    conv_mma_kernel instance in `cuobjdump -sass` of the .so under
+    build/torch_kernels/ holds HGMMA instructions."""
+    from strongsort_yolo_tpu_torch.ops.cuda import _build
+
+    path = _build.lib_path()
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            if "conv_mma_kernel" in fn:
+                counts[fn] = 0
+        elif fn in counts and "HGMMA" in line:
+            counts[fn] += 1
+    if not counts or min(counts.values()) == 0:
+        raise AssertionError(f"K7 mma: HGMMA instructions per conv_mma_kernel "
+                             f"instance {counts}")
+    log(f"K7 mma: {len(counts)} conv_mma_kernel instances in "
+        f"{os.path.basename(path)}, HGMMA instructions in each "
+        f"({min(counts.values())}-{max(counts.values())}; cuobjdump -sass)")
+
+
 def check_k7(card: str) -> dict:
     """K7 against conv_act_plain on the card: every distinct conv that the
     K7 rule picks in yolo11n-pose and yolov8n at 640 (S=8, NCHW, seeded
-    inputs and weights), in both forms and both dtypes, two launches
+    inputs and weights), in every form of each dtype (taps and im2col in
+    both; mma, the bfloat16 default, in bfloat16), two launches
     bit-identical; float32 within 2e-5 x max(1, |ref|) and bfloat16
     within one bf16 unit at 1.0 of the output scaled by max(1, |ref|)
     (the plain version is cuDNN's float32 conv, TF32 off: another
-    summation order); the NHWC layout on K7_REQUIRED. Times in bfloat16:
-    each form, the plain version, the bound and cuDNN's F.silu(F.conv2d(x,
-    w, b)) (two launches); the entry sums them over the convs of one
-    yolo11n-pose forward, the path that runs the route."""
+    summation order); the NHWC layout on K7_REQUIRED. Times in bfloat16
+    (device time, CUDA-graph replay) of the yolo11n-pose shapes: each form, the
+    plain version, the bound and cuDNN's F.silu(F.conv2d(x, w, b)) (two
+    launches); the entry sums them over the convs of one yolo11n-pose
+    forward, the path that runs the route, and reports the mma form, the
+    route's."""
     import torch
     import torch.nn.functional as F
 
     from strongsort_yolo_tpu_torch.ops.cuda.conv_kernel import (
-        FORMS, conv_act_kernel, conv_act_plain,
+        FORMS, conv_act_kernel, conv_act_plain, pack_mma,
     )
+    from strongsort_yolo_tpu_torch.tools.prof_conv import graph_ms
 
+    check_hgmma()
     dev = torch.device("cuda")
     pose = k7_picks("yolo11n-pose")
     shapes = sorted({p[1:] for p in pose + k7_picks("yolov8n")})
@@ -735,12 +858,13 @@ def check_k7(card: str) -> dict:
             tol = 2e-5 if dt == torch.float32 else 2.0 ** -7
             layouts = ("nchw", "nhwc") if (
                 shape[:5] in K7_REQUIRED and dt == torch.bfloat16) else ("nchw",)
+            forms = FORMS if dt == torch.bfloat16 else ("taps", "im2col")
             for layout in layouts:
                 x = x32.to(dt)
                 if layout == "nhwc":
                     x = x.permute(0, 2, 3, 1)
                 want = conv_act_plain(x, wt, b, k=k, act=act, layout=layout)
-                for form in FORMS:
+                for form in forms:
                     got = conv_act_kernel(x, wt, b, k=k, act=act,
                                           layout=layout, form=form)
                     again = conv_act_kernel(x, wt, b, k=k, act=act,
@@ -755,15 +879,21 @@ def check_k7(card: str) -> dict:
                         raise AssertionError(f"{name}: scaled |err| {scaled} "
                                              f"> {tol}")
                     max_err = max(max_err, float(diff.max()))
+        if shape not in {p[1:] for p in pose}:
+            log(f"K7 conv_act {h}x{w} {c_in}->{c_out} k{k} act={act} S={S_MAIN}:"
+                f" every form within its bound (yolov8n only, not timed)")
+            continue
         x = x32.to(torch.bfloat16)
         w4 = (wt.reshape(k, k, c_in, c_out).permute(3, 2, 0, 1)
               .to(torch.bfloat16).contiguous())
         b16 = b.to(torch.bfloat16)
-        row = {form: cuda_ms(lambda f=form: conv_act_kernel(
-            x, wt, b, k=k, act=act, layout="nchw", form=f)) for form in FORMS}
-        row["plain"] = cuda_ms(lambda: conv_act_plain(
+        packed = pack_mma(wt, k)  # as the route caches it per conv
+        row = {form: graph_ms(lambda f=form: conv_act_kernel(
+            x, wt, b, k=k, act=act, layout="nchw", form=f,
+            packed=packed if f == "mma" else None)) for form in FORMS}
+        row["plain"] = graph_ms(lambda: conv_act_plain(
             x, wt, b, k=k, act=act, layout="nchw"), iters=5)
-        row["library"] = cuda_ms(
+        row["library"] = graph_ms(
             (lambda: F.silu(F.conv2d(x, w4, b16, 1, k // 2))) if act
             else (lambda: F.conv2d(x, w4, b16, 1, k // 2)))
         flops = 2 * k * k * c_in * c_out * S_MAIN * h * w
@@ -772,29 +902,31 @@ def check_k7(card: str) -> dict:
                              flops, "bf16")
         rows[shape] = row
         log(f"K7 conv_act {h}x{w} {c_in}->{c_out} k{k} act={act} S={S_MAIN} "
-            f"bf16: taps {row['taps']:.4f} ms, im2col {row['im2col']:.4f} ms, "
-            f"plain {row['plain']:.4f} ms, cuDNN {row['library']:.4f} ms, "
-            f"bound {row['bound'][0]:.6f} ms ({row['bound'][1]}, "
-            f"{flops / 1e9:.3f} GFLOP); taps {flops / row['taps'] / 1e9:.2f} "
-            f"TFLOP/s [{card}]")
+            f"bf16: mma {row['mma']:.4f} ms, taps {row['taps']:.4f} ms, im2col "
+            f"{row['im2col']:.4f} ms, plain {row['plain']:.4f} ms, cuDNN "
+            f"{row['library']:.4f} ms, bound {row['bound'][0]:.6f} ms "
+            f"({row['bound'][1]}, {flops / 1e9:.3f} GFLOP); mma "
+            f"{flops / row['mma'] / 1e9:.2f} TFLOP/s, cuDNN "
+            f"{flops / row['library'] / 1e9:.2f} [{card}]")
     total = {key: sum(rows[p[1:]][key] for p in pose)
-             for key in ("taps", "im2col", "plain", "library")}
+             for key in ("mma", "taps", "im2col", "plain", "library")}
     t_bound = sum(rows[p[1:]]["bound"][0] for p in pose)
     by_ops = sum(rows[p[1:]]["bound"][0] for p in pose
                  if rows[p[1:]]["bound"][1] == "operations")
     log(f"K7 over the {len(pose)} convs of one yolo11n-pose S={S_MAIN} 640 "
-        f"forward, bf16: taps {total['taps']:.4f} ms, im2col "
+        f"forward, bf16, device time (CUDA graph replay): mma "
+        f"{total['mma']:.4f} ms, taps {total['taps']:.4f} ms, im2col "
         f"{total['im2col']:.4f} ms, plain {total['plain']:.4f} ms, cuDNN "
         f"conv + SiLU {total['library']:.4f} ms, bound {t_bound:.6f} ms "
-        f"({by_ops:.6f} of it from convs bound by operations); "
-        f"{len(shapes)} shapes checked, both forms, max |err| {max_err:.3g} "
-        f"[{card}]")
+        f"({by_ops:.6f} of it from convs bound by operations); mma / cuDNN "
+        f"{total['mma'] / total['library']:.3f}; {len(shapes)} shapes "
+        f"checked, every form, max |err| {max_err:.3g} [{card}]")
     return dict(
         name="conv_act", route="cuda",
-        source="strongsort_yolo_tpu_torch/csrc/conv_act.cu",
+        source="strongsort_yolo_tpu_torch/csrc/conv_mma.cuh",
         replaces="tools/prof/conv_kernel.py:164 pallas_conv_act and "
                  "tools/prof/_prof_conv2.py:145 call",
-        max_abs_err=max_err, ms=total["taps"], plain_ms=total["plain"],
+        max_abs_err=max_err, ms=total["mma"], plain_ms=total["plain"],
         bound_ms=t_bound,
         bound_by="operations" if by_ops >= t_bound / 2 else "bytes",
         library_ms=total["library"],
@@ -938,15 +1070,16 @@ def _ms_line(times: list[float]) -> str:
 
 
 def _main_pipeline(tracker, pool, *, fused: bool = False, cadence: int = 1,
-                   model: str = "yolov8n", conv_kernel: bool = False):
+                   model: str = "yolov8n", conv_kernel: bool = False,
+                   max_dets: int = 128, reid: str | None = None):
     from strongsort_yolo_tpu_torch.config import DetectorConfig
     from strongsort_yolo_tpu_torch.pipeline import Pipeline
 
     pipe = Pipeline(
         DetectorConfig(weights=model, imgsz=640, half=True, max_det=1000),
-        tracker=tracker, track_slots=256, tracker_max_dets=128, reid_topk=128,
-        reid_cadence=cadence, reid_fused=fused, conv_kernel=conv_kernel,
-        seed=0, device="cuda",
+        tracker=tracker, track_slots=256, tracker_max_dets=max_dets,
+        reid_weights=reid, reid_topk=128, reid_cadence=cadence,
+        reid_fused=fused, conv_kernel=conv_kernel, seed=0, device="cuda",
     )
     calibrate_candidates(pipe, pool[0], pipe.det_cfg.conf, TARGET_DETS)
     return pipe
@@ -983,6 +1116,41 @@ def phase_main_path(card: str, kernels):
     log(f"main path ms/tick (S={S_MAIN}, 1080p, host clock, synchronized): "
         f"{_ms_line(times)} [{card}]")
     return counts, sorted(times[2:])[len(times[2:]) // 2]
+
+
+def phase_crowd_path(card: str, kernels):
+    """ByteTrack at full width with tracker_max_dets=256 on 256 slots (the
+    reference's crowd setting): every association problem is 256 x 256,
+    whose benefit block K3 holds in its global scratch. K1-K3; K3 must
+    launch on every tick."""
+    from strongsort_yolo_tpu_torch.ops.cuda.auction_kernel import shared_form
+    from strongsort_yolo_tpu_torch.pipeline import BatchedPipeline
+    from strongsort_yolo_tpu_torch.track.bytetrack import ByteTrackConfig
+
+    h, w = 1080, 1920
+    pool = make_frames(h, w, seed=3)
+    pipe = _main_pipeline(
+        ByteTrackConfig(tracker_type="bytetrack", gmc_method="none"), pool,
+        max_dets=256)
+    if shared_form(pipe.track_slots, pipe.tracker_max_dets):
+        raise AssertionError("crowd path: K3 would hold a 256 x 256 block in "
+                             "shared memory")
+    ticks = [np.stack([pool[(s + t) % len(pool)] for s in range(S_MAIN)])
+             for t in range(CROWD_TICKS)]
+    counts, times, results = _drive(
+        BatchedPipeline(pipe, S_MAIN, (h, w)), ticks, kernels)
+    for name, n in counts.items():
+        if n == 0:
+            raise AssertionError(f"crowd path never launched {name}")
+    if counts["auction"] < CROWD_TICKS:
+        raise AssertionError(f"crowd path: K3 launched {counts['auction']} "
+                             f"times in {CROWD_TICKS} ticks")
+    tracks = _check_results("crowd path", results)
+    log(f"crowd path: yolov8n 640 bf16, S={S_MAIN} 1080p, bytetrack, 256 "
+        f"slots, tracker_max_dets 256 (K3 on (256, 256) problems, benefit "
+        f"block in its global scratch); launches over {CROWD_TICKS} ticks: "
+        f"{counts}; active tracks per stream {tracks}; ms/tick "
+        f"{_ms_line(times)} [{card}]")
 
 
 # per-stream camera pan of the flow path, frame px per tick (dx, dy): whole
@@ -1295,6 +1463,62 @@ def phase_fused_strongsort_path(card: str, kernels, unfused):
     return counts
 
 
+def phase_wide_reid_path(card: str, kernels) -> None:
+    """StrongSORT with the fused OSNet-x1_0 (seeded random weights) at
+    full width, for WIDE_TICKS ticks: K6 three times per tick, in its
+    columns form; then the same OSNet-x1_0 weights in float32, fused, on
+    the card (K6) and on the CPU (its plain version), on 64 crops: the
+    embeddings within 1e-4."""
+    import torch
+
+    from strongsort_yolo_tpu_torch.models.osnet import (
+        OsnetConfig, init_osnet, osnet_from_state_dict,
+    )
+    from strongsort_yolo_tpu_torch.pipeline import BatchedPipeline
+    from strongsort_yolo_tpu_torch.track.strongsort import StrongSortConfig
+
+    h, w = 1080, 1920
+    pool = make_frames(h, w, seed=1)
+    pipe = _main_pipeline(StrongSortConfig(gmc_method="none"), pool,
+                          fused=True, reid="osnet_x1_0")
+    if pipe.reid._stages is None or pipe.feat_dim != 512:
+        raise AssertionError("reid_fused=True built no fused OSNet-x1_0")
+    slot_counts = _record_slots(pipe)
+    ticks = [np.stack([pool[(s + t) % len(pool)] for s in range(S_MAIN)])
+             for t in range(WIDE_TICKS)]
+    counts, times, results = _drive(
+        BatchedPipeline(pipe, S_MAIN, (h, w)), ticks, kernels)
+    for name, n in counts.items():
+        if n == 0:
+            raise AssertionError(f"osnet_x1_0 path never launched {name}")
+    if counts["os_stage"] != 3 * WIDE_TICKS:
+        raise AssertionError(f"osnet_x1_0 path: K6 launched "
+                             f"{counts['os_stage']} times in {WIDE_TICKS} ticks")
+    tracks = _check_results("osnet_x1_0 path", results)
+    log(f"fused strongsort path with osnet_x1_0 (seeded random weights, "
+        f"reid_fused=True), S={S_MAIN} 1080p; launches over {WIDE_TICKS} "
+        f"ticks: {counts}; G per tick {slot_counts}; active tracks per "
+        f"stream {tracks}; ms/tick {_ms_line(times)} [{card}]")
+
+    cfg = OsnetConfig(variant="osnet_x1_0")
+    sd = init_osnet(cfg, torch.Generator().manual_seed(1))
+    crops = torch.from_numpy(np.random.default_rng(8).integers(
+        0, 256, (64, 3, 128, 64)).astype(np.float32) / np.float32(255.0))
+    emb = {}
+    for device in ("cuda", "cpu"):
+        model = osnet_from_state_dict(sd, cfg)
+        model.use_fused_stages(torch.float32)
+        model = model.to(device).eval()
+        with torch.no_grad():
+            emb[device] = model(crops.to(device)).cpu()
+    diff = float((emb["cuda"] - emb["cpu"]).abs().max())
+    cos = (emb["cuda"] * emb["cpu"]).sum(-1)
+    if not diff <= 1e-4:
+        raise AssertionError(f"osnet_x1_0 fused: card vs CPU max |diff| {diff}")
+    log(f"osnet_x1_0 fused, float32, 64 crops: card (K6) vs CPU (plain "
+        f"version) max |diff| {diff:.3g}, least cosine {float(cos.min()):.7f}")
+
+
 def _check_task_results(name: str, results, task: str) -> int:
     """Every track row carries its keypoints or mask, finite and shaped;
     -> the number of rows."""
@@ -1315,16 +1539,19 @@ def _check_task_results(name: str, results, task: str) -> int:
     return rows
 
 
-def _forward_ms(pipe, frames) -> float:
-    """The model's forward on one letterboxed S-frame batch (CUDA events)."""
+def _forward_ms(pipe, frames) -> tuple[float, float]:
+    """The model's forward on one letterboxed S-frame batch: (CUDA events
+    around 20 launches from the host, device time of a CUDA graph of
+    them)."""
     import torch
 
     from strongsort_yolo_tpu_torch.ops.letterbox import letterbox, letterbox_params
+    from strongsort_yolo_tpu_torch.tools.prof_conv import graph_ms
 
     lp = letterbox_params(*frames.shape[1:3], pipe.det_cfg.imgsz)
     img = letterbox(pipe._upload(frames), lp, dtype=pipe.compute_dtype)
     with torch.no_grad():
-        return cuda_ms(lambda: pipe.model(img))
+        return cuda_ms(lambda: pipe.model(img)), graph_ms(lambda: pipe.model(img))
 
 
 def _extras_split(label: str, pipe, frames, results, card: str) -> None:
@@ -1415,9 +1642,10 @@ def phase_task_paths(card: str, kernels, conv_act) -> dict:
     off, on = runs["yolo11n-pose"], runs["yolo11n-pose conv_kernel"]
     fwd = (_forward_ms(off[2], ticks[-1]), _forward_ms(on[2], ticks[-1]))
     log(f"yolo11n-pose median ms/tick: route off {off[1]:.2f}, conv_kernel "
-        f"{on[1]:.2f}; model forward on one S={S_MAIN} batch (CUDA events, "
-        f"mean of 20): cuDNN convs {fwd[0]:.4f} ms, K7 route {fwd[1]:.4f} ms "
-        f"[{card}]")
+        f"{on[1]:.2f}; model forward on one S={S_MAIN} batch (CUDA events "
+        f"around 20 host launches / device time of a CUDA graph of them): "
+        f"cuDNN convs {fwd[0][0]:.4f} / {fwd[0][1]:.4f} ms, K7 route "
+        f"{fwd[1][0]:.4f} / {fwd[1][1]:.4f} ms [{card}]")
     return on[0]
 
 
@@ -1533,15 +1761,21 @@ def phase_trained_checkpoint():
          OSNET, 3, frames),
         ("strongsort + trained osnet, fused",
          StrongSortConfig(gmc_method="none"), OSNET, 3, frames),
+        ("strongsort + osnet_x1_0 (seeded), fused",
+         StrongSortConfig(gmc_method="none"), "osnet_x1_0", 3, frames),
+        ("bytetrack, 256 slots x 256 tracker dets", "bytetrack.yaml", None, 2,
+         frames),
         ("botsort flow_tpu, panned", ByteTrackConfig(
             tracker_type="botsort", gmc_method="flow_tpu"), None, 2, panned),
     ):
         outs, warps = {}, {}
+        crowd = "256" in name  # K3's global-scratch form on the card
         for device in ("cuda", "cpu"):
             pipe = Pipeline(
                 DetectorConfig(weights=CKPT, imgsz=160, half=False,
-                               max_det=16),
-                tracker=tracker, track_slots=16, tracker_max_dets=16,
+                               max_det=256 if crowd else 16),
+                tracker=tracker, track_slots=256 if crowd else 16,
+                tracker_max_dets=256 if crowd else 16,
                 reid_weights=reid, reid_fused=name.endswith("fused"),
                 device=device,
             )
@@ -1589,8 +1823,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
+    mark("phase 1: environment and build")
     phase_environment()
+    mark("phase 2: kernels against their plain versions")
     report = phase_kernels(card)
+    mark("phase 3: main paths")
     _, none_ms = phase_main_path(card, (letterbox_u8, nms_keep, auction))
     ss_counts, k4, ss_ms, ss_pipe, ss_ticks, ss_g = phase_strongsort_path(
         card, (letterbox_u8, nms_keep, auction, banded_crop))
@@ -1598,6 +1835,9 @@ def main() -> int:
         card, (letterbox_u8, nms_keep, auction, banded_crop, os_stage),
         (ss_ms, ss_pipe, ss_ticks, ss_g))
     del ss_pipe
+    phase_wide_reid_path(
+        card, (letterbox_u8, nms_keep, auction, banded_crop, os_stage))
+    phase_crowd_path(card, (letterbox_u8, nms_keep, auction))
     counts, flow_ms = phase_flow_path(
         card, (letterbox_u8, nms_keep, auction, lk_pyramid))
     log(f"botsort median ms/tick, S={S_MAIN} 1080p: gmc none {none_ms:.2f}, "
@@ -1611,8 +1851,10 @@ def main() -> int:
         entry["launches"] = counts[entry["name"]]
         if entry["name"] == "banded_crop":
             entry.update(k4)
+    mark("phase 4: card against CPU on trained checkpoints")
     phase_trained_checkpoint()
     phase_trained_tasks(conv_act)
+    mark("done")
     log(json.dumps({"kernels": [
         {k: e[k] for k in ("name", "route", "source", "replaces", "launches",
                            "max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -22,9 +22,18 @@
 // few passes over it. The design keeps the block in dynamic shared
 // memory (row stride C + 1, so the per-row scans of a warp hit 32
 // different banks), runs the row phase with one thread per row and the
-// column phase with one thread per column, and lets each block leave
-// its loop as soon as its own problem is done, so an easy problem does
-// not wait for a hard one.
+// column phase with one thread per column (threads stride over both when
+// a side passes 1024), and lets each block leave its loop as soon as its
+// own problem is done, so an easy problem does not wait for a hard one.
+//
+// Two forms of the same kernel, by where the benefit block w lives
+// (template parameter kSharedW): in shared memory where it fits a block,
+// else in a global scratch of (P, C, R) float32 that the wrapper
+// allocates, column-major per problem so that the row phase's reads at
+// one column are coalesced across a warp (the column phase never reads
+// w); the per-row and per-column arrays stay in shared memory (13 R + 9 C
+// bytes, 15 KB at 1100 x 300). Three launches of 8 problems of 512 x 250
+// are 4 MB of scratch, which stays in the 50 MB L2.
 //
 // Every sum and quotient is rounded on its own (the _rn intrinsics;
 // -fmad=false), in the order of the plain PyTorch version
@@ -57,17 +66,26 @@ __device__ float block_reduce(float v, bool is_min, float* scratch) {
   return r;
 }
 
-__global__ void auction_kernel(const float* __restrict__ cost,
+// w[i, j]: shared memory with row stride C + 1, or the problem's (C, R)
+// block of the global scratch
+template <bool kSharedW>
+__device__ __forceinline__ int64_t w_at(int i, int j, int R, int C) {
+  return kSharedW ? (int64_t)i * (C + 1) + j : (int64_t)j * R + i;
+}
+
+template <bool kSharedW>
+__global__ void __launch_bounds__(1024) auction_kernel(const float* __restrict__ cost,
                                const float* __restrict__ thresh,
                                const uint8_t* __restrict__ row_valid,
                                const uint8_t* __restrict__ col_valid,
                                int32_t* __restrict__ r2c,
-                               int32_t* __restrict__ c2r, int R, int C,
-                               float eps0, int max_rounds) {
+                               int32_t* __restrict__ c2r, float* w_scratch,
+                               int R, int C, float eps0, int max_rounds) {
   extern __shared__ float smem[];
-  const int ldw = C + 1;
-  float* w = smem;                     // R * ldw
-  float* price = w + R * ldw;          // C
+  // w is written and read by this block only: plain loads, not the
+  // read-only path
+  float* w = kSharedW ? smem : w_scratch + (int64_t)blockIdx.x * R * C;
+  float* price = kSharedW ? smem + R * (C + 1) : smem;  // C
   float* bid = price + C;              // R
   int* owner = (int*)(bid + R);        // C
   int* best_j = owner + C;             // R
@@ -109,7 +127,7 @@ __global__ void auction_kernel(const float* __restrict__ cost,
   const float crange = fmaxf(__fsub_rn(cmax, cmin), 1e-6f);
   for (int e = tid; e < R * C; e += nt) {
     const int i = e / C, j = e - (e / C) * C;
-    w[i * ldw + j] = (rv[i] && cv[j])
+    w[w_at<kSharedW>(i, j, R, C)] = (rv[i] && cv[j])
                          ? __fdiv_rn(__fsub_rn(t, clip_cost(cp[e])), crange)
                          : -4.0f;
   }
@@ -129,12 +147,11 @@ __global__ void auction_kernel(const float* __restrict__ cost,
 
     // row phase: best and second-best value against current prices
     for (int i = tid; i < R; i += nt) {
-      const float* wi = w + i * ldw;
-      float bv = __fsub_rn(wi[0], price[0]);
+      float bv = __fsub_rn(w[w_at<kSharedW>(i, 0, R, C)], price[0]);
       float sv = -INFINITY;
       int bj = 0;
       for (int j = 1; j < C; ++j) {
-        const float v = __fsub_rn(wi[j], price[j]);
+        const float v = __fsub_rn(w[w_at<kSharedW>(i, j, R, C)], price[j]);
         if (v > bv) {
           sv = bv;
           bv = v;
@@ -147,7 +164,8 @@ __global__ void auction_kernel(const float* __restrict__ cost,
       const bool retire = bidding && bv < 0.0f;
       if (retire) sent[i] = 1;
       place[i] = bidding && !retire;
-      bid[i] = __fadd_rn(__fsub_rn(wi[bj], fmaxf(sv, 0.0f)), eps);
+      bid[i] = __fadd_rn(
+          __fsub_rn(w[w_at<kSharedW>(i, bj, R, C)], fmaxf(sv, 0.0f)), eps);
       best_j[i] = bj;
     }
     __syncthreads();
@@ -186,26 +204,35 @@ __global__ void auction_kernel(const float* __restrict__ cost,
 
 }  // namespace
 
-extern "C" int ssyt_auction_smem_bytes(int R, int C) {
-  return R * (C + 1) * 4 + C * 4 + R * 4 + C * 4 + R * 4 + R + C + 3 * R;
+// Dynamic shared memory of a block: the per-row and per-column arrays,
+// plus the benefit block when shared_w is nonzero.
+extern "C" long long ssyt_auction_smem_bytes(int R, int C, int shared_w) {
+  const long long arrays = 4LL * C + 4LL * R + 4LL * C + 4LL * R + R + C + 3LL * R;
+  return arrays + (shared_w ? 4LL * R * (C + 1) : 0LL);
 }
 
+// w_scratch null: the benefit block in shared memory; else a (P, C, R)
+// float32 scratch for it.
 extern "C" int ssyt_auction(const void* cost, const void* thresh,
                             const void* row_valid, const void* col_valid,
-                            void* r2c, void* c2r, int P, int R, int C,
-                            float eps0, int max_rounds, void* stream) {
+                            void* r2c, void* c2r, void* w_scratch, int P,
+                            int R, int C, float eps0, int max_rounds,
+                            void* stream) {
   if (P == 0 || R == 0 || C == 0) return 0;
-  const int smem = ssyt_auction_smem_bytes(R, C);
+  const bool shared_w = w_scratch == nullptr;
+  const long long smem = ssyt_auction_smem_bytes(R, C, shared_w);
+  auto kernel = shared_w ? auction_kernel<true> : auction_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      auction_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   int threads = R > C ? R : C;
   threads = ((threads + 31) / 32) * 32;
-  if (threads > 1024) return (int)cudaErrorInvalidValue;
-  auction_kernel<<<P, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  if (threads > 1024) threads = 1024;
+  kernel<<<P, threads, (size_t)smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(cost), static_cast<const float*>(thresh),
       static_cast<const uint8_t*>(row_valid),
       static_cast<const uint8_t*>(col_valid), static_cast<int32_t*>(r2c),
-      static_cast<int32_t*>(c2r), R, C, eps0, max_rounds);
+      static_cast<int32_t*>(c2r), static_cast<float*>(w_scratch), R, C, eps0,
+      max_rounds);
   return (int)cudaGetLastError();
 }

@@ -1,101 +1,12 @@
-// K6: one fused OSNet backbone stage per crop.
-//
-// Replaces strongsort_yolo_tpu/ops/pallas/osnet_kernel.py: os_stage (body
-// _stage_kernel). A stage is two OS blocks (1x1 conv1, four streams of one
-// to four lite convs - pointwise 1x1 then depthwise 3x3 - the shared
-// channel gate, the aggregation, 1x1 conv3 and the residual), then the 1x1
-// transition with a 2x2 average pool, or conv5 with the global average
-// pool for the last stage. BN is folded into every conv (ops/cuda/
-// osnet_kernel.py::stage_weights packs the weights).
-//
-// The TPU kernel holds a tile of 8 crops in VMEM as a (8*C, H*W) array and
-// turns each pointwise conv into a kron(I_8, w) left product for its matrix
-// unit. That layout is not carried over. Here one thread block computes one
-// crop's whole stage, one thread per pixel:
-//
-// - the pointwise convs, the gate scaling, conv3, the residual and the
-//   aggregation need only their own pixel, so the narrow activations of a
-//   pixel (conv1's output y, the current stream s and the aggregate, mid
-//   values each) stay in registers;
-// - only the lite convs' pointwise outputs need neighbours, for the 3x3
-//   stencil: they go to shared memory, ping-ponged between two buffers, so
-//   each lite conv costs one barrier;
-// - the block input X and the first block's output XA (c_in and c_out
-//   wide) sit in shared memory, each pixel's column read and written only
-//   by its own thread; the second block writes its output over XA in
-//   place (its residual is the identity);
-// - the gate's per-channel mean is a fixed-order reduction (warp shuffles,
-//   then the warps' partial sums in order), so launches are bit-identical;
-// - the epilogue runs after one barrier: threads walk (output channel,
-//   output pixel) pairs, the pool computing the four pixels of a window,
-//   the GAP all pixels of a channel, in a fixed order.
-//
-// Weights are read from global memory through the read-only cache, every
-// thread of a warp reading the same element (a broadcast): stage 4's
-// weights alone are 283 KB in float32, more than a block's shared memory.
-//
-// Rounding follows the TPU kernel (and the plain version, ops/cuda/
-// osnet_kernel.py::os_stage_plain): products accumulate in float32, each
-// product and sum rounded on its own (the build passes -fmad=false), and
-// the values are rounded to the compute dtype T where the TPU kernel
-// casts: conv1, the lite pointwise, the stencil output, the gate's mean,
-// its hidden layer, the gate, s * g, the stream sum, the block output, the
-// transition output and the pooled output. Shared memory holds T: every
-// value stored there is already rounded to T.
-//
-// Bound: at G = 480 crops the three stages do 15.1 GFLOP on 29.6 MB of
-// bf16 activations in and out, 0.015 ms at the bf16 tensor-core peak and
-// 0.23 ms at the float32 CUDA-core peak. This first kernel runs on the
-// CUDA cores and is bound by its instruction count: every multiply-add is
-// a weight load, a multiply and an add. Tensor cores (mma on the pointwise
-// products) are left to a later kernel.
-//
-// Built for OSNet-x0_25 at 128x64 crops: (mid, pixels) = (16, 512),
-// (24, 128) and (32, 32), the three stages; other shapes are refused.
+// K6: one fused OSNet backbone stage per crop: the register form and the
+// C entry points (the note, and what both forms share, are in
+// os_stage.cuh; the columns form is in os_stage_columns.cu).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <type_traits>
+
+#include "os_stage.cuh"
 
 namespace {
-
-constexpr int kBlockEntries = 50;  // entries of one block in the offsets table
-// entries within a block's part of the table (stage_weights' _layout)
-constexpr int kW1 = 0, kB1 = 1, kLite0 = 2, kG1 = 42, kG1b = 43, kG2 = 44,
-              kG2b = 45, kW3 = 46, kB3 = 47, kWd = 48, kBd = 49;
-constexpr int kEpW = 100, kEpB = 101;
-
-template <typename T>
-__device__ __forceinline__ float to_f(T v);
-
-template <>
-__device__ __forceinline__ float to_f<float>(float v) {
-  return v;
-}
-
-template <>
-__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-
-template <>
-__device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// v rounded to T and widened back to float
-template <typename T>
-__device__ __forceinline__ float round_t(float v) {
-  return to_f<T>(from_f<T>(v));
-}
 
 template <typename T, int MID, int NT>
 __global__ void __launch_bounds__(NT)
@@ -260,48 +171,31 @@ __global__ void __launch_bounds__(NT)
   }
   __syncthreads();
 
-  // epilogue: 1x1 -> relu -> round, then the 2x2 mean or the global mean
-  const T* ew = mats + offs[kEpW];
-  const float* eb = vecs + offs[kEpB];
-  if (gap) {
-    for (int co = p; co < c_out; co += NT) {
-      float sum = 0.0f;
-      for (int q = 0; q < P; ++q) {
-        float e = 0.0f;
-        for (int c = 0; c < c_out; ++c) e = e + to_f<T>(ew[co * c_out + c]) * to_f<T>(xa[c * P + q]);
-        sum = sum + round_t<T>(fmaxf(e + eb[co], 0.0f));
-      }
-      out[g * c_out + co] = from_f<T>(sum / (float)P);
-    }
-  } else {
-    const int w2 = w / 2, nq = (h / 2) * w2;
-    for (int i = p; i < nq * c_out; i += NT) {
-      const int co = i / nq, q = i % nq;
-      const int top = (q / w2) * 2 * w + (q % w2) * 2;
-      float sum = 0.0f;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int pp = top + (k >> 1) * w + (k & 1);
-        float e = 0.0f;
-        for (int c = 0; c < c_out; ++c) e = e + to_f<T>(ew[co * c_out + c]) * to_f<T>(xa[c * P + pp]);
-        sum = sum + round_t<T>(fmaxf(e + eb[co], 0.0f));
-      }
-      out[(g * c_out + co) * nq + q] = from_f<T>(sum * 0.25f);
-    }
-  }
+  stage_epilogue<T, NT>(xa, mats, vecs, offs, out, c_out, h, w, gap, g, p);
+}
+
+// bytes of the register form's dynamic shared memory
+template <typename T>
+long long register_bytes(int c_in, int c_out, int mid, int pixels) {
+  return (long long)(c_in + c_out + 2 * mid) * pixels * sizeof(T) +
+         (long long)(pixels / 32 + 2) * mid * sizeof(float);
+}
+
+bool has_register_form(int mid, int pixels) {
+  return (mid == 16 && pixels == 512) || (mid == 24 && pixels == 128) ||
+         (mid == 32 && pixels == 32);
 }
 
 template <typename T, int MID, int NT>
-int launch(const void* x, const void* mats, const void* vecs, const void* offs,
-           void* out, int G, int c_in, int c_out, int h, int w, int gap,
-           cudaStream_t stream) {
-  const size_t bytes = (size_t)(c_in + c_out + 2 * MID) * NT * sizeof(T) +
-                       (size_t)(NT / 32 + 2) * MID * sizeof(float);
+int launch_registers(const void* x, const void* mats, const void* vecs,
+                     const void* offs, void* out, int G, int c_in, int c_out,
+                     int h, int w, int gap, cudaStream_t stream) {
+  const long long bytes = register_bytes<T>(c_in, c_out, MID, NT);
   auto kernel = os_stage_kernel<T, MID, NT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<G, NT, bytes, stream>>>(
+  kernel<<<G, NT, (size_t)bytes, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(mats),
       static_cast<const float*>(vecs), static_cast<const int32_t*>(offs),
       static_cast<T*>(out), c_in, c_out, h, w, gap);
@@ -310,30 +204,48 @@ int launch(const void* x, const void* mats, const void* vecs, const void* offs,
 
 template <typename T>
 int dispatch(const void* x, const void* mats, const void* vecs,
-             const void* offs, void* out, int G, int c_in, int c_out, int mid,
-             int h, int w, int gap, cudaStream_t s) {
+             const void* offs, void* out, void* scratch, int G, int c_in,
+             int c_out, int mid, int h, int w, int gap, cudaStream_t s) {
   const int pixels = h * w;
-  if (mid == 16 && pixels == 512)
-    return launch<T, 16, 512>(x, mats, vecs, offs, out, G, c_in, c_out, h, w, gap, s);
-  if (mid == 24 && pixels == 128)
-    return launch<T, 24, 128>(x, mats, vecs, offs, out, G, c_in, c_out, h, w, gap, s);
-  if (mid == 32 && pixels == 32)
-    return launch<T, 32, 32>(x, mats, vecs, offs, out, G, c_in, c_out, h, w, gap, s);
-  return (int)cudaErrorInvalidValue;
+  if (scratch == nullptr && has_register_form(mid, pixels)) {
+    if (mid == 16)
+      return launch_registers<T, 16, 512>(x, mats, vecs, offs, out, G, c_in, c_out, h, w, gap, s);
+    if (mid == 24)
+      return launch_registers<T, 24, 128>(x, mats, vecs, offs, out, G, c_in, c_out, h, w, gap, s);
+    return launch_registers<T, 32, 32>(x, mats, vecs, offs, out, G, c_in, c_out, h, w, gap, s);
+  }
+  return os_stage_columns(x, mats, vecs, offs, out, scratch, G, c_in, c_out,
+                          mid, h, w, gap, std::is_same<T, __nv_bfloat16>::value,
+                          s);
 }
 
 }  // namespace
 
+// Dynamic shared memory of the form the stage takes without a scratch:
+// the register form where it is built for (mid, h*w), else the columns
+// form with its workspace in shared memory. Above what a block can use,
+// the wrapper passes a (G, c_out + 5 mid, h*w) scratch in T instead.
+extern "C" long long ssyt_os_stage_smem_bytes(int c_in, int c_out, int mid,
+                                              int h, int w, int bf16) {
+  const int pixels = h * w;
+  if (has_register_form(mid, pixels)) {
+    return bf16 ? register_bytes<__nv_bfloat16>(c_in, c_out, mid, pixels)
+                : register_bytes<float>(c_in, c_out, mid, pixels);
+  }
+  return bf16 ? columns_bytes<__nv_bfloat16>(c_in, c_out, mid, pixels, true)
+              : columns_bytes<float>(c_in, c_out, mid, pixels, true);
+}
+
 extern "C" int ssyt_os_stage(const void* x, const void* mats, const void* vecs,
-                             const void* offs, void* out, int G, int c_in,
-                             int c_out, int mid, int h, int w, int gap,
-                             int bf16, void* stream) {
+                             const void* offs, void* out, void* scratch, int G,
+                             int c_in, int c_out, int mid, int h, int w,
+                             int gap, int bf16, void* stream) {
   if (G == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    return dispatch<__nv_bfloat16>(x, mats, vecs, offs, out, G, c_in, c_out,
-                                   mid, h, w, gap, s);
+    return dispatch<__nv_bfloat16>(x, mats, vecs, offs, out, scratch, G, c_in,
+                                   c_out, mid, h, w, gap, s);
   }
-  return dispatch<float>(x, mats, vecs, offs, out, G, c_in, c_out, mid, h, w,
-                         gap, s);
+  return dispatch<float>(x, mats, vecs, offs, out, scratch, G, c_in, c_out,
+                         mid, h, w, gap, s);
 }

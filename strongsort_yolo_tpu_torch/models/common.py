@@ -22,7 +22,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from strongsort_yolo_tpu_torch.ops.cuda.conv_kernel import conv_act_nchw, eligible
+from strongsort_yolo_tpu_torch.ops.cuda.conv_kernel import (
+    conv_act_nchw, default_form, eligible, pack_mma,
+)
 
 BN_EPS = 1e-3
 
@@ -68,7 +70,7 @@ class Conv(nn.Module):
             self.register_buffer("bn_mean", torch.zeros(c_out))
             self.register_buffer("bn_var", torch.ones(c_out))
         self._k7_src = None  # float32 (w, b) for K7, once use_conv_kernel ran
-        self._k7 = None  # the same on the activations' device and dtype
+        self._k7 = None  # (w, b, mma blob or None) on the activations' device
 
     def use_conv_kernel(self) -> None:
         """Compute this conv with K7 wherever its input is ``eligible``.
@@ -76,7 +78,8 @@ class Conv(nn.Module):
         its bias are kept now, in float32: call it before casting the
         model, whose cast would round the bias that K7 adds in float32.
         They are kept out of the module's buffers and follow the
-        activations' device; the weight is rounded to their dtype there."""
+        activations' device; the weight is rounded to their dtype there,
+        and packed for K7's ``mma`` form where that dtype takes it."""
         if not self.fused:
             raise ValueError("the conv kernel takes fused convs (BN folded)")
         c_out, c_in, k, _ = self.w.shape
@@ -94,8 +97,13 @@ class Conv(nn.Module):
             if self._k7 is None or self._k7[0].device != x.device or (
                     self._k7[0].dtype != x.dtype):
                 w, b = self._k7_src
-                self._k7 = (w.to(x.device, x.dtype), b.to(x.device))
-            return conv_act_nchw(x, *self._k7, k=self.w.shape[-1], act=self.act)
+                k = self.w.shape[-1]
+                packed = (pack_mma(w.to(x.device), k)
+                          if default_form(x.dtype) == "mma" else None)
+                self._k7 = (w.to(x.device, x.dtype), b.to(x.device), packed)
+            w, b, packed = self._k7
+            return conv_act_nchw(x, w, b, k=self.w.shape[-1], act=self.act,
+                                 packed=packed)
         if self.fused:
             y = F.conv2d(x, self.w, self.b, self.stride, self.pad, 1, self.groups)
             return F.silu(y) if self.act else y

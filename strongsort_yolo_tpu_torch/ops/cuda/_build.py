@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each ``csrc/*.cu`` file compiles with its own ``nvcc`` process, all
-started together, and the objects link into one shared library with a
-plain C interface, which is loaded with ``ctypes``. The library
+started together (``csrc/*.cuh`` holds code that two of them share),
+and the objects link into one shared library with a plain C interface,
+which is loaded with ``ctypes``. The library
 lands under ``build/torch_kernels/`` at the repository root, named by a
 hash of the sources and flags, so an edit rebuilds and an unchanged
 tree reuses the file. Nothing here runs at import time: the first call
@@ -10,7 +11,8 @@ of :func:`lib` builds.
 
 Flags: ``-fmad=false`` and no ``--use_fast_math``, because the kernels
 round every product and sum on its own to stay bit-identical to their
-plain PyTorch versions.
+plain PyTorch versions (K7's ``mma`` form, held to one bf16 unit, calls
+the fast exp and division intrinsics by name in its SiLU).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
+MAX_SMEM = 227 * 1024  # dynamic shared memory one Hopper block can use
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
@@ -45,18 +48,26 @@ _SIGNATURES = {
     "ssyt_letterbox_u8": (_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                           _F, _P),
     "ssyt_nms_keep": (_P, _P, _P, _I, _I, _F, _F, _P),
-    "ssyt_auction_smem_bytes": (_I, _I),
-    "ssyt_auction": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    "ssyt_auction_smem_bytes": (_I, _I, _I),
+    "ssyt_auction": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     "ssyt_banded_crop": (_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _P),
-    "ssyt_os_stage": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "ssyt_os_stage_smem_bytes": (_I, _I, _I, _I, _I, _I),
+    "ssyt_os_stage": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                      _P),
     "ssyt_conv_act": (_P, _P, _P, _P, _I, _I, _I, _I, _I, *(_L,) * 8,
                       _I, _I, _I, _I, _P),
+    "ssyt_conv_mma": (_P, _P, _P, _P, _I, _I, _I, _I, _I, *(_L,) * 8,
+                      _I, _I, _I, _I, _I, _P),
 }
+
+# byte counts; the other entry points return a CUDA error code
+_RESTYPES = {"ssyt_auction_smem_bytes": _L, "ssyt_os_stage_smem_bytes": _L}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 build_seconds: float | None = None  # wall time of this process's build
+compile_seconds: dict[str, float] = {}  # per source, of this process's build
 
 
 def _sources() -> list[str]:
@@ -79,9 +90,18 @@ def _nvcc() -> str:
     return found
 
 
+def lib_path() -> str:
+    """Where the library of the current sources and flags is built."""
+    return _lib_path(_sources())
+
+
 def _lib_path(sources: list[str]) -> str:
+    """Named by a hash of the sources, the headers beside them and the
+    flags."""
+    headers = sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                     if f.endswith(".cuh"))
     h = hashlib.sha256()
-    for path in sources:
+    for path in sources + headers:
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())
@@ -89,13 +109,16 @@ def _lib_path(sources: list[str]) -> str:
     return os.path.join(BUILD_DIR, f"libssyt_kernels_{h.hexdigest()[:16]}.so")
 
 
-def _run(cmd: list[str]) -> None:
+def _run(cmd: list[str]) -> float:
+    """Run ``cmd``; -> its wall time in seconds."""
+    t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
         raise RuntimeError(
             f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
             f"{proc.stdout}\n{proc.stderr}"
         )
+    return time.perf_counter() - t0
 
 
 def _compile(sources: list[str], out: str) -> None:
@@ -107,9 +130,11 @@ def _compile(sources: list[str], out: str) -> None:
         objs = [os.path.join(tmp, os.path.basename(src) + ".o")
                 for src in sources]
         with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
-            for fut in [pool.submit(_run, [nvcc, *NVCC_FLAGS, "-c", "-o", o, s])
-                        for s, o in zip(sources, objs)]:
-                fut.result()
+            futs = {os.path.basename(s): pool.submit(
+                _run, [nvcc, *NVCC_FLAGS, "-c", "-o", o, s])
+                for s, o in zip(sources, objs)}
+            for name, fut in futs.items():
+                compile_seconds[name] = fut.result()
         lib_tmp = os.path.join(tmp, "lib.so")
         _run([nvcc, *NVCC_FLAGS, "-shared", "-o", lib_tmp, *objs])
         os.replace(lib_tmp, out)
@@ -131,7 +156,7 @@ def lib() -> ctypes.CDLL:
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(cdll, name)
             fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
+            fn.restype = _RESTYPES.get(name, ctypes.c_int)
         cdll.ssyt_error_string.argtypes = [ctypes.c_int]
         cdll.ssyt_error_string.restype = ctypes.c_char_p
         _lib = cdll

@@ -3,7 +3,10 @@ plain PyTorch version :func:`auction_plain`.
 
 Replaces ``strongsort_yolo_tpu/ops/pallas/auction_kernel.py::pallas_auction``
 and follows that kernel's semantics round for round (see the note in
-``csrc/auction.cu``), batched over a leading problem axis.
+``csrc/auction.cu``), batched over a leading problem axis. Any (R, C)
+runs: the benefit block sits in shared memory where it fits a block and
+in a global scratch otherwise (:func:`shared_form`), with the same
+arithmetic, so both forms equal :func:`auction_plain` bit for bit.
 """
 
 from __future__ import annotations
@@ -12,14 +15,19 @@ import torch
 
 from strongsort_yolo_tpu_torch.ops.cuda import _build
 
-MAX_SIDE = 1024  # one thread per row and per column of a block
-MAX_SMEM = 227 * 1024  # dynamic shared memory one Hopper block can use
 EPS_REL = 3e-3  # first bid increment, relative to the normalised range
 
 
 def max_rounds_for(r: int) -> int:
     """Round cap of the TPU kernel: 16 times R padded to 8."""
     return 16 * max(8, -(-r // 8) * 8)
+
+
+def shared_form(r: int, c: int) -> bool:
+    """Whether K3 keeps an (r, c) problem's benefit block in shared
+    memory (else in a global scratch): the one rule, from the block's
+    bytes against what a Hopper block can use."""
+    return _build.lib().ssyt_auction_smem_bytes(r, c, 1) <= _build.MAX_SMEM
 
 
 def auction_plain(
@@ -111,15 +119,19 @@ def auction(
             "(P, R) bool and col_valid (P, C) bool on one device"
         )
     lib = _build.lib()
-    if max(r, c) > MAX_SIDE or lib.ssyt_auction_smem_bytes(r, c) > MAX_SMEM:
-        raise ValueError(f"auction: a {r} x {c} problem does not fit a block")
+    if lib.ssyt_auction_smem_bytes(r, c, 0) > _build.MAX_SMEM:
+        raise ValueError(f"auction: the row and column arrays of a {r} x {c} "
+                         "problem exceed a block's shared memory")
+    scratch = (None if shared_form(r, c)
+               else torch.empty((p, c, r), dtype=torch.float32, device=dev))
     cost, thresh = cost.contiguous(), thresh.contiguous()
     row_valid, col_valid = row_valid.contiguous(), col_valid.contiguous()
     r2c = torch.empty((p, r), dtype=torch.int32, device=dev)
     c2r = torch.empty((p, c), dtype=torch.int32, device=dev)
     err = lib.ssyt_auction(
         cost.data_ptr(), thresh.data_ptr(), row_valid.data_ptr(),
-        col_valid.data_ptr(), r2c.data_ptr(), c2r.data_ptr(), p, r, c,
+        col_valid.data_ptr(), r2c.data_ptr(), c2r.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), p, r, c,
         EPS_REL, max_rounds_for(r),
         torch.cuda.current_stream(dev).cuda_stream,
     )

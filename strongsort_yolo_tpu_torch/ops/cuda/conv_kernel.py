@@ -19,6 +19,14 @@ float32, then one cast to x's dtype. The model's default ``Conv`` (and
 the JAX ``conv_apply``) rounds the bf16 conv output before it adds the
 bias, so in bf16 the route gives slightly other detections by design.
 
+Forms, chosen by dtype: bfloat16 runs the ``mma`` form
+(``csrc/conv_mma.cuh``, an implicit GEMM on the tensor cores with
+``wgmma``, its weights packed by :func:`pack_mma`); float32 runs the
+``taps`` form (``csrc/conv_act.cu``, CUDA cores), since the tensor cores
+take float32 only as TF32. The ``im2col`` form (bf16 or float32) is the
+port of the TPU shootout's ``_prof_conv2`` kernel, for the profiling tool
+and the card checks only.
+
 Layouts: the public :func:`conv_act` keeps the JAX signature, NHWC ``x``
 and a ``(k * k * C_in, C_out)`` weight flattened over (ky, kx, ci) as
 HWIO; :func:`conv_act_nchw` takes the model's NCHW activations. The
@@ -34,7 +42,8 @@ import torch.nn.functional as F
 from strongsort_yolo_tpu_torch.ops.cuda import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-FORMS = ("taps", "im2col")
+FORMS = ("taps", "im2col", "mma")
+MMA_N_TILES = (16, 32, 64, 80, 128)  # output channels of one wgmma (N)
 VMEM_BUDGET = 72 * 1024 * 1024  # the TPU kernel's whole-plane budget
 
 
@@ -79,6 +88,55 @@ def _check(x, w, b, k: int, layout: str) -> tuple[int, int]:
     return c_in, w.shape[1]
 
 
+def default_form(dtype: torch.dtype) -> str:
+    """The form K7 runs for ``dtype``: ``mma`` (tensor cores) for
+    bfloat16, ``taps`` (CUDA cores) for float32."""
+    return "mma" if dtype == torch.bfloat16 else "taps"
+
+
+def mma_n_tile(c_out: int) -> int:
+    """Output channels per block of the ``mma`` form: the smallest wgmma
+    width in :data:`MMA_N_TILES` that holds ``c_out``, else the largest
+    (then the grid loops over chunks of it)."""
+    return next((n for n in MMA_N_TILES if n >= c_out), MMA_N_TILES[-1])
+
+
+def mma_chunks(c_in: int, k: int) -> int:
+    """16-channel chunks of the ``mma`` form's packed weights: C_in
+    padded to a whole number of the kernel's stages, 64 input channels
+    for k = 1 and 16 for k = 3."""
+    stage = 64 if k == 1 else 16
+    return -(-c_in // stage) * stage // 16
+
+
+def pack_mma(w: torch.Tensor, k: int) -> torch.Tensor:
+    """The ``(k * k * C_in, C_out)`` weight, rounded to bfloat16, as the
+    ``mma`` form stages it: ``(C_in_pad / 16, k * k, 2, N_pad, 8)``, zero
+    where C_in is padded (to a multiple of 16 for k = 3, of 64 for k = 1:
+    a whole number of the kernel's stages) and where C_out is padded to a
+    multiple of :func:`mma_n_tile`. Per 16-channel chunk and tap, two
+    (N_pad, 8) planes of 8 input channels each: wgmma's no-swizzle
+    K-major layout of B, 8 output channels x 8 input channels to a
+    128-byte core matrix."""
+    c_out = w.shape[1]
+    c_in = w.shape[0] // (k * k)
+    n_tile = mma_n_tile(c_out)
+    n_pad = -(-c_out // n_tile) * n_tile
+    ci_pad = 16 * mma_chunks(c_in, k)
+    blob = torch.zeros((k * k, ci_pad, n_pad), dtype=torch.bfloat16,
+                       device=w.device)
+    blob[:, :c_in, :c_out] = w.reshape(k * k, c_in, c_out).to(torch.bfloat16)
+    return (blob.reshape(k * k, ci_pad // 16, 2, 8, n_pad)
+            .permute(1, 0, 2, 4, 3).contiguous())
+
+
+def unpack_mma(blob: torch.Tensor, k: int, c_in: int, c_out: int) -> torch.Tensor:
+    """The inverse of :func:`pack_mma`: -> ``(k * k * C_in, C_out)``."""
+    chunks, _, _, n_pad, _ = blob.shape
+    w = blob.permute(1, 0, 2, 4, 3).reshape(k * k, chunks * 16, n_pad)
+    return w[:, :c_in, :c_out].reshape(k * k * c_in, c_out)
+
+
 def conv_act_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
                    k: int, act: bool, layout: str = "nhwc") -> torch.Tensor:
     """The plain version, rounding where K7 rounds: the conv in float32
@@ -97,13 +155,20 @@ def conv_act_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
 
 def conv_act_kernel(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
                     k: int, act: bool, layout: str = "nhwc",
-                    form: str = "taps") -> torch.Tensor:
-    """K7 on a CUDA tensor (``form``: ``"taps"``, the route's, or
-    ``"im2col"``), without autograd; a CPU tensor takes the plain
-    version (both forms compute the same function)."""
+                    form: str | None = None,
+                    packed: torch.Tensor | None = None) -> torch.Tensor:
+    """K7 on a CUDA tensor, without autograd; a CPU tensor takes the plain
+    version (every form computes the same function). ``form`` None is
+    :func:`default_form` of x's dtype; ``"mma"`` takes bfloat16 only and
+    uses ``packed`` (:func:`pack_mma` of ``w``) where given, else packs
+    ``w`` itself."""
     c_in, c_out = _check(x, w, b, k, layout)
+    form = default_form(x.dtype) if form is None else form
     if form not in FORMS:
         raise ValueError(f"conv_act: form must be one of {FORMS}, got {form!r}")
+    if form == "mma" and x.dtype != torch.bfloat16:
+        raise ValueError(f"conv_act: the mma form takes bfloat16 (the tensor "
+                         f"cores take float32 only as TF32), got {x.dtype}")
     if x.device.type == "cpu":
         return conv_act_plain(x, w, b, k=k, act=act, layout=layout)
     if x.device.type != "cuda":
@@ -121,28 +186,44 @@ def conv_act_kernel(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
         sx, so = x.stride(), out.stride()
     if out.numel() == 0:
         return out
-    wk = w.to(x.dtype).contiguous()
     bk = b.float().contiguous()
-    err = _build.lib().ssyt_conv_act(
-        x.data_ptr(), wk.data_ptr(), bk.data_ptr(), out.data_ptr(),
-        n, h, wd, c_in, c_out, *sx, *so, k, int(act), FORMS.index(form),
-        _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if form == "mma":
+        blob = pack_mma(w, k) if packed is None else packed
+        if (blob.dtype != torch.bfloat16 or blob.device != x.device
+                or not blob.is_contiguous()
+                or blob.shape[:3] != (mma_chunks(c_in, k), k * k, 2)
+                or blob.shape[3] % mma_n_tile(c_out) or blob.shape[3] < c_out):
+            raise ValueError(f"conv_act: packed weights {tuple(blob.shape)} "
+                             f"{blob.dtype} are not pack_mma of a k={k} "
+                             f"{c_in}->{c_out} weight on {x.device}")
+        err = _build.lib().ssyt_conv_mma(
+            x.data_ptr(), blob.data_ptr(), bk.data_ptr(), out.data_ptr(),
+            n, h, wd, c_in, c_out, *sx, *so, k, int(act), mma_n_tile(c_out),
+            blob.shape[3], blob.shape[0], stream)
+    else:
+        wk = w.to(x.dtype).contiguous()
+        err = _build.lib().ssyt_conv_act(
+            x.data_ptr(), wk.data_ptr(), bk.data_ptr(), out.data_ptr(),
+            n, h, wd, c_in, c_out, *sx, *so, k, int(act), FORMS.index(form),
+            _DTYPES[x.dtype], stream)
     conv_act.launches += 1
     _build.check(err, "conv_act")
     return out
 
 
 class _ConvAct(torch.autograd.Function):
-    """Forward: K7 (the plain version on the CPU). Backward: the autograd
-    of the plain formulation, as the JAX custom VJP derives its gradient
-    from ``_conv_ref``; there is no backward kernel."""
+    """Forward: K7 in the form of x's dtype (the plain version on the
+    CPU). Backward: the autograd of the plain formulation, as the JAX
+    custom VJP derives its gradient from ``_conv_ref``; there is no
+    backward kernel."""
 
     @staticmethod
-    def forward(ctx, x, w, b, k, act, layout):
+    def forward(ctx, x, w, b, k, act, layout, packed):
         ctx.save_for_backward(x, w, b)
         ctx.conf = (k, act, layout)
-        return conv_act_kernel(x, w, b, k=k, act=act, layout=layout)
+        return conv_act_kernel(x, w, b, k=k, act=act, layout=layout,
+                               packed=packed)
 
     @staticmethod
     def backward(ctx, g):
@@ -155,23 +236,26 @@ class _ConvAct(torch.autograd.Function):
             wanted = [t for t in leaves if t.requires_grad]
             grads = iter(torch.autograd.grad(y, wanted, g))
         return (*(next(grads) if t.requires_grad else None for t in leaves),
-                None, None, None)
+                None, None, None, None)
 
 
 def conv_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
              k: int, act: bool) -> torch.Tensor:
     """The JAX ``conv_act``: NHWC ``x`` (N, H, W, C_in), ``w`` (k * k *
     C_in, C_out) HWIO flattened, ``b`` (C_out,) -> (N, H, W, C_out) in x's
-    dtype, differentiable. CUDA tensors launch K7 (``taps``); CPU tensors
-    take :func:`conv_act_plain`."""
-    return _ConvAct.apply(x, w, b, k, act, "nhwc")
+    dtype, differentiable. CUDA tensors launch K7 in the form of x's dtype
+    (:func:`default_form`; the ``mma`` form packs ``w`` per call); CPU
+    tensors take :func:`conv_act_plain`."""
+    return _ConvAct.apply(x, w, b, k, act, "nhwc", None)
 
 
 def conv_act_nchw(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
-                  k: int, act: bool) -> torch.Tensor:
+                  k: int, act: bool,
+                  packed: torch.Tensor | None = None) -> torch.Tensor:
     """:func:`conv_act` on the model's NCHW activations -> (N, C_out, H,
-    W): the route of ``Pipeline(conv_kernel=True)``."""
-    return _ConvAct.apply(x, w, b, k, act, "nchw")
+    W): the route of ``Pipeline(conv_kernel=True)``, which passes
+    ``packed``, :func:`pack_mma` of ``w`` cached per conv, for bfloat16."""
+    return _ConvAct.apply(x, w, b, k, act, "nchw", packed)
 
 
 conv_act.launches = 0

@@ -44,8 +44,7 @@ from torch import nn
 from strongsort_yolo_tpu_torch.ops.cuda import _build
 
 LITES = 10  # lite convs of an OS block: streams of 1, 2, 3 and 4
-# (mid, pixels) of the stages K6 is built for: OSNet-x0_25 at 128x64 crops
-KERNEL_SHAPES = ((16, 512), (24, 128), (32, 32))
+WIDTHS = (0.25, 0.5, 0.75, 1.0)  # the released OSNet widths, x0_25 to x1_0
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -76,6 +75,26 @@ def stage_specs(channels: tuple[int, int, int, int], crop_hw=(128, 64)):
         StageSpec(h // 2, w // 2, c2, c3, c3 // 4, "pool"),
         StageSpec(h // 4, w // 4, c3, c4, c4 // 4, "gap"),
     )
+
+
+def osnet_channels(width: float) -> tuple[int, int, int, int]:
+    """The stem and stage widths of OSNet at ``width`` (x1_0: 64, 256,
+    384, 512)."""
+    return tuple(int(c * width) for c in (64, 256, 384, 512))
+
+
+# (c_in, c_out, mid, pixels) of every stage K6 is built for: the stages
+# of the four released widths at 128x64 crops
+KERNEL_SHAPES = frozenset(
+    (s.c_in, s.c_out, s.mid, s.h * s.w)
+    for width in WIDTHS for s in stage_specs(osnet_channels(width)))
+
+
+def scratch_rows(spec: StageSpec) -> int:
+    """Rows (of h*w values in the compute dtype) per crop of K6's global
+    workspace, where its shared-memory one does not fit a block: XA, two
+    lite buffers, y, s and the aggregate (``csrc/os_stage.cu``)."""
+    return spec.c_out + 5 * spec.mid
 
 
 class StageWeights(NamedTuple):
@@ -270,7 +289,9 @@ def os_stage(x: torch.Tensor, weights: StageWeights,
     """One fused OSNet stage: (G, c_in, h, w) -> (G, c_out, h/2, w/2), or
     (G, c_out) for the last stage, in x's dtype (float32 or bfloat16).
     CPU tensors take :func:`os_stage_plain`; CUDA tensors launch K6, one
-    thread block per crop and one thread per pixel."""
+    thread block per crop and one thread per pixel, on any stage of
+    :data:`KERNEL_SHAPES`. Where the stage's shared-memory form does not
+    fit a block, K6 works in a global scratch allocated here."""
     g = x.shape[0]
     if (x.shape != (g, spec.c_in, spec.h, spec.w) or x.dtype not in _DTYPES
             or weights.mats.dtype != x.dtype
@@ -287,22 +308,33 @@ def os_stage(x: torch.Tensor, weights: StageWeights,
         return os_stage_plain(x, weights, spec)
     if x.device.type != "cuda":
         raise ValueError(f"os_stage: unsupported device {x.device}")
-    if (spec.mid, spec.h * spec.w) not in KERNEL_SHAPES or (
+    shape = (spec.c_in, spec.c_out, spec.mid, spec.h * spec.w)
+    if shape not in KERNEL_SHAPES or (
             spec.epilogue == "pool" and (spec.h % 2 or spec.w % 2)):
         raise ValueError(
-            f"os_stage: K6 is built for (mid, h*w) in {KERNEL_SHAPES} (the "
-            f"OSNet-x0_25 stages at 128x64 crops), not {spec}")
+            f"os_stage: K6 is built for the stages of OSNet x0_25, x0_5, "
+            f"x0_75 and x1_0 at 128x64 crops, (c_in, c_out, mid, h*w) in "
+            f"{sorted(KERNEL_SHAPES)}, not {spec}")
     if int(weights.offs[_B_WD]) != -1:
         raise ValueError("os_stage: the second OS block has a down conv")
     out = torch.empty((g, *spec.out_shape), dtype=x.dtype, device=x.device)
     if g == 0:
         return out
     x = x.contiguous()
-    err = _build.lib().ssyt_os_stage(
+    lib = _build.lib()
+    bf16 = _DTYPES[x.dtype]
+    scratch = None
+    if lib.ssyt_os_stage_smem_bytes(spec.c_in, spec.c_out, spec.mid, spec.h,
+                                    spec.w, bf16) > _build.MAX_SMEM:
+        scratch = torch.empty((g, scratch_rows(spec), spec.h * spec.w),
+                              dtype=x.dtype, device=x.device)
+    err = lib.ssyt_os_stage(
         x.data_ptr(), weights.mats.data_ptr(), weights.vecs.data_ptr(),
-        weights.offs.data_ptr(), out.data_ptr(), g, spec.c_in, spec.c_out,
-        spec.mid, spec.h, spec.w, int(spec.epilogue == "gap"),
-        _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream,
+        weights.offs.data_ptr(), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), g, spec.c_in,
+        spec.c_out,
+        spec.mid, spec.h, spec.w, int(spec.epilogue == "gap"), bf16,
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     os_stage.launches += 1
     _build.check(err, "os_stage")

@@ -6,8 +6,10 @@ Counterpart of ``tools/prof/_prof_conv.py`` and ``_prof_conv2.py`` (the
 formulation shootout of the TPU kernel), at their shapes ``SHAPES``
 (80x80 and 40x40 planes, k=3, the route's NCHW layout), in bfloat16, for
 each batch S given (default 32 and 8). Per shape and S it prints one row:
-the CUDA-event time, mean of 20 launches after 3 warm-ups, and TFLOP/s
-of K7's ``taps`` form (the route's), its ``im2col`` form, the plain
+the device time (CUDA events around the replay of a CUDA graph of 20
+calls, after 3 warm-ups: no host launch overhead) and TFLOP/s of K7's
+``mma`` form (tensor cores, the route's in bf16, weights packed once as
+the route caches them), its ``taps`` and ``im2col`` forms, the plain
 version, and the yardstick ``F.silu(F.conv2d(x, w, b))`` in bf16 (cuDNN,
 two launches: conv with bias, then SiLU, as the TPU shootout's XLA
 column was); the bound (the larger of the bytes, x read once and y
@@ -32,6 +34,7 @@ from strongsort_yolo_tpu_torch.ops.cuda.conv_kernel import (
     FORMS,
     conv_act_kernel,
     conv_act_plain,
+    pack_mma,
 )
 
 SHAPES = [  # (h, w, c_in, c_out, k), tools/prof/_prof_conv2.py:30
@@ -45,16 +48,26 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of one call of ``fn``, from CUDA events."""
-    for _ in range(warmup):
-        fn()
+def graph_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of one call of ``fn``: CUDA events around the
+    replay of a CUDA graph of ``iters`` calls, after ``warmup`` calls on
+    a side stream."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -72,9 +85,11 @@ def profile_shape(s: int, h: int, w: int, c_in: int, c_out: int, k: int,
     w4 = wt.reshape(k, k, c_in, c_out).permute(3, 2, 0, 1).to(bf).contiguous()
     b16 = b.to(bf)
     want = conv_act_plain(x, wt, b, k=k, act=True, layout="nchw").float()
+    packed = pack_mma(wt, k)
     runs = {
-        form: (lambda f=form: conv_act_kernel(x, wt, b, k=k, act=True,
-                                              layout="nchw", form=f))
+        form: (lambda f=form: conv_act_kernel(
+            x, wt, b, k=k, act=True, layout="nchw", form=f,
+            packed=packed if f == "mma" else None))
         for form in FORMS
     }
     runs["plain"] = lambda: conv_act_plain(x, wt, b, k=k, act=True, layout="nchw")
@@ -82,7 +97,7 @@ def profile_shape(s: int, h: int, w: int, c_in: int, c_out: int, k: int,
     row = {"S": s, "h": h, "w": w, "c_in": c_in, "c_out": c_out, "k": k}
     flops = 2 * k * k * c_in * c_out * s * h * w
     for name, fn in runs.items():
-        ms = cuda_ms(fn, iters=5 if name == "plain" else 20)
+        ms = graph_ms(fn, iters=5 if name == "plain" else 20)
         row[f"{name}_ms"] = ms
         row[f"{name}_tflops"] = flops / ms / 1e9
         if name in FORMS:

@@ -125,3 +125,18 @@ def test_batched_solve_equals_single_problems():
         r2c, c2r = _plain(*p)
         np.testing.assert_array_equal(res.row_to_col[i].numpy(), r2c)
         np.testing.assert_array_equal(res.col_to_row[i].numpy(), c2r)
+
+
+@pytest.mark.parametrize("kind", ["random", "tracker"])
+@pytest.mark.parametrize("shape", [(256, 256), (512, 250)])
+def test_plain_auction_identical_to_pallas_at_crowd_sizes(kind, shape):
+    """The association sizes of a crowded scene (tracker_max_dets 256 on
+    256 slots, 250 detections on 512 slots), whose benefit block K3
+    holds in its global-scratch form on the card."""
+    r, c = shape
+    cost, rv, cv, thresh = _problem(kind, np.random.default_rng(r + c), r, c)
+    rv &= np.random.default_rng(r).uniform(size=r) < 0.7
+    got, want = _plain(cost, rv, cv, thresh), _pallas(cost, rv, cv, thresh)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert (got[0] >= 0).sum() > 0

@@ -270,3 +270,109 @@ def test_wrapper_refuses_what_k7_does_not_take():
     with pytest.raises(ValueError, match="form"):
         tck.conv_act_kernel(x, torch.zeros(9 * 4, 2), torch.zeros(2), k=3,
                             act=True, form="dots")
+
+
+@pytest.mark.parametrize("k,c_in,c_out", [(3, 51, 80), (1, 51, 51), (3, 16, 128),
+                                          (1, 192, 200)])
+def test_pack_mma_round_trips_with_zero_padding(k, c_in, c_out):
+    """pack_mma -> (chunks, k*k, 2, N_pad, 8) bf16: unpack gives the
+    bf16-rounded weight back, and every padded input or output channel
+    is zero (C_in padded to a whole number of the kernel's stages, C_out
+    to its wgmma width)."""
+    w = torch.from_numpy(np.random.default_rng(c_in).normal(
+        0, 1, (k * k * c_in, c_out)).astype(np.float32))
+    blob = tck.pack_mma(w, k)
+    n_tile = tck.mma_n_tile(c_out)
+    chunks = tck.mma_chunks(c_in, k)
+    assert blob.dtype == torch.bfloat16 and blob.is_contiguous()
+    assert blob.shape[:3] == (chunks, k * k, 2) and blob.shape[4] == 8
+    assert blob.shape[3] % n_tile == 0 and blob.shape[3] >= c_out
+    assert chunks * 16 % (64 if k == 1 else 16) == 0 and chunks * 16 >= c_in
+    assert torch.equal(tck.unpack_mma(blob, k, c_in, c_out),
+                       w.to(torch.bfloat16))
+    full = tck.unpack_mma(blob, k, chunks * 16, blob.shape[3]).reshape(
+        k * k, chunks * 16, blob.shape[3])
+    assert not full[:, c_in:].any() and not full[:, :, c_out:].any()
+    assert (tck.mma_n_tile(51), tck.mma_n_tile(80), tck.mma_n_tile(300)) == (
+        64, 80, 128)
+
+
+def _mma_emulation(x, blob, b, k, act, c_out):
+    """The mma form's decomposition in plain PyTorch, from the packed
+    weights: per 16-channel chunk (zero past C_in) and per tap, dy outer
+    and dx inner, the shifted zero-padded input slab times the chunk's
+    (N_pad, 16) weights, summed in float32 into one accumulator; then
+    + float32 bias, SiLU, one rounding to bf16. x (n, c_in, h, w) bf16
+    -> (n, h, w, c_out)."""
+    n, c_in, h, w = x.shape
+    chunks, _, _, n_pad, _ = blob.shape
+    r = k // 2
+    xp = torch.zeros((n, chunks * 16, h + 2 * r, w + 2 * r))
+    xp[:, :c_in, r:r + h, r:r + w] = x.float()
+    acc = torch.zeros((n, h, w, n_pad))
+    for c in range(chunks):
+        for tap in range(k * k):
+            dy, dx = divmod(tap, k)
+            a = xp[:, 16 * c:16 * c + 16, dy:dy + h, dx:dx + w].permute(0, 2, 3, 1)
+            wm = blob[c, tap].float().permute(1, 0, 2).reshape(n_pad, 16)
+            acc = acc + a @ wm.T
+    y = acc[..., :c_out] + b
+    if act:
+        y = y * torch.sigmoid(y)
+    return y.to(torch.bfloat16)
+
+
+def _picks_at_160():
+    shapes = set()
+    for name in ("yolov8n", "yolo11n-pose", "yolov8n-seg"):
+        model = tyolo.YoloModel(tyolo.build_model(name), fused=True)
+        shapes |= {p[1:] for p in tyolo.kernel_picks(model, (160, 160))}
+    return sorted(shapes)
+
+
+def test_mma_decomposition_matches_plain_on_the_picks_at_160():
+    """The mma form's chunk-by-chunk, tap-by-tap float32 sums with one
+    rounding equal conv_act_plain within one bf16 unit at 1.0, scaled by
+    max(1, |ref|), on every conv shape the rule picks at imgsz 160."""
+    shapes = _picks_at_160()
+    assert shapes
+    for h, w, c_in, c_out, k, act in shapes:
+        x, wt, b = _inputs(h + c_in + c_out, 2, h, w, c_in, c_out, k)
+        xb = torch.from_numpy(x).to(torch.bfloat16).permute(0, 3, 1, 2)
+        wt, b = torch.from_numpy(wt), torch.from_numpy(b)
+        got = _mma_emulation(xb, tck.pack_mma(wt, k), b, k, act, c_out).float()
+        want = tck.conv_act_plain(xb.permute(0, 2, 3, 1), wt, b, k=k,
+                                  act=act).float()
+        err = ((got - want).abs() / want.abs().clamp(min=1.0)).max()
+        assert float(err) <= BF16_ULP_AT_1, ((h, w, c_in, c_out, k), float(err))
+
+
+def test_mma_form_takes_bfloat16_only():
+    """The dtype rule: bfloat16 runs mma, float32 taps; an explicit mma
+    on float32 raises (the tensor cores take float32 only as TF32), on
+    the CPU too."""
+    assert tck.default_form(torch.bfloat16) == "mma"
+    assert tck.default_form(torch.float32) == "taps"
+    x = torch.zeros(1, 8, 8, 4)
+    with pytest.raises(ValueError, match="bfloat16"):
+        tck.conv_act_kernel(x, torch.zeros(9 * 4, 2), torch.zeros(2), k=3,
+                            act=True, form="mma")
+    got = tck.conv_act_kernel(x.bfloat16(), torch.zeros(9 * 4, 2),
+                              torch.ones(2), k=3, act=False, form="mma")
+    assert got.dtype == torch.bfloat16 and bool((got == 1).all())
+
+
+def test_route_caches_the_mma_blob():
+    """A routed Conv keeps pack_mma of its float32 weight once per device
+    and dtype for bfloat16 activations, and none for float32."""
+    conv = tcommon.Conv(64, 32, 3, 1, act=True, fused=True)
+    with torch.no_grad():
+        conv.w.normal_(0, 0.05)
+    conv.use_conv_kernel()
+    x = torch.zeros(1, 64, 40, 40)
+    with torch.no_grad():
+        conv(x)
+        assert conv._k7[2] is None
+        conv(x.bfloat16())
+    w, _ = conv._k7_src
+    assert torch.equal(conv._k7[2], tck.pack_mma(w, 3))

@@ -16,13 +16,16 @@ it has not (one step per level), and two of its launches are
 bit-identical; K6 (the fused OSNet stage) sums in another order than
 its plain version, so it is held to 1e-4 in float32; in bfloat16 the
 sums' differences stay below the rounding, and K6 must equal its plain
-version bit for bit; its launches are bit-identical; K7 (the fused conv)
-sums in another order than its plain version (cuDNN's float32 conv with
-TF32 off): float32 within 2e-5 x max(1, |ref|), bfloat16 within one bf16
-unit at 1.0 of the output scaled by max(1, |ref|), in both forms and
-both layouts, two launches bit-identical; the pipelines compare float32
-runs with TF32 off, boxes (and keypoints) within 1e-3 px, identical ids
-(and mask polygons).
+version bit for bit; its launches are bit-identical, at every OSNet width; K3 must equal its
+plain version in both forms (benefit block in shared memory, and in the
+global scratch from 256 x 256 up); K7 (the fused conv) sums in another
+order than its plain version (cuDNN's float32 conv with TF32 off):
+float32 within 2e-5 x max(1, |ref|), bfloat16 within one bf16 unit at
+1.0 of the output scaled by max(1, |ref|), in every form of the dtype
+(mma, the tensor-core form, in bfloat16 only) and both layouts, two
+launches bit-identical; the pipelines compare float32 runs with TF32
+off, boxes (and keypoints) within 1e-3 px, identical ids (and mask
+polygons).
 """
 
 import os
@@ -117,7 +120,8 @@ def test_nms_kernel_equals_plain(dev, k):
                  conf_thres=0.3)
 
 
-@pytest.mark.parametrize("r,c", [(16, 16), (256, 128), (37, 5)])
+@pytest.mark.parametrize("r,c", [(16, 16), (256, 128), (37, 5), (256, 256),
+                                 (512, 250), (1100, 300)])
 def test_auction_kernel_equals_plain(dev, r, c):
     rng = np.random.default_rng(r * c)
     p = 6
@@ -214,7 +218,8 @@ def test_banded_crop_rejects_what_it_does_not_take(dev):
                     torch.zeros(4, dtype=torch.int32, device=dev))
 
 
-def test_strongsort_pipeline_card_equals_cpu(dev, reid_fused=False):
+def test_strongsort_pipeline_card_equals_cpu(dev, reid_fused=False,
+                                            reid_weights=OSNET):
     rng = np.random.default_rng(4)
     frames = (rng.uniform(0, 0.3, (6, 2, 320, 320, 3)) * 255).astype(np.uint8)
     for t in range(6):
@@ -225,8 +230,8 @@ def test_strongsort_pipeline_card_equals_cpu(dev, reid_fused=False):
         pipe = Pipeline(
             DetectorConfig(weights=CKPT, imgsz=160, half=False, max_det=16),
             tracker=StrongSortConfig(gmc_method="none"), track_slots=16,
-            tracker_max_dets=16, reid_weights=OSNET, reid_fused=reid_fused,
-            device=device,
+            tracker_max_dets=16, reid_weights=reid_weights,
+            reid_fused=reid_fused, device=device,
         )
         bp = BatchedPipeline(pipe, 2, (320, 320))
         outs[device] = [bp.step(f) for f in frames]
@@ -420,8 +425,10 @@ def test_track_chunk_card_equals_track_calls(dev):
 
 @pytest.mark.parametrize("i", [0, 1, 2], ids=["stage2", "stage3", "stage4-gap"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_os_stage_kernel_equals_plain(dev, i, dtype):
-    cfg = OsnetConfig()
+@pytest.mark.parametrize("variant", ["osnet_x0_25", "osnet_x0_5", "osnet_x0_75",
+                                     "osnet_x1_0"])
+def test_os_stage_kernel_equals_plain(dev, i, dtype, variant):
+    cfg = OsnetConfig(variant=variant)
     model = osnet_from_state_dict(
         init_osnet(cfg, torch.Generator().manual_seed(i)), cfg)
     spec = stage_specs(cfg.channels)[i]
@@ -444,12 +451,38 @@ def test_os_stage_kernel_equals_plain(dev, i, dtype):
         os_stage(x.double(), w, spec)
 
 
+def test_os_stage_refuses_stages_outside_the_table(dev):
+    """A stage of no released OSNet width at 128x64 crops raises, naming
+    the table, on the card (the CPU runs the plain version of any)."""
+    import dataclasses
+
+    cfg = OsnetConfig()
+    model = osnet_from_state_dict(
+        init_osnet(cfg, torch.Generator().manual_seed(0)), cfg)
+    spec = stage_specs(cfg.channels)[1]
+    w = stage_weights(model, 1, torch.float32).to(dev)
+    odd = dataclasses.replace(spec, h=spec.h * 2)  # a 256x64 crop's stage 3
+    x = torch.zeros((2, odd.c_in, odd.h, odd.w), device=dev)
+    with pytest.raises(ValueError, match="x0_25, x0_5, x0_75 and x1_0"):
+        os_stage(x, w, odd)
+
+
 def test_strongsort_fused_pipeline_card_equals_cpu(dev):
     """StrongSORT with the fused OSNet stages: K6 on the card against its
     plain version on the CPU, float32, as the unfused pipeline test."""
     before = os_stage.launches
     test_strongsort_pipeline_card_equals_cpu(dev, reid_fused=True)
     n = os_stage.launches - before  # three per embed on the card
+    assert n > 0 and n % 3 == 0
+
+
+def test_strongsort_x1_0_fused_pipeline_card_equals_cpu(dev):
+    """The fused OSNet at x1_0 width (seeded random weights): K6's columns
+    form on the card against its plain version on the CPU."""
+    before = os_stage.launches
+    test_strongsort_pipeline_card_equals_cpu(dev, reid_fused=True,
+                                            reid_weights="osnet_x1_0")
+    n = os_stage.launches - before
     assert n > 0 and n % 3 == 0
 
 
@@ -489,7 +522,8 @@ def test_cadence_two_card_equals_cpu(dev):
 
 @pytest.mark.parametrize("shape", [(80, 80, 32, 32, 3), (40, 40, 64, 64, 3),
                                    (40, 40, 192, 128, 1), (80, 80, 64, 51, 3),
-                                   (37, 53, 16, 20, 3), (8, 200, 64, 64, 1)])
+                                   (37, 53, 16, 20, 3), (8, 200, 64, 64, 1),
+                                   (16, 24, 8, 200, 1)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("layout", ["nchw", "nhwc"])
 def test_conv_act_kernel_equals_plain(dev, shape, dtype, layout):
@@ -506,7 +540,12 @@ def test_conv_act_kernel_equals_plain(dev, shape, dtype, layout):
         want = conv_act_plain(x, wt, b, k=k, act=act, layout=layout).float()
         scale = want.abs().clamp(min=1.0)
         tol = 2e-5 if dtype == torch.float32 else 2.0 ** -7
-        for form in FORMS:
+        forms = FORMS if dtype == torch.bfloat16 else ("taps", "im2col")
+        if dtype == torch.float32:
+            with pytest.raises(ValueError, match="bfloat16"):
+                conv_act_kernel(x, wt, b, k=k, act=act, layout=layout,
+                                form="mma")
+        for form in forms:
             before = conv_act.launches
             got = conv_act_kernel(x, wt, b, k=k, act=act, layout=layout, form=form)
             again = conv_act_kernel(x, wt, b, k=k, act=act, layout=layout,
@@ -520,18 +559,33 @@ def test_conv_act_kernel_equals_plain(dev, shape, dtype, layout):
 
 
 def test_conv_act_grad_on_the_card(dev):
-    """Forward K7, backward the plain formulation's autograd."""
+    """Forward K7 (taps in float32, mma in bfloat16), backward the plain
+    formulation's autograd, card against CPU. In bfloat16 the card's
+    forward may differ from the CPU's by one bf16 unit, and the loss's
+    gradient 2y with it; the bf16 input gradient is a cancelling sum
+    rounded to bf16, so the gradients agree within one bf16 unit at 1.0
+    of the largest gradient."""
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.normal(0, 1, (2, 40, 40, 32)).astype(np.float32))
     wt = torch.from_numpy(rng.normal(0, 0.1, (9 * 32, 16)).astype(np.float32))
     b = torch.from_numpy(rng.normal(0, 0.3, 16).astype(np.float32))
-    grads = {}
-    for device in ("cpu", "cuda"):
-        leaves = [t.detach().to(device).requires_grad_() for t in (x, wt, b)]
-        (conv_act(*leaves, k=3, act=True) ** 2).sum().backward()
-        grads[device] = [t.grad.cpu() for t in leaves]
-    for a, c in zip(grads["cpu"], grads["cuda"]):
-        np.testing.assert_allclose(c.numpy(), a.numpy(), rtol=1e-4, atol=1e-3)
+    for dtype in (torch.float32, torch.bfloat16):
+        grads = {}
+        for device in ("cpu", "cuda"):
+            leaves = [x.detach().to(device, dtype).requires_grad_(),
+                      *(t.detach().to(device).requires_grad_() for t in (wt, b))]
+            before = conv_act.launches
+            (conv_act(*leaves, k=3, act=True).float() ** 2).sum().backward()
+            assert conv_act.launches == before + (device == "cuda")
+            grads[device] = [t.grad.float().cpu() for t in leaves]
+        for a, c in zip(grads["cpu"], grads["cuda"]):
+            if dtype == torch.float32:
+                np.testing.assert_allclose(c.numpy(), a.numpy(), rtol=1e-4,
+                                           atol=1e-3)
+            else:
+                scale = max(1.0, float(a.abs().max()))
+                np.testing.assert_allclose(c.numpy(), a.numpy(), rtol=0,
+                                           atol=2.0 ** -7 * scale)
 
 
 @pytest.mark.parametrize("asset", ["yolov8n_seg_synth160", "yolo11n_pose_synth160"])

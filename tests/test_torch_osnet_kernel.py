@@ -32,6 +32,26 @@ Tolerances:
 A mutation test shows the bounds can fail: mirrored stencil taps and a
 stream whose gate is skipped break the float32 bound, bf16-rounded tap
 weights the bfloat16 one.
+
+The wider widths K6 also takes (x0_5 and x1_0, JAX-initialised, G = 2
+crops per call in interpret mode, whose cost grows with the width):
+
+- float32 within the bound above scaled with the output, 1e-4 for every
+  48 of the largest output (the bound was set at outputs up to 48; the
+  float32 rounding grows with the output: measured 1.3e-04 at 156 for
+  x0_5 stage 2, 1.4e-04 at 169 for x1_0, about 8e-7 of the largest
+  output at every width);
+- bfloat16 at x0_5 within the bound above (measured 1.6e-05, 5.4e-07
+  and 0 of the largest output), which bf16-rounded taps break at every
+  stage (the mutation test below); at x1_0 the packed bf16 weights
+  themselves differ from the JAX fold's where the two BN folds land one
+  float32 unit apart, and the mean difference is 2.8e-04 to 3.1e-04 on
+  every stage, about what bf16-rounded taps give there: x1_0 is held
+  within 4e-4 of the largest output, a bar for gross faults only; the
+  bit-level check of K6 at every width is on the card, against this
+  plain version;
+- one whole x0_5 embedding, fused, against the JAX fused route on 2
+  crops (one of them smooth), with the whole-embedding bars above.
 """
 
 import dataclasses
@@ -166,6 +186,106 @@ def test_mutations_break_the_bounds(jparams, model, monkeypatch, mutation):
             assert np.abs(got - want).max() > F32_TOL, (mutation, i)
         else:
             assert _bf16_mean_err(got, want) > BF16_MEAN_TOL, (mutation, i)
+
+
+F32_SCALE = 48.0  # the output scale F32_TOL was set at
+WIDE_G = 2  # crops per stage call at the wider widths (one TPU tile, tm=2)
+WIDE_BF16_MEAN_TOL = {"osnet_x0_5": BF16_MEAN_TOL, "osnet_x1_0": 4e-4}
+
+
+@pytest.fixture(scope="module")
+def wide():
+    """variant -> (JAX params, the port's folded model), JAX-initialised."""
+    out = {}
+    for variant in WIDE_BF16_MEAN_TOL:
+        jp = jax.device_get(josnet.init_osnet(
+            jax.random.PRNGKey(7), josnet.OsnetConfig(variant=variant)))
+        cfg = OsnetConfig(variant=variant)
+        out[variant] = (jp, osnet_from_state_dict(osnet_params_from_jax(jp, cfg),
+                                                  cfg))
+    return out
+
+
+_WIDE_JAX = {}
+
+
+def _wide_stage(wide, variant, i, dt):
+    """(spec, input, the JAX os_stage output in interpret mode), cached
+    per width, stage and dtype."""
+    jp, _ = wide[variant]
+    spec = tk.stage_specs(OsnetConfig(variant=variant).channels)[i]
+    x = np.random.default_rng(i).normal(
+        0, 1, (WIDE_G, spec.c_in, spec.h, spec.w)).astype(np.float32)
+    if (variant, i, dt) not in _WIDE_JAX:
+        blk, ep = BLOCKS[i]
+        jspec = jk.StageSpec(**dataclasses.asdict(spec))
+        jdt = DTYPES[dt][1]
+        folded = jk.fold_stage(jp[blk + "a"], jp[blk + "b"], jp[ep], jspec,
+                               wdtype=jdt, tm=WIDE_G)
+        _WIDE_JAX[variant, i, dt] = np.asarray(jk.os_stage(
+            jnp.asarray(x, jdt), folded, spec=jspec, tm=WIDE_G,
+            interpret=True).astype(jnp.float32))
+    return spec, x, _WIDE_JAX[variant, i, dt]
+
+
+@pytest.mark.parametrize("variant", list(WIDE_BF16_MEAN_TOL))
+@pytest.mark.parametrize("i", [0, 1, 2], ids=["stage2", "stage3", "stage4-gap"])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_stage_plain_vs_jax_wider_widths(wide, variant, i, dt):
+    """K6's plain version against the JAX os_stage (interpret mode) at
+    the widths K6 takes beside x0_25, stage by stage."""
+    spec, x, want = _wide_stage(wide, variant, i, dt)
+    got = tk.os_stage_plain(torch.from_numpy(x).to(DTYPES[dt][0]),
+                            tk.stage_weights(wide[variant][1], i,
+                                             DTYPES[dt][0]),
+                            spec).float().numpy()
+    assert got.shape == want.shape == (WIDE_G, *spec.out_shape)
+    if dt == "f32":
+        tol = F32_TOL * max(1.0, float(np.abs(want).max()) / F32_SCALE)
+        np.testing.assert_allclose(got, want, rtol=0, atol=tol)
+    else:
+        assert _bf16_mean_err(got, want) <= WIDE_BF16_MEAN_TOL[variant]
+
+
+def test_bf16_taps_break_the_x0_5_bound(wide):
+    """The x0_5 bfloat16 bound fails bf16-rounded tap weights at every
+    stage, as at x0_25."""
+    for i in range(3):
+        spec, x, want = _wide_stage(wide, "osnet_x0_5", i, "bf16")
+        w = tk.stage_weights(wide["osnet_x0_5"][1], i, torch.bfloat16)
+        w = tk.StageWeights(w.mats, w.vecs.clone(), w.offs)
+        _round_taps(tk._views(w, spec))
+        got = tk.os_stage_plain(torch.from_numpy(x).bfloat16(), w,
+                                spec).float().numpy()
+        assert _bf16_mean_err(got, want) > BF16_MEAN_TOL, i
+
+
+def test_fused_x0_5_embedding_vs_jax_fused(wide):
+    """One whole OSNet-x0_5 embedding through the port's fused route
+    against the JAX osnet_apply(fused=True) in interpret mode, with the
+    whole-embedding bars of test_fused_osnet_vs_jax_fused."""
+    cfg = OsnetConfig(variant="osnet_x0_5")
+    params = wide[cfg.variant][0]
+    sd = osnet_params_from_jax(params, cfg)
+    crops = _crops(2)
+    model = osnet_from_state_dict(sd, cfg)
+    model.use_fused_stages(torch.float32)
+    with torch.no_grad():
+        got = model.eval()(torch.from_numpy(crops).permute(0, 3, 1, 2)
+                           .contiguous()).numpy()
+    want = np.asarray(josnet.osnet_apply(params, jnp.asarray(crops),
+                                         fused=True, interpret=True))
+    np.testing.assert_allclose(got, want, rtol=0, atol=5e-4)
+    model16 = osnet_from_state_dict(sd, cfg)
+    model16.use_fused_stages(torch.bfloat16)
+    with torch.no_grad():
+        got16 = model16.to(dtype=torch.bfloat16).eval()(
+            torch.from_numpy(crops).permute(0, 3, 1, 2).contiguous()).numpy()
+    want16 = np.asarray(josnet.osnet_apply(
+        params, jnp.asarray(crops), compute_dtype=jnp.bfloat16, fused=True,
+        interpret=True))
+    cos = (got16 * want16).sum(-1)
+    assert cos.mean() >= 0.999 and cos.min() >= 0.998, cos
 
 
 def _jax_tree(source):
