@@ -15,7 +15,10 @@ raises and the process exits nonzero:
    card, at the shapes the main path gives it, with CUDA-event times of
    both sides (K3: also (256, 256), (512, 250) and (1100, 300)
    problems, whose benefit block K3 holds in its global scratch,
-   bit-identical, with the form each took; K4: float32 within 1e-6,
+   bit-identical, with the form each took, and in phase 3 the three
+   calls of one steady BoT-SORT tick, captured on the main path,
+   bit-identical and timed by CUDA-graph replay with their valid rows,
+   columns and rounds; K4: float32 within 1e-6,
    bfloat16 within one unit in the last place, in its fixed-width and
    its packed form; its times are taken in phase 3, on the StrongSORT
    path's own crop batch; K5: the LK params of S=8 and of T=32 panned
@@ -24,8 +27,12 @@ raises and the process exits nonzero:
    and K5 with one level, the form of the TPU's lk_level_pallas, on S=8
    180x320 pairs; K6: each of the three fused OSNet stages of the four
    released widths x0_25, x0_5, x0_75 and x1_0, on G=480 seeded crops
-   for x0_25 and K6_G_WIDE for the others, float32 within 1e-4 and
-   bfloat16 bit-identical, two launches bit-identical; K7: HGMMA
+   for x0_25 (and G = 0, 1, 7) and K6_G_WIDE for the others, each in
+   its form, HMMA instructions in every instance of the tensor-core
+   form, float32 within 1e-4 and bfloat16 within the K6_BF16_* bar in
+   the tensor-core form (bit-identical in the columns form), two launches
+   bit-identical, then the trained OSNet's rank-1 >= 0.9 on its unseen
+   identities, fused in bfloat16 (K6) and unfused; K7: HGMMA
    instructions in every mma kernel of the built library (cuobjdump
    -sass), then every conv shape that the K7 rule picks in yolo11n-pose
    and yolov8n at 640, S=8, NCHW, in every form (mma, the tensor-core
@@ -494,7 +501,7 @@ def check_k3_large(card: str, rng) -> None:
         ms = cuda_ms(lambda: auction(*args), iters=5, warmup=1)
         plain = cuda_ms(lambda: auction_plain(*args), iters=1, warmup=0)
         form = ("shared memory" if shared_form(R, C)
-                else f"global scratch ({P},{C},{R}) f32")
+                else f"global scratch ({P},{R},{C}) f32")
         log(f"K3 auction {(P, R, C)}: identical r2c/c2r, "
             f"{int((got[0] >= 0).sum())} matches; benefit block in {form}; "
             f"kernel {ms:.4f} ms, plain {plain:.4f} ms [{card}]")
@@ -682,77 +689,123 @@ K6_WIDTHS = ("osnet_x0_25", "osnet_x0_5", "osnet_x0_75", "osnet_x1_0")
 K6_G_WIDE = 96  # crops per stage call for the widths off the main path
 
 
+# K6's bfloat16 bar for its tensor-core form, against os_stage_plain: the
+# mean |err| within 2e-4 of the largest output, the repo's bar for bf16
+# stages summed in another order (tests/test_torch_osnet_kernel.py). Any
+# order of the sums, an exact one included, flips some bf16 roundings of
+# a stage, and a flipped gate value moves a whole channel: the plain
+# version with float64 sums differs from it by up to 0.115 x max(1,
+# |ref|) (15 bf16 units at 1.0), in up to 8% of the elements, at a mean
+# of up to 5e-5 of the largest output; tap weights rounded to bf16, a
+# fault, give 5e-4 to 7e-4 (CPU, x0_25 and x0_5, G = 37 and 480).
+K6_BF16_MEAN = 2e-4
+
+
+def k6_exact(x, w, spec):
+    """os_stage_plain with every 1x1 product summed exactly (float64) and
+    rounded once to float32: the reference for how far any order of the
+    sums moves a bf16 stage."""
+    from strongsort_yolo_tpu_torch.ops.cuda import osnet_kernel
+
+    pointwise = osnet_kernel._pointwise
+    osnet_kernel._pointwise = lambda wt, a, b: (
+        (wt.double() @ a.double()).float() + b[:, None])
+    try:
+        return osnet_kernel.os_stage_plain(x, w, spec)
+    finally:
+        osnet_kernel._pointwise = pointwise
+
+
 def check_k6(card: str) -> dict:
     """K6 against os_stage_plain on the card: each of the three stages of
     the four released OSNet widths (random weights from seed 1, as the
     pipeline's) on seeded crops, G=480 for the main path's x0_25 and
-    K6_G_WIDE for the others, float32 within 1e-4 (the sums run in
-    another order) and bfloat16 bit-identical (their differences stay
-    below its rounding), two launches bit-identical; times beside the
-    bound, in both dtypes with the plain version's for x0_25 and in
-    bfloat16, the main path's dtype, for the others. The entry is
-    x0_25's three stages at G=480, the fused path's work."""
+    K6_G_WIDE for the others, each in the form it takes (stage_form),
+    float32 within 1e-4 (the sums run in another order) and bfloat16
+    in the tensor-core form within the K6_BF16_MEAN bar (the tensor
+    cores add a chunk's products in their own order, and a flipped
+    rounding propagates) and bit-identical in the columns form, with
+    the largest deviation and the share of differing elements; two
+    launches bit-identical; x0_25 also at G = 0, 1 and 7, each equal to
+    those crops of the G=480 launch; times (device time by CUDA-graph
+    replay, and CUDA events around host launches, the earlier method)
+    beside the bound, in both dtypes with the plain version's for x0_25
+    and in bfloat16, the main path's dtype, for the others. The entry is
+    x0_25's three stages at G=480, the fused path's work, in bfloat16:
+    the tensor-core form."""
     import torch
 
     from strongsort_yolo_tpu_torch.models.osnet import (
         OsnetConfig, init_osnet, osnet_from_state_dict,
     )
     from strongsort_yolo_tpu_torch.ops.cuda.osnet_kernel import (
-        os_stage, os_stage_plain, stage_specs, stage_weights,
+        os_stage, os_stage_plain, stage_form, stage_specs, stage_weights,
     )
-    from strongsort_yolo_tpu_torch.ops.cuda import _build
+    from strongsort_yolo_tpu_torch.tools.prof_conv import graph_ms
 
+    check_tensor_core_sass("os_stage_mma_kernel", "HMMA", "K6 tensor cores")
     dev = torch.device("cuda")
     rng = np.random.default_rng(6)
     max_err, total = 0.0, {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                            "ops_ms": 0.0, "bytes_ms": 0.0}
+    per_stage = []
     for variant in K6_WIDTHS:
         main = variant == "osnet_x0_25"
         g = 480 if main else K6_G_WIDE
         cfg = OsnetConfig(variant=variant)
         model = osnet_from_state_dict(
             init_osnet(cfg, torch.Generator().manual_seed(1)), cfg)
-        width_ms = 0.0
+        width_ms = width_events = 0.0
         for i, spec in enumerate(stage_specs(cfg.channels)):
             x32 = torch.from_numpy(rng.normal(
                 0, 1, (g, spec.c_in, spec.h, spec.w)).astype(np.float32)).to(dev)
             for dt in (torch.float32, torch.bfloat16):
                 w = stage_weights(model, i, dt).to(dev)
                 x = x32.to(dt)
+                form = stage_form(spec, dt)
+                name = (f"K6 os_stage {variant} stage {i + 2} {tuple(x.shape)} "
+                        f"{dt} ({form})")
                 got, again = os_stage(x, w, spec), os_stage(x, w, spec)
                 want = os_stage_plain(x, w, spec)
                 torch.cuda.synchronize()
-                shared = _build.lib().ssyt_os_stage_smem_bytes(
-                    spec.c_in, spec.c_out, spec.mid, spec.h, spec.w,
-                    int(dt == torch.bfloat16)) <= _build.MAX_SMEM
-                name = (f"K6 os_stage {variant} stage {i + 2} {tuple(x.shape)} "
-                        f"{dt} ({'shared' if shared else 'global'} workspace)")
                 if not torch.equal(got, again):
                     raise AssertionError(f"{name}: two launches differ")
-                err = float((got.float() - want.float()).abs().max())
-                if dt == torch.float32 and not err <= 1e-4:
-                    raise AssertionError(f"{name}: max |err| {err} > 1e-4")
-                if dt == torch.bfloat16 and not torch.equal(got, want):
-                    raise AssertionError(f"{name}: max |err| {err}, not "
-                                         "bit-identical")
+                for n in ((0, 1, 7) if main else ()):  # a crop's output
+                    # does not depend on the batch around it
+                    if not torch.equal(os_stage(x[:n], w, spec), got[:n]):
+                        raise AssertionError(f"{name}: G={n} differs from "
+                                             f"those crops at G={g}")
+                err, scaled, share, mean = k6_error(name, got, want, form)
                 max_err = max(max_err, err)
                 kind = "bf16" if dt == torch.bfloat16 else "f32"
+                name += (f": max |err| {err:.3g}, scaled {scaled:.3g}, "
+                         f"mean {mean:.3g} of the largest output, {share:.3%} "
+                         f"of elements differ")
+                if form == "tensor cores":
+                    e = k6_stats(k6_exact(x, w, spec), want)
+                    name += (f" (exact sums: scaled {e[1]:.3g}, mean {e[3]:.3g}, "
+                             f"{e[2]:.3%} differ)")
                 if not (main or kind == "bf16"):
-                    log(f"{name}: max |err| {err:.3g}")
+                    log(name)
                     continue
                 flops = 2 * stage_macs(spec) * g
                 b = bound(nbytes(x, got, w.mats, w.vecs), flops, kind)
-                ms = cuda_ms(lambda: os_stage(x, w, spec), iters=20 if main else 3,
-                             warmup=1)
+                ms = graph_ms(lambda: os_stage(x, w, spec), iters=20 if main else 3,
+                              warmup=1)
+                ms_events = cuda_ms(lambda: os_stage(x, w, spec),
+                                    iters=20 if main else 3, warmup=1)
                 plain = (cuda_ms(lambda: os_stage_plain(x, w, spec), iters=5)
                          if main else None)
-                log(f"{name}: max |err| {err:.3g}; kernel {ms:.4f} ms, "
+                log(f"{name}; kernel {ms:.4f} ms (CUDA-graph replay; "
+                    f"{ms_events:.4f} by events around host launches), "
                     + (f"plain {plain:.4f} ms, " if main else "")
                     + f"bound {b[0]:.4f} ms ({b[1]}, {flops / 1e9:.2f} GFLOP), "
                     f"{b[0] / ms:.1%} of it [{card}]")
                 if kind == "bf16":
                     width_ms += ms
+                    width_events += ms_events
                 if main and kind == "bf16":
+                    per_stage.append(ms)
                     total["ms"] += ms
                     total["plain_ms"] += plain
                     total["bound_ms"] += b[0]
@@ -760,13 +813,14 @@ def check_k6(card: str) -> dict:
                     total["bytes_ms"] += nbytes(x, got, w.mats,
                                                 w.vecs) / HBM_BYTES_PER_MS
         log(f"K6 {variant} three stages at G={g} bf16: kernel {width_ms:.4f} ms "
-            f"[{card}]")
+            f"(CUDA-graph replay; {width_events:.4f} by events) [{card}]")
     log(f"K6 osnet_x0_25 three stages at G=480 bf16: kernel {total['ms']:.4f} "
-        f"ms, plain {total['plain_ms']:.4f} ms, bound {total['bound_ms']:.4f} "
-        f"ms [{card}]")
+        f"ms (per stage {[round(v, 4) for v in per_stage]}), plain "
+        f"{total['plain_ms']:.4f} ms, bound {total['bound_ms']:.4f} ms [{card}]")
+    check_reid_rank1(card)
     return dict(
         name="os_stage", route="cuda",
-        source="strongsort_yolo_tpu_torch/csrc/os_stage.cu",
+        source="strongsort_yolo_tpu_torch/csrc/os_stage_mma.cu",
         replaces="strongsort_yolo_tpu/ops/pallas/osnet_kernel.py:292",
         max_abs_err=max_err, ms=total["ms"], plain_ms=total["plain_ms"],
         bound_ms=total["bound_ms"],
@@ -774,6 +828,77 @@ def check_k6(card: str) -> dict:
                   else "bytes"),
         library_ms=None,
     )
+
+
+def k6_stats(got, want) -> tuple[float, float, float, float]:
+    """(max |err|, max |err| / max(1, |ref|), share of elements that
+    differ, mean |err| over the largest output) of a K6 output against
+    its plain version."""
+    diff = (got.float() - want.float()).abs()
+    return (float(diff.max()),
+            float((diff / want.float().abs().clamp(min=1.0)).max()),
+            float((diff > 0).float().mean()),
+            float(diff.mean() / want.float().abs().max().clamp(min=1e-30)))
+
+
+def k6_error(name: str, got, want, form: str):
+    """k6_stats of a K6 output in ``form``; raises past the bar: 1e-4 in
+    float32; in bfloat16 bit-identical in the CUDA-core forms and the
+    K6_BF16_MEAN bar in the tensor-core form."""
+    import torch
+
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: {got.shape} {got.dtype}, not "
+                             f"{want.shape} {want.dtype}")
+    err, scaled, share, mean = stats = k6_stats(got, want)
+    if got.dtype == torch.float32 and not err <= 1e-4:
+        raise AssertionError(f"{name}: max |err| {err} > 1e-4")
+    if got.dtype == torch.bfloat16 and form != "tensor cores" and err > 0:
+        raise AssertionError(f"{name}: max |err| {err}, not bit-identical")
+    if got.dtype == torch.bfloat16 and not mean <= K6_BF16_MEAN:
+        raise AssertionError(f"{name}: mean |err| {mean:.3g} of the largest "
+                             f"output, {share:.3%} differ, scaled max "
+                             f"{scaled:.3g}")
+    return stats
+
+
+def check_reid_rank1(card: str) -> None:
+    """The trained OSNet (assets/osnet_x0_25_synth.npz) on the card, fused
+    in bfloat16 (K6's tensor-core form), unfused in bfloat16 and in
+    float32: rank-1 >= 0.9 on the 16 unseen identities of its
+    evaluation set (utils/reid_synth, the bar of
+    tests/test_osnet_trained.py)."""
+    import torch
+
+    from strongsort_yolo_tpu_torch.models.osnet import osnet_from_state_dict
+    from strongsort_yolo_tpu_torch.models.porting import (
+        load_osnet_npz, osnet_params_from_jax,
+    )
+    from strongsort_yolo_tpu_torch.ops.cuda.osnet_kernel import os_stage
+    from strongsort_yolo_tpu_torch.utils.reid_synth import make_dataset, rank1
+
+    x, y, _ = make_dataset(np.random.default_rng(999), 16, 8)
+    tree, cfg = load_osnet_npz(OSNET)
+    scores = {}
+    for route, dt in (("fused bf16", torch.bfloat16),
+                      ("unfused bf16", torch.bfloat16),
+                      ("unfused f32", torch.float32)):
+        model = osnet_from_state_dict(osnet_params_from_jax(tree, cfg), cfg)
+        if route.startswith("fused"):
+            model.use_fused_stages(dt)
+        model = model.to("cuda", dt).eval()
+        before = os_stage.launches
+        with torch.no_grad():
+            emb = model(torch.from_numpy(x).permute(0, 3, 1, 2).contiguous()
+                        .to("cuda", dt))
+        if (os_stage.launches > before) != route.startswith("fused"):
+            raise AssertionError(f"rank-1 {route}: K6 launches "
+                                 f"{os_stage.launches - before}")
+        scores[route] = rank1(emb.float().cpu().numpy(), y)
+    log(f"trained OSNet-x0_25 rank-1 on 16 unseen identities x 8 views: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in scores.items()) + f" [{card}]")
+    if min(scores.values()) < 0.9:
+        raise AssertionError(f"trained OSNet rank-1 below 0.9: {scores}")
 
 
 def k7_picks(name: str, imgsz: int = 640):
@@ -790,10 +915,11 @@ K7_REQUIRED = {(80, 80, 32, 32, 3), (40, 40, 64, 64, 3), (40, 40, 192, 128, 1),
                (80, 80, 64, 51, 3)}
 
 
-def check_hgmma() -> None:
-    """The built library's K7 mma kernels run on the tensor cores: every
-    conv_mma_kernel instance in `cuobjdump -sass` of the .so under
-    build/torch_kernels/ holds HGMMA instructions."""
+def check_tensor_core_sass(kernel: str, instruction: str, label: str) -> None:
+    """The built library's tensor-core kernels run on the tensor cores:
+    every instance of ``kernel`` in `cuobjdump -sass` of the .so under
+    build/torch_kernels/ holds ``instruction`` (HGMMA for K7's wgmma,
+    HMMA for K6's mma.sync)."""
     from strongsort_yolo_tpu_torch.ops.cuda import _build
 
     path = _build.lib_path()
@@ -804,15 +930,15 @@ def check_hgmma() -> None:
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            if "conv_mma_kernel" in fn:
+            if kernel in fn:
                 counts[fn] = 0
-        elif fn in counts and "HGMMA" in line:
+        elif fn in counts and instruction in line:
             counts[fn] += 1
     if not counts or min(counts.values()) == 0:
-        raise AssertionError(f"K7 mma: HGMMA instructions per conv_mma_kernel "
+        raise AssertionError(f"{label}: {instruction} instructions per {kernel} "
                              f"instance {counts}")
-    log(f"K7 mma: {len(counts)} conv_mma_kernel instances in "
-        f"{os.path.basename(path)}, HGMMA instructions in each "
+    log(f"{label}: {len(counts)} {kernel} instances in "
+        f"{os.path.basename(path)}, {instruction} instructions in each "
         f"({min(counts.values())}-{max(counts.values())}; cuobjdump -sass)")
 
 
@@ -838,7 +964,7 @@ def check_k7(card: str) -> dict:
     )
     from strongsort_yolo_tpu_torch.tools.prof_conv import graph_ms
 
-    check_hgmma()
+    check_tensor_core_sass("conv_mma_kernel", "HGMMA", "K7 mma")
     dev = torch.device("cuda")
     pose = k7_picks("yolo11n-pose")
     shapes = sorted({p[1:] for p in pose + k7_picks("yolov8n")})
@@ -1085,6 +1211,59 @@ def _main_pipeline(tracker, pool, *, fused: bool = False, cadence: int = 1,
     return pipe
 
 
+class capture_auction:
+    """Within the block, every K3 call of the trackers (through
+    ops.assignment) also keeps a copy of its arguments: a list of
+    (cost, thresh, row_valid, col_valid) in call order."""
+
+    def __enter__(self):
+        from strongsort_yolo_tpu_torch.ops import assignment
+
+        self.module, self.real, calls = assignment, assignment.auction, []
+
+        def recording(*args):
+            calls.append(tuple(a.clone() for a in args))
+            return self.real(*args)
+
+        assignment.auction = recording
+        return calls
+
+    def __exit__(self, *exc):
+        self.module.auction = self.real
+
+
+def check_k3_tick(card: str, calls) -> None:
+    """K3 on the tracker's own problems: the three calls of one steady
+    BoT-SORT tick (S=8, 256 slots, 128 tracker dets), bit-identical to
+    auction_plain, each replayed as a CUDA graph and timed, with the
+    valid rows and columns and the bidding rounds (counted by the plain
+    version) of each problem."""
+    import torch
+
+    from strongsort_yolo_tpu_torch.ops.cuda.auction_kernel import (
+        auction, auction_rounds,
+    )
+    from strongsort_yolo_tpu_torch.tools.prof_conv import graph_ms
+
+    total = 0.0
+    for k, args in enumerate(calls):
+        got = auction(*args)
+        r2c, c2r, rounds = auction_rounds(*args)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], r2c) and torch.equal(got[1], c2r)):
+            raise AssertionError(f"K3 tick call {k}: differs from the plain "
+                                 "version")
+        ms = graph_ms(lambda a=args: auction(*a))
+        total += ms
+        log(f"K3 tick call {k + 1} {tuple(args[0].shape)}: identical r2c/c2r; "
+            f"valid rows {args[2].sum(1).tolist()}, valid columns "
+            f"{args[3].sum(1).tolist()}, rounds {rounds.tolist()}, matches "
+            f"{(got[0] >= 0).sum(1).tolist()}; kernel {ms:.4f} ms (CUDA graph "
+            f"replay) [{card}]")
+    log(f"K3 on one steady BoT-SORT tick, {len(calls)} calls: kernel "
+        f"{total:.4f} ms [{card}]")
+
+
 def phase_main_path(card: str, kernels):
     """BoT-SORT (K1-K3) at full width, without camera-motion
     compensation. -> (launch counts, median ms/tick)."""
@@ -1105,9 +1284,14 @@ def phase_main_path(card: str, kernels):
         f"botsort gmc none; detections per frame {dets.tolist()}")
     if not (dets > 0).all():
         raise AssertionError("main path: a frame without detections")
-    counts, times, results = _drive(
-        BatchedPipeline(pipe, S_MAIN, (h, w)), ticks, kernels)
+    with capture_auction() as captured:
+        counts, times, results = _drive(
+            BatchedPipeline(pipe, S_MAIN, (h, w)), ticks, kernels)
     log(f"main path launches over {TICKS} ticks: {counts}")
+    if len(captured) != 3 * TICKS:
+        raise AssertionError(f"main path: {len(captured)} K3 calls captured "
+                             f"in {TICKS} ticks, not 3 per tick")
+    check_k3_tick(card, captured[-3:])
     for name, n in counts.items():
         if n == 0:
             raise AssertionError(f"main path never launched {name}")
@@ -1465,8 +1649,9 @@ def phase_fused_strongsort_path(card: str, kernels, unfused):
 
 def phase_wide_reid_path(card: str, kernels) -> None:
     """StrongSORT with the fused OSNet-x1_0 (seeded random weights) at
-    full width, for WIDE_TICKS ticks: K6 three times per tick, in its
-    columns form; then the same OSNet-x1_0 weights in float32, fused, on
+    full width, for WIDE_TICKS ticks: K6 three times per tick (stages 2
+    and 3 in the columns form, stage 4 on the tensor cores); then the
+    same OSNet-x1_0 weights in float32, fused, on
     the card (K6) and on the CPU (its plain version), on 64 crops: the
     embeddings within 1e-4."""
     import torch
@@ -1811,6 +1996,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
+        return 1
+    if not os.path.isdir(os.path.join(ROOT, "strongsort_yolo_tpu_torch")):
+        print("chip_smoke: strongsort_yolo_tpu_torch/ is not beside this "
+              "script; run it from the root of a checkout", file=sys.stderr)
         return 1
     from strongsort_yolo_tpu_torch.ops.cuda.auction_kernel import auction
     from strongsort_yolo_tpu_torch.ops.cuda.conv_kernel import conv_act

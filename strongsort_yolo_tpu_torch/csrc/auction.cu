@@ -19,21 +19,36 @@
 //
 // Bound: latency of the rounds, not bytes: the 256 x 128 f32 benefit
 // block (128 KB) is read from device memory once, and every round is a
-// few passes over it. The design keeps the block in dynamic shared
-// memory (row stride C + 1, so the per-row scans of a warp hit 32
-// different banks), runs the row phase with one thread per row and the
-// column phase with one thread per column (threads stride over both when
-// a side passes 1024), and lets each block leave its loop as soon as its
-// own problem is done, so an easy problem does not wait for a hard one.
+// few passes over the rows still bidding. The design keeps the block in
+// dynamic shared memory (row stride C + 1) and cuts the serial work of a
+// round to what its bidders need:
+//   - the rows that bid (!sent && !owned) are compacted into a list once
+//     per round; rows that cannot bid no longer scan;
+//   - each bidding row gets a warp: its lanes scan strided columns with
+//     the serial rule (v > bv, else v > sv, so the best is the first
+//     maximum and the second-best the largest value at any other index,
+//     ties included), then five shuffle steps merge the lanes' top-2,
+//     the lower index winning among equal bests;
+//   - each placing row writes its bid to its column with one 64-bit
+//     atomicMax on a key: the bid's order-preserving bits high, ~row low,
+//     so the highest bid wins and the lowest row among equal bids; a max
+//     does not depend on the order of the writes, so launches stay
+//     deterministic, and the per-column scan over all rows is gone;
+//   - ownership is kept up to date where a column changes hands (a row
+//     owns at most one column and bids only when it owns none), not
+//     rebuilt from the owners every round;
+//   - three barriers a round: after the compaction, after the bids, after
+//     the columns take them;
+// and lets each block leave its loop as soon as its own problem is done,
+// so an easy problem does not wait for a hard one.
 //
 // Two forms of the same kernel, by where the benefit block w lives
 // (template parameter kSharedW): in shared memory where it fits a block,
-// else in a global scratch of (P, C, R) float32 that the wrapper
-// allocates, column-major per problem so that the row phase's reads at
-// one column are coalesced across a warp (the column phase never reads
-// w); the per-row and per-column arrays stay in shared memory (13 R + 9 C
-// bytes, 15 KB at 1100 x 300). Three launches of 8 problems of 512 x 250
-// are 4 MB of scratch, which stays in the 50 MB L2.
+// else in a global scratch of (P, R, C) float32 that the wrapper
+// allocates, row-major so that a warp's reads of one row coalesce; the
+// per-row and per-column arrays stay in shared memory (7 R + 17 C bytes,
+// 12.8 KB at 1100 x 300). Three launches of 8 problems of 512 x 250 are
+// 4 MB of scratch, which stays in the 50 MB L2.
 //
 // Every sum and quotient is rounded on its own (the _rn intrinsics;
 // -fmad=false), in the order of the plain PyTorch version
@@ -66,11 +81,24 @@ __device__ float block_reduce(float v, bool is_min, float* scratch) {
   return r;
 }
 
-// w[i, j]: shared memory with row stride C + 1, or the problem's (C, R)
+// w[i, j]: shared memory with row stride C + 1, or the problem's (R, C)
 // block of the global scratch
 template <bool kSharedW>
-__device__ __forceinline__ int64_t w_at(int i, int j, int R, int C) {
-  return kSharedW ? (int64_t)i * (C + 1) + j : (int64_t)j * R + i;
+__device__ __forceinline__ int64_t w_at(int i, int j, int C) {
+  return (int64_t)i * (kSharedW ? C + 1 : C) + j;
+}
+
+// a bid's column key: the float's order-preserving bits high (+0 for
+// either zero, which compare equal), ~row low; 0 is below every bid
+__device__ __forceinline__ unsigned long long bid_key(float bid, int row) {
+  unsigned int u = __float_as_uint(bid == 0.0f ? 0.0f : bid);
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return ((unsigned long long)u << 32) | (unsigned int)(~row);
+}
+
+__device__ __forceinline__ float key_bid(unsigned long long key) {
+  const unsigned int u = (unsigned int)(key >> 32);
+  return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
 }
 
 template <bool kSharedW>
@@ -81,36 +109,42 @@ __global__ void __launch_bounds__(1024) auction_kernel(const float* __restrict__
                                int32_t* __restrict__ r2c,
                                int32_t* __restrict__ c2r, float* w_scratch,
                                int R, int C, float eps0, int max_rounds) {
-  extern __shared__ float smem[];
+  extern __shared__ unsigned long long smem_keys[];
+  unsigned long long* key = smem_keys;  // C: this round's best bid per column
+  float* price = reinterpret_cast<float*>(key + C);  // C
+  int* owner = reinterpret_cast<int*>(price + C);     // C
+  int* bidders = owner + C;                           // R: this round's list
   // w is written and read by this block only: plain loads, not the
   // read-only path
-  float* w = kSharedW ? smem : w_scratch + (int64_t)blockIdx.x * R * C;
-  float* price = kSharedW ? smem + R * (C + 1) : smem;  // C
-  float* bid = price + C;              // R
-  int* owner = (int*)(bid + R);        // C
-  int* best_j = owner + C;             // R
-  uint8_t* rv = (uint8_t*)(best_j + R);  // R
-  uint8_t* cv = rv + R;                // C
-  uint8_t* sent = cv + C;              // R
-  uint8_t* owned = sent + R;           // R
-  uint8_t* place = owned + R;          // R
+  float* w = kSharedW ? reinterpret_cast<float*>(bidders + R)
+                      : w_scratch + (int64_t)blockIdx.x * R * C;
+  uint8_t* rv = kSharedW ? reinterpret_cast<uint8_t*>(w + (int64_t)R * (C + 1))
+                         : reinterpret_cast<uint8_t*>(bidders + R);  // R
+  uint8_t* cv = rv + R;      // C
+  uint8_t* sent = cv + C;    // R
+  uint8_t* owned = sent + R; // R
   __shared__ float scratch[32];
+  __shared__ int n_bid;
 
   const int p = blockIdx.x;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, n_warps = nt >> 5;
   const float* cp = cost + (int64_t)p * R * C;
   const float t = thresh[p];
 
   for (int i = tid; i < R; i += nt) {
     rv[i] = row_valid[(int64_t)p * R + i];
     sent[i] = 0;
+    owned[i] = 0;
   }
   for (int j = tid; j < C; j += nt) {
     cv[j] = col_valid[(int64_t)p * C + j];
     price[j] = 0.0f;
     owner[j] = -1;
+    key[j] = 0ull;
   }
+  if (tid == 0) n_bid = 0;
   __syncthreads();
 
   float lmin = t, lmax = t;
@@ -127,7 +161,7 @@ __global__ void __launch_bounds__(1024) auction_kernel(const float* __restrict__
   const float crange = fmaxf(__fsub_rn(cmax, cmin), 1e-6f);
   for (int e = tid; e < R * C; e += nt) {
     const int i = e / C, j = e - (e / C) * C;
-    w[w_at<kSharedW>(i, j, R, C)] = (rv[i] && cv[j])
+    w[w_at<kSharedW>(i, j, C)] = (rv[i] && cv[j])
                          ? __fdiv_rn(__fsub_rn(t, clip_cost(cp[e])), crange)
                          : -4.0f;
   }
@@ -135,24 +169,24 @@ __global__ void __launch_bounds__(1024) auction_kernel(const float* __restrict__
 
   float eps = eps0;
   for (int rounds = 0;; ++rounds) {
-    for (int i = tid; i < R; i += nt) owned[i] = 0;
+    // the rows that bid this round, in any order (each row's work is its
+    // own, and the column keys take a max)
+    for (int i = tid; i < R; i += nt)
+      if (!sent[i] && !owned[i]) bidders[atomicAdd(&n_bid, 1)] = i;
     __syncthreads();
-    for (int j = tid; j < C; j += nt)
-      if (owner[j] >= 0) owned[owner[j]] = 1;
-    __syncthreads();
-    int open = 0;
-    for (int i = tid; i < R; i += nt) open |= !(sent[i] || owned[i]);
-    if (!__syncthreads_or(open) || rounds >= max_rounds) break;
+    const int nb = n_bid;
+    if (nb == 0 || rounds >= max_rounds) break;
     if (rounds > 0 && rounds % 16 == 0) eps = __fmul_rn(eps, 8.0f);
 
-    // row phase: best and second-best value against current prices
-    for (int i = tid; i < R; i += nt) {
-      float bv = __fsub_rn(w[w_at<kSharedW>(i, 0, R, C)], price[0]);
-      float sv = -INFINITY;
-      int bj = 0;
-      for (int j = 1; j < C; ++j) {
-        const float v = __fsub_rn(w[w_at<kSharedW>(i, j, R, C)], price[j]);
-        if (v > bv) {
+    // row phase, a warp per bidding row: best and second-best value
+    // against current prices
+    for (int b = warp; b < nb; b += n_warps) {
+      const int i = bidders[b];
+      float bv = -INFINITY, sv = -INFINITY;
+      int bj = 0x7fffffff;
+      for (int j = lane; j < C; j += 32) {
+        const float v = __fsub_rn(w[w_at<kSharedW>(i, j, C)], price[j]);
+        if (bj == 0x7fffffff || v > bv) {
           sv = bv;
           bv = v;
           bj = j;
@@ -160,31 +194,47 @@ __global__ void __launch_bounds__(1024) auction_kernel(const float* __restrict__
           sv = v;
         }
       }
-      const bool bidding = !sent[i] && !owned[i];
-      const bool retire = bidding && bv < 0.0f;
-      if (retire) sent[i] = 1;
-      place[i] = bidding && !retire;
-      bid[i] = __fadd_rn(
-          __fsub_rn(w[w_at<kSharedW>(i, bj, R, C)], fmaxf(sv, 0.0f)), eps);
-      best_j[i] = bj;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float obv = __shfl_xor_sync(0xffffffffu, bv, off);
+        const float osv = __shfl_xor_sync(0xffffffffu, sv, off);
+        const int obj = __shfl_xor_sync(0xffffffffu, bj, off);
+        // a lane without columns holds (-inf, INT_MAX): it never wins,
+        // and its -inf never raises a second-best
+        if (obv > bv || (obv == bv && obj < bj)) {
+          sv = bv > osv ? bv : osv;
+          bv = obv;
+          bj = obj;
+        } else {
+          sv = obv > sv ? obv : sv;
+        }
+      }
+      if (lane == 0) {
+        if (bv < 0.0f) {
+          sent[i] = 1;  // retires to its sentinel for good
+        } else {
+          const float bid = __fadd_rn(
+              __fsub_rn(w[w_at<kSharedW>(i, bj, C)], fmaxf(sv, 0.0f)), eps);
+          atomicMax(&key[bj], bid_key(bid, i));
+        }
+      }
     }
     __syncthreads();
 
-    // column phase: highest bid wins, lowest row index among equals
+    // column phase: each column with a bid takes its best one
     for (int j = tid; j < C; j += nt) {
-      int win = -1;
-      float wb = 0.0f;
-      for (int i = 0; i < R; ++i) {
-        if (place[i] && best_j[i] == j && (win < 0 || bid[i] > wb)) {
-          wb = bid[i];
-          win = i;
-        }
-      }
-      if (win >= 0) {
-        price[j] = wb;
+      const unsigned long long k = key[j];
+      if (k != 0ull) {
+        const int win = (int)(~(unsigned int)k);
+        const int old = owner[j];
+        if (old >= 0) owned[old] = 0;
+        owned[win] = 1;
         owner[j] = win;
+        price[j] = key_bid(k);
+        key[j] = 0ull;
       }
     }
+    if (tid == 0) n_bid = 0;
     __syncthreads();
   }
 
@@ -207,11 +257,11 @@ __global__ void __launch_bounds__(1024) auction_kernel(const float* __restrict__
 // Dynamic shared memory of a block: the per-row and per-column arrays,
 // plus the benefit block when shared_w is nonzero.
 extern "C" long long ssyt_auction_smem_bytes(int R, int C, int shared_w) {
-  const long long arrays = 4LL * C + 4LL * R + 4LL * C + 4LL * R + R + C + 3LL * R;
+  const long long arrays = 8LL * C + 4LL * C + 4LL * C + 4LL * R + R + C + 2LL * R;
   return arrays + (shared_w ? 4LL * R * (C + 1) : 0LL);
 }
 
-// w_scratch null: the benefit block in shared memory; else a (P, C, R)
+// w_scratch null: the benefit block in shared memory; else a (P, R, C)
 // float32 scratch for it.
 extern "C" int ssyt_auction(const void* cost, const void* thresh,
                             const void* row_valid, const void* col_valid,
@@ -225,8 +275,10 @@ extern "C" int ssyt_auction(const void* cost, const void* thresh,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
+  // warps for the bidding rows: 16 at least, one per row or column beyond
   int threads = R > C ? R : C;
   threads = ((threads + 31) / 32) * 32;
+  if (threads < 512) threads = 512;
   if (threads > 1024) threads = 1024;
   kernel<<<P, threads, (size_t)smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(cost), static_cast<const float*>(thresh),

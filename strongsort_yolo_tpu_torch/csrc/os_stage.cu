@@ -1,6 +1,7 @@
 // K6: one fused OSNet backbone stage per crop: the register form and the
-// C entry points (the note, and what both forms share, are in
-// os_stage.cuh; the columns form is in os_stage_columns.cu).
+// C entry points (the note, and what the forms share, are in
+// os_stage.cuh; the columns form is in os_stage_columns.cu, the
+// tensor-core form in os_stage_mma.cu).
 
 #include <type_traits>
 
@@ -207,7 +208,11 @@ int dispatch(const void* x, const void* mats, const void* vecs,
              const void* offs, void* out, void* scratch, int G, int c_in,
              int c_out, int mid, int h, int w, int gap, cudaStream_t s) {
   const int pixels = h * w;
-  if (scratch == nullptr && has_register_form(mid, pixels)) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (scratch == nullptr && os_stage_mma_bytes(c_in, c_out, mid, h, w) >= 0)
+      return os_stage_mma(x, mats, vecs, offs, out, G, c_in, c_out, mid, h, w,
+                          gap, s);
+  } else if (scratch == nullptr && has_register_form(mid, pixels)) {
     if (mid == 16)
       return launch_registers<T, 16, 512>(x, mats, vecs, offs, out, G, c_in, c_out, h, w, gap, s);
     if (mid == 24)
@@ -222,18 +227,28 @@ int dispatch(const void* x, const void* mats, const void* vecs,
 }  // namespace
 
 // Dynamic shared memory of the form the stage takes without a scratch:
-// the register form where it is built for (mid, h*w), else the columns
-// form with its workspace in shared memory. Above what a block can use,
-// the wrapper passes a (G, c_out + 5 mid, h*w) scratch in T instead.
+// in bfloat16 the tensor-core form where a crop fits, in float32 the
+// register form where it is built for (mid, h*w), else the columns form
+// with its workspace in shared memory. Above what a block can use, the
+// wrapper passes a (G, c_out + 5 mid, h*w) scratch in T instead.
 extern "C" long long ssyt_os_stage_smem_bytes(int c_in, int c_out, int mid,
                                               int h, int w, int bf16) {
   const int pixels = h * w;
-  if (has_register_form(mid, pixels)) {
-    return bf16 ? register_bytes<__nv_bfloat16>(c_in, c_out, mid, pixels)
-                : register_bytes<float>(c_in, c_out, mid, pixels);
-  }
+  const long long mma = bf16 ? os_stage_mma_bytes(c_in, c_out, mid, h, w) : -1;
+  if (mma >= 0) return mma;
+  if (!bf16 && has_register_form(mid, pixels))
+    return register_bytes<float>(c_in, c_out, mid, pixels);
   return bf16 ? columns_bytes<__nv_bfloat16>(c_in, c_out, mid, pixels, true)
               : columns_bytes<float>(c_in, c_out, mid, pixels, true);
+}
+
+// The form a stage takes: 0 registers, 1 columns in shared memory, 2
+// columns in the global scratch, 3 tensor cores.
+extern "C" int ssyt_os_stage_form(int c_in, int c_out, int mid, int h, int w,
+                                  int bf16) {
+  if (bf16 && os_stage_mma_bytes(c_in, c_out, mid, h, w) >= 0) return 3;
+  if (!bf16 && has_register_form(mid, h * w)) return 0;
+  return ssyt_os_stage_smem_bytes(c_in, c_out, mid, h, w, bf16) <= 227 * 1024 ? 1 : 2;
 }
 
 extern "C" int ssyt_os_stage(const void* x, const void* mats, const void* vecs,

@@ -35,6 +35,7 @@
 // Weights are read from global memory through the read-only cache, every
 // thread of a warp reading the same element (a broadcast): stage 4's
 // weights alone are 283 KB in float32, more than a block's shared memory.
+// (The tensor-core form, os_stage_mma.cu, reads them as mma fragments.)
 //
 // Rounding follows the TPU kernel (and the plain version, ops/cuda/
 // osnet_kernel.py::os_stage_plain): products accumulate in float32, each
@@ -47,20 +48,24 @@
 //
 // Bound: at G = 480 crops the three stages do 15.1 GFLOP on 29.6 MB of
 // bf16 activations in and out, 0.015 ms at the bf16 tensor-core peak and
-// 0.23 ms at the float32 CUDA-core peak. This first kernel runs on the
-// CUDA cores and is bound by its instruction count: every multiply-add is
-// a weight load, a multiply and an add. Tensor cores (mma on the pointwise
-// products) are left to a later kernel.
+// 0.23 ms at the float32 CUDA-core peak. The CUDA-core forms are bound by
+// their instruction count: every multiply-add is a weight load, a
+// multiply and an add. In bfloat16 the 1x1 products run on the tensor
+// cores instead (os_stage_mma.cu).
 //
 // Built for the stages of the four released widths (x0_25, x0_5, x0_75,
-// x1_0) at 128x64 crops: 512, 128 and 32 pixels, mid 16 to 128. Two forms,
-// one arithmetic:
+// x1_0) at 128x64 crops: 512, 128 and 32 pixels, mid 16 to 128. Three
+// forms of one function:
 //
-// - the register form above, with mid a template constant and y, agg and
-//   s in registers: the OSNet-x0_25 stages, (mid, pixels) = (16, 512),
-//   (24, 128) and (32, 32), whose X, XA and lite buffers fit shared
-//   memory;
-// - the columns form, for every wider stage: mid is a loop bound, and y,
+// - bfloat16: the tensor-core form (os_stage_mma.cu, its note there) for
+//   every stage whose crop fits a block's shared memory: the
+//   three x0_25 stages, stages 3 and 4 of x0_5 and x0_75 and stage 4 of
+//   x1_0; the other stages take the columns form below;
+// - float32 (the tensor cores would take it only as TF32): the register
+//   form above, with mid a template constant and y, agg and s in
+//   registers: the OSNet-x0_25 stages, (mid, pixels) = (16, 512), (24,
+//   128) and (32, 32), whose X, XA and lite buffers fit shared memory;
+// - the columns form, for every other stage: mid is a loop bound, and y,
 //   s and agg (already rounded to T, so stored in T without loss) become
 //   columns of a workspace, as X, XA and the lite buffers are, each
 //   pixel's column read and written by its own thread: registers no
@@ -71,9 +76,10 @@
 //   T, X is read from the input in place, and the columns go through L1
 //   and L2 (x1_0's stage 2 needs 590 KB per crop in bf16).
 //
-// This header holds what the two forms share; os_stage.cu holds the
-// register form and the C entry points, os_stage_columns.cu the columns
-// form, compiled apart so that the build runs them in parallel.
+// This header holds what the forms share; os_stage.cu holds the register
+// form and the C entry points, os_stage_columns.cu the columns form,
+// os_stage_mma.cu the tensor-core form, compiled apart so that the build
+// runs them in parallel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -167,6 +173,13 @@ long long columns_bytes(int c_in, int c_out, int mid, int pixels, bool shared) {
 }
 
 }  // namespace
+
+// the tensor-core form (os_stage_mma.cu, bfloat16): its dynamic shared
+// memory, -1 where it is not built for the stage or a crop does not fit
+long long os_stage_mma_bytes(int c_in, int c_out, int mid, int h, int w);
+int os_stage_mma(const void* x, const void* mats, const void* vecs,
+                 const void* offs, void* out, int G, int c_in, int c_out,
+                 int mid, int h, int w, int gap, cudaStream_t s);
 
 // the columns form's launch (os_stage_columns.cu): scratch null puts the
 // workspace in shared memory

@@ -11,8 +11,10 @@ of :func:`lib` builds.
 
 Flags: ``-fmad=false`` and no ``--use_fast_math``, because the kernels
 round every product and sum on its own to stay bit-identical to their
-plain PyTorch versions (K7's ``mma`` form, held to one bf16 unit, calls
-the fast exp and division intrinsics by name in its SiLU).
+plain PyTorch versions (the tensor-core forms, K7's ``mma`` and K6's
+bfloat16 form, sum in the tensor cores' order and are held to bars of
+their own; K7's SiLU calls the fast exp and division intrinsics by
+name).
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ _SIGNATURES = {
     "ssyt_banded_crop": (_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _P),
     "ssyt_os_stage_smem_bytes": (_I, _I, _I, _I, _I, _I),
+    "ssyt_os_stage_form": (_I, _I, _I, _I, _I, _I),
     "ssyt_os_stage": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                       _P),
     "ssyt_conv_act": (_P, _P, _P, _P, _I, _I, _I, _I, _I, *(_L,) * 8,

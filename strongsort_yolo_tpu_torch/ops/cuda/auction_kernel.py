@@ -39,6 +39,18 @@ def auction_plain(
     """The auction in plain PyTorch, all P problems in lockstep. A solved
     problem has no bidding row left, so further rounds leave it as it
     is, which makes lockstep equal to each problem leaving on its own."""
+    return auction_rounds(cost, thresh, row_valid, col_valid)[:2]
+
+
+def auction_rounds(
+    cost: torch.Tensor,
+    thresh: torch.Tensor,
+    row_valid: torch.Tensor,
+    col_valid: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`auction_plain`'s (row_to_col, col_to_row) and the bidding
+    rounds each problem took, (P,) int64: the round at which it had no
+    bidding row left, or the cap."""
     p, r, c = cost.shape
     dev = cost.device
     f32 = torch.float32
@@ -57,9 +69,12 @@ def auction_plain(
     owner = torch.full((p, c), -1, dtype=torch.long, device=dev)
     sent = torch.zeros(p, r, dtype=torch.bool, device=dev)
     eps = torch.tensor(EPS_REL, dtype=f32, device=dev)
+    taken = torch.full((p,), max_rounds_for(r), dtype=torch.long, device=dev)
     for rounds in range(max_rounds_for(r)):
         owned = (owner[:, :, None] == rows[None, None, :]).any(1)  # (P, R)
-        if bool((sent | owned).all()):
+        done = (sent | owned).all(1)
+        taken = torch.where(done & (taken > rounds), rounds, taken)
+        if bool(done.all()):
             break
         if rounds > 0 and rounds % 16 == 0:
             eps = eps * 8.0
@@ -90,7 +105,8 @@ def auction_plain(
     assign.scatter_(
         1, torch.where(owner >= 0, owner, r), cols[None].expand(p, c).contiguous()
     )
-    return _filter_matches(assign[:, :r], cost, thresh, row_valid, col_valid)
+    return (*_filter_matches(assign[:, :r], cost, thresh, row_valid, col_valid),
+            taken)
 
 
 def auction(
@@ -123,7 +139,7 @@ def auction(
         raise ValueError(f"auction: the row and column arrays of a {r} x {c} "
                          "problem exceed a block's shared memory")
     scratch = (None if shared_form(r, c)
-               else torch.empty((p, c, r), dtype=torch.float32, device=dev))
+               else torch.empty((p, r, c), dtype=torch.float32, device=dev))
     cost, thresh = cost.contiguous(), thresh.contiguous()
     row_valid, col_valid = row_valid.contiguous(), col_valid.contiguous()
     r2c = torch.empty((p, r), dtype=torch.int32, device=dev)

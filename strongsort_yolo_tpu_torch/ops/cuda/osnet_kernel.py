@@ -281,17 +281,31 @@ def os_stage_plain(x: torch.Tensor, weights: StageWeights,
     return F.avg_pool2d(y, 2).to(dt)
 
 
-_B_WD = 98  # the offsets table's entry of block b's ``down``
+_B_WD = 98  # the offsets table's entry of block b's ``down`` (-1: absent;
+# every form also computes a down conv there, read from the table on the
+# card, so the wrapper reads nothing back from the device)
+FORMS = ("registers", "columns, shared memory", "columns, global scratch",
+         "tensor cores")
+
+
+def stage_form(spec: StageSpec, dtype: torch.dtype) -> str:
+    """The form K6 takes for a stage (``csrc/os_stage.cuh``): in bfloat16
+    the tensor cores wherever one crop fits a block, in float32
+    the register form for the x0_25 stages; else the columns form, its
+    workspace in shared memory or in a global scratch."""
+    return FORMS[_build.lib().ssyt_os_stage_form(
+        spec.c_in, spec.c_out, spec.mid, spec.h, spec.w,
+        int(dtype == torch.bfloat16))]
 
 
 def os_stage(x: torch.Tensor, weights: StageWeights,
              spec: StageSpec) -> torch.Tensor:
     """One fused OSNet stage: (G, c_in, h, w) -> (G, c_out, h/2, w/2), or
     (G, c_out) for the last stage, in x's dtype (float32 or bfloat16).
-    CPU tensors take :func:`os_stage_plain`; CUDA tensors launch K6, one
-    thread block per crop and one thread per pixel, on any stage of
-    :data:`KERNEL_SHAPES`. Where the stage's shared-memory form does not
-    fit a block, K6 works in a global scratch allocated here."""
+    CPU tensors take :func:`os_stage_plain`; CUDA tensors launch K6 on
+    any stage of :data:`KERNEL_SHAPES`, in the form :func:`stage_form`
+    names. Where the stage's shared-memory form does not fit a block, K6
+    works in a global scratch allocated here."""
     g = x.shape[0]
     if (x.shape != (g, spec.c_in, spec.h, spec.w) or x.dtype not in _DTYPES
             or weights.mats.dtype != x.dtype
@@ -315,8 +329,6 @@ def os_stage(x: torch.Tensor, weights: StageWeights,
             f"os_stage: K6 is built for the stages of OSNet x0_25, x0_5, "
             f"x0_75 and x1_0 at 128x64 crops, (c_in, c_out, mid, h*w) in "
             f"{sorted(KERNEL_SHAPES)}, not {spec}")
-    if int(weights.offs[_B_WD]) != -1:
-        raise ValueError("os_stage: the second OS block has a down conv")
     out = torch.empty((g, *spec.out_shape), dtype=x.dtype, device=x.device)
     if g == 0:
         return out

@@ -20,7 +20,11 @@ from strongsort_yolo_tpu_torch.ops.assignment import (
     solve_assignment,
     solve_assignment_host,
 )
-from strongsort_yolo_tpu_torch.ops.cuda.auction_kernel import auction_plain
+from strongsort_yolo_tpu_torch.ops.cuda.auction_kernel import (
+    EPS_REL,
+    auction_plain,
+    max_rounds_for,
+)
 
 
 @pytest.fixture(autouse=True)
@@ -140,3 +144,154 @@ def test_plain_auction_identical_to_pallas_at_crowd_sizes(kind, shape):
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
     assert (got[0] >= 0).sum() > 0
+
+
+# --- K3's round as the card runs it, emulated on the CPU ---------------
+
+LANES = 32
+
+
+def _k3_emulated(cost, rv, cv, thresh, lowest_row=True):
+    """K3 (``csrc/auction.cu``) on one problem in numpy float32, round for
+    round as the kernel runs it: the bidding rows compacted, each row's
+    columns split over 32 lanes (lane l scans l, l + 32, ... with the
+    serial rule), the lanes' top-2 merged by the kernel's five xor
+    shuffle steps (the lower index wins among equal bests), and each
+    column taking the largest packed key (the bid's order-preserving
+    bits high, ~row low). -> (row_to_col, col_to_row) as auction_plain.
+    ``lowest_row=False`` packs the row instead of ~row, a wrong tie rule
+    for the mutation test."""
+    f32 = np.float32
+    r, c = cost.shape
+    t = f32(thresh)
+    cc = np.clip(cost.astype(f32), f32(-1e6), f32(1e6))
+    valid = rv[:, None] & cv[None, :]
+    cmin = min(t, cc[valid].min()) if valid.any() else t
+    cmax = max(t, cc[valid].max()) if valid.any() else t
+    crange = max(f32(cmax - cmin), f32(1e-6))
+    w = np.where(valid, (t - cc) / crange, f32(-4.0)).astype(f32)
+    price = np.zeros(c, f32)
+    owner = np.full(c, -1, np.int64)
+    owned = np.zeros(r, bool)
+    sent = np.zeros(r, bool)
+    eps = f32(EPS_REL)
+    ncol = -(-c // LANES) * LANES
+    lane = np.arange(LANES)
+    rounds = 0
+    while True:
+        rows = np.flatnonzero(~sent & ~owned)
+        if len(rows) == 0 or rounds >= max_rounds_for(r):
+            break
+        if rounds > 0 and rounds % 16 == 0:
+            eps = f32(eps * f32(8.0))
+        v = np.full((len(rows), ncol), -np.inf, f32)
+        v[:, :c] = w[rows] - price
+        v = v.reshape(len(rows), ncol // LANES, LANES)  # [:, k, l]: column 32 k + l
+        k_best = v.argmax(1)  # the first maximum of each lane's columns
+        bv = np.take_along_axis(v, k_best[:, None], 1)[:, 0]
+        others = v.copy()
+        np.put_along_axis(others, k_best[:, None], -np.inf, 1)
+        sv = others.max(1)
+        bj = np.where(lane < c, k_best * LANES + lane, np.iinfo(np.int32).max)
+        for off in (1, 2, 4, 8, 16):
+            obv, osv, obj = bv[:, lane ^ off], sv[:, lane ^ off], bj[:, lane ^ off]
+            win = (obv > bv) | ((obv == bv) & (obj < bj))
+            sv = np.where(win, np.where(bv > osv, bv, osv),
+                          np.where(obv > sv, obv, sv))
+            bv, bj = np.where(win, obv, bv), np.where(win, obj, bj)
+        bv, sv, bj = bv[:, 0], sv[:, 0], bj[:, 0]
+        retire = bv < 0
+        sent[rows[retire]] = True
+        place, bj = rows[~retire], bj[~retire]
+        bid = ((w[place, bj] - np.maximum(sv[~retire], f32(0))) + eps).astype(f32)
+        bid = np.where(bid == 0, f32(0), bid)  # +0 for either zero
+        u = bid.view(np.uint32).astype(np.uint64)
+        u = np.where(u & 0x80000000, ~u & 0xFFFFFFFF, u | 0x80000000)
+        low = (~place if lowest_row else place).astype(np.uint64) & 0xFFFFFFFF
+        keys = np.zeros(c, np.uint64)
+        np.maximum.at(keys, bj, (u << np.uint64(32)) | low)
+        for j in np.flatnonzero(keys):
+            hi, lo = int(keys[j]) >> 32, int(keys[j]) & 0xFFFFFFFF
+            win_row = (~lo & 0xFFFFFFFF) if lowest_row else lo
+            if owner[j] >= 0:
+                owned[owner[j]] = False
+            owned[win_row], owner[j] = True, win_row
+            bits = hi & 0x7FFFFFFF if hi & 0x80000000 else ~hi & 0xFFFFFFFF
+            price[j] = np.array(bits, np.uint32).view(f32)
+        rounds += 1
+    limit = f32(t + f32(1e-6))
+    r2c, c2r = np.full(r, -1, np.int32), np.full(c, -1, np.int32)
+    for j, o in enumerate(owner):
+        if o >= 0 and rv[o] and cv[j] and cc[o, j] <= limit:
+            c2r[j], r2c[o] = o, j
+    return r2c, c2r
+
+
+def _assert_emulation_equals_plain(cost, rv, cv, thresh):
+    got, want = _k3_emulated(cost, rv, cv, thresh), _plain(cost, rv, cv, thresh)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("kind", KINDS + ["no_cols"])
+def test_k3_round_emulation_equals_plain(kind):
+    """The redesigned round, bit for bit against auction_plain on the
+    cases above, and on a problem whose columns are all invalid."""
+    cost, rv, cv, thresh = _problem(kind.replace("no_cols", "random"),
+                                    np.random.default_rng(len(kind)))
+    if kind == "no_cols":
+        cv[:] = False
+    _assert_emulation_equals_plain(cost, rv, cv, thresh)
+
+
+@pytest.mark.parametrize("kind", ["random", "tracker", "ties"])
+@pytest.mark.parametrize("shape", [(256, 128), (256, 256), (512, 250), (40, 5)])
+def test_k3_round_emulation_equals_plain_at_tracker_sizes(kind, shape):
+    """At the sizes the trackers give K3 (256 slots x 128 dets, the crowd
+    sizes) with about half the rows valid, and with 5 columns (fewer
+    than a warp's lanes)."""
+    r, c = shape
+    cost, rv, cv, thresh = _problem(kind, np.random.default_rng(r + c), r, c)
+    rv &= np.random.default_rng(r).uniform(size=r) < 0.5
+    _assert_emulation_equals_plain(cost, rv, cv, thresh)
+
+
+def test_k3_round_emulation_equals_plain_on_the_crowd_scenes(monkeypatch):
+    """Every assignment problem that the crowd scenes of
+    tests/test_torch_crowding.py give the port's ByteTrack step (250
+    objects on 512 slots, three frames)."""
+    from strongsort_yolo_tpu_torch.track import bytetrack as tbt
+    from strongsort_yolo_tpu_torch.track.state import init_track_state
+    from test_torch_crowding import _crowd_frame
+
+    calls, solve = [], tbt.solve_assignment
+
+    def recording(cost, thresh, rv, cv):
+        calls.append((cost.numpy()[0], float(thresh), rv.numpy()[0],
+                      cv.numpy()[0]))
+        return solve(cost, thresh, rv, cv)
+
+    monkeypatch.setattr(tbt, "solve_assignment", recording)
+    cfg = tbt.ByteTrackConfig(tracker_type="bytetrack", gmc_method="none")
+    state = init_track_state(1, 512)
+    for t in range(3):
+        boxes, scores = _crowd_frame(t)
+        state, _ = tbt.bytetrack_step(
+            state, torch.from_numpy(boxes[None]), torch.from_numpy(scores[None]),
+            torch.zeros((1, 250), dtype=torch.int32),
+            torch.ones((1, 250), dtype=torch.bool), cfg)
+    assert len(calls) == 9 and any(rv.any() and cv.any()
+                                   for _, _, rv, cv in calls)
+    for cost, thresh, rv, cv in calls:
+        _assert_emulation_equals_plain(cost, rv, cv, thresh)
+
+
+def test_k3_emulation_tie_rule_is_seen():
+    """Packing the row instead of ~row (the highest row winning among
+    equal bids) changes the result on tied costs: the equality above is
+    not blind to the tie rule."""
+    cost, rv, cv, thresh = _problem("ties", np.random.default_rng(4), 64, 32)
+    want = _plain(cost, rv, cv, thresh)
+    got = _k3_emulated(cost, rv, cv, thresh, lowest_row=False)
+    assert not (np.array_equal(got[0], want[0])
+                and np.array_equal(got[1], want[1]))

@@ -371,3 +371,93 @@ def test_os_stage_wrapper_on_cpu(model):
         tk.os_stage(x[:, :10], w, spec)
     with pytest.raises(ValueError):
         tk.os_stage(x.bfloat16(), w, spec)
+
+
+# --- K6's tensor-core form, emulated on the CPU -----------------------
+
+
+
+def _pointwise_chunked(w, x, b):
+    """(co, ci) @ (G, ci, P) + (co,) as the tensor-core form sums it:
+    the bf16 operands' products summed in float32 per 16-wide K chunk,
+    the chunks added in order (a K of 24 is a chunk of 16 and one of 8,
+    the rest of it zero), then + b."""
+    acc = None
+    for k0 in range(0, w.shape[1], 16):
+        part = torch.matmul(w[:, k0:k0 + 16].float(), x[:, k0:k0 + 16].float())
+        acc = part if acc is None else acc + part
+    return acc + b[:, None]
+
+
+def _tc_emulated(x, weights, spec, monkeypatch, per_crop=False):
+    """The stage as the tensor-core form computes it: the 1x1 products in
+    16-wide chunks, every rounding point of os_stage_plain; with
+    ``per_crop`` one crop at a time, as a block of the form takes it."""
+    monkeypatch.setattr(tk, "_pointwise", _pointwise_chunked)
+    if per_crop:
+        out = torch.cat([tk.os_stage_plain(x[g:g + 1], weights, spec)
+                         for g in range(x.shape[0])])
+    else:
+        out = tk.os_stage_plain(x, weights, spec)
+    monkeypatch.undo()
+    return out
+
+
+@pytest.mark.parametrize("i", [0, 1, 2], ids=["stage2", "stage3", "stage4-gap"])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_tensor_core_emulation_vs_jax(jparams, model, monkeypatch, i, dt):
+    """The emulated tensor-core form against the JAX os_stage (interpret
+    mode), within the bars the plain version is held to; in bfloat16
+    also against os_stage_plain, within the card's bar (the same mean
+    bar)."""
+    want = _jax_stage(jparams, i, dt)
+    w = tk.stage_weights(model, i, DTYPES[dt][0])
+    x = torch.from_numpy(_stage_input(i)).to(DTYPES[dt][0])
+    got = _tc_emulated(x, w, SPECS[i], monkeypatch)
+    assert got.shape == (G, *SPECS[i].out_shape)
+    got = got.float().numpy()
+    if dt == "f32":
+        np.testing.assert_allclose(got, want, rtol=0, atol=F32_TOL)
+    else:
+        assert _bf16_mean_err(got, want) <= BF16_MEAN_TOL
+        _assert_tc_bar(got, tk.os_stage_plain(x, w, SPECS[i]).float().numpy())
+
+
+def _assert_tc_bar(got, want):
+    assert _bf16_mean_err(got, want) <= BF16_MEAN_TOL
+
+
+def _pointwise_exact(w, x, b):
+    """The 1x1 products summed exactly (float64), rounded once to
+    float32, then + b."""
+    return torch.matmul(w.double(), x.double()).float() + b[:, None]
+
+
+def test_exact_sums_break_two_bf16_units(model, monkeypatch):
+    """Why the card's bar is not "within two bf16 units": the plain
+    version with exact sums, against itself with float32 sums, moves
+    some output of stage 3 by more than two bf16 units at 1.0 x max(1,
+    |ref|) (a flipped rounding of a gate value moves a whole channel),
+    and stays within the mean bar at every stage."""
+    worst = 0.0
+    for i, spec in enumerate(SPECS):
+        w = tk.stage_weights(model, i, torch.bfloat16)
+        x = torch.from_numpy(_stage_input(i)).bfloat16()
+        want = tk.os_stage_plain(x, w, spec).float().numpy()
+        monkeypatch.setattr(tk, "_pointwise", _pointwise_exact)
+        got = tk.os_stage_plain(x, w, spec).float().numpy()
+        monkeypatch.undo()
+        _assert_tc_bar(got, want)
+        worst = max(worst, float((np.abs(got - want)
+                                  / np.maximum(1.0, np.abs(want))).max()))
+    assert worst > 2.0 ** -6
+
+
+def test_tensor_core_emulation_per_crop(model, monkeypatch):
+    """One crop per block, as the form runs: stage 4 crop by crop equals
+    the whole batch bit for bit (crops never mix)."""
+    spec = SPECS[2]
+    w = tk.stage_weights(model, 2, torch.bfloat16)
+    x = torch.from_numpy(_stage_input(2)).bfloat16()
+    assert torch.equal(_tc_emulated(x, w, spec, monkeypatch, per_crop=True),
+                       _tc_emulated(x, w, spec, monkeypatch))
