@@ -13,7 +13,9 @@ raises and the process exits nonzero:
    here, from the checkout, one nvcc per source, all at once);
 2. each hand-written kernel against its plain PyTorch version on the
    card, at the shapes the main path gives it, with CUDA-event times of
-   both sides (K3: also (256, 256), (512, 250) and (1100, 300)
+   both sides (K2: its (8, 512) keep mask bit-identical, the size of its
+   cluster of thread blocks per frame printed, timed by CUDA-graph
+   replay beside events; K3: also (256, 256), (512, 250) and (1100, 300)
    problems, whose benefit block K3 holds in its global scratch,
    bit-identical, with the form each took, and in phase 3 the three
    calls of one steady BoT-SORT tick, captured on the main path,
@@ -23,9 +25,13 @@ raises and the process exits nonzero:
    its packed form; its times are taken in phase 3, on the StrongSORT
    path's own crop batch; K5: the LK params of S=8 and of T=32 panned
    pyramid pairs, and of S=8 rotated and scaled pairs after one step per
-   level, within 1e-4 base px and 1e-6, and two launches bit-identical,
-   and K5 with one level, the form of the TPU's lk_level_pallas, on S=8
-   180x320 pairs; K6: each of the three fused OSNet stages of the four
+   level, within 1e-4 base px and 1e-6, two launches bit-identical, each
+   pair of the T=32 launch bit-identical to its N=1 launch, the size of
+   its cluster of thread blocks per pair and the pairs the card holds at
+   once printed, timed by CUDA-graph replay beside events (and at S=8 its
+   C entry point alone), with the N=32 / N=8 ratio, and K5 with one
+   level, the form of the TPU's lk_level_pallas, on S=8 180x320 pairs;
+   K6: each of the three fused OSNet stages of the four
    released widths x0_25, x0_5, x0_75 and x1_0, on G=480 seeded crops
    for x0_25 (and G = 0, 1, 7) and K6_G_WIDE for the others, each in
    its form, HMMA instructions in every instance of the tensor-core
@@ -62,8 +68,9 @@ raises and the process exits nonzero:
    pans by its own integer step per tick (K1-K3 and K5, K5 once per
    tick, each pan recovered within 2 frame px from tick 1 on), with its
    ms/tick beside the first path's and the split of its camera-motion
-   estimate; the same scene under fractional pans, whose error is
-   reported apart (within one gray pixel, 6 frame px: the 1080p ->
+   estimate (K5 by events and by graph replay); the same scene under
+   fractional pans, whose error is reported apart (within one gray
+   pixel, 6 frame px: the 1080p ->
    180x320 gray aliases a hard edge panned by a fraction of that);
    then one stream's 10 frames through 10 Pipeline.track
    calls (K5 10 launches) and through one Pipeline.track_chunk (K5
@@ -91,7 +98,8 @@ The JSON line before the card's name is one object with one entry per
 kernel: its launches (K1-K3 and K5 counted on the flow path, K4 on the
 StrongSORT path, K6 on the fused one, K7 on yolo11n-pose with the
 route), its largest difference from its
-plain version, its time and its plain version's (CUDA events), its
+plain version, its time (K2, K5, K6, K7: device time by CUDA-graph
+replay; the others CUDA events) and its plain version's, its
 bound (the larger of its bytes, each input read once and each output
 written once, over 3.35 TB/s, where K1 and K4 read only the 32-byte
 sectors of their input that hold a pixel their taps weigh above zero,
@@ -320,6 +328,7 @@ def phase_kernels(card: str) -> list[dict]:
     import torch
 
     from strongsort_yolo_tpu_torch.ops.assignment import solve_assignment_host
+    from strongsort_yolo_tpu_torch.ops.cuda import _build
     from strongsort_yolo_tpu_torch.ops.cuda.auction_kernel import (
         auction, auction_plain,
     )
@@ -330,6 +339,7 @@ def phase_kernels(card: str) -> list[dict]:
     from strongsort_yolo_tpu_torch.ops.letterbox import (
         letterbox, letterbox_params, resize_taps,
     )
+    from strongsort_yolo_tpu_torch.tools.prof_conv import graph_ms
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -396,12 +406,16 @@ def phase_kernels(card: str) -> list[dict]:
     if not torch.equal(got, want):
         raise AssertionError("K2 keep mask differs from the plain version")
     k2_times = (
-        cuda_ms(lambda: nms_keep(boxes, conf, iou_thres=0.4, conf_thres=0.3)),
+        graph_ms(lambda: nms_keep(boxes, conf, iou_thres=0.4, conf_thres=0.3)),
         cuda_ms(lambda: nms_keep_plain(boxes, conf, iou_thres=0.4,
                                        conf_thres=0.3), iters=5),
+        cuda_ms(lambda: nms_keep(boxes, conf, iou_thres=0.4, conf_thres=0.3)),
     )
-    log(f"K2 nms_keep (8,512): bit-identical, {int(got.sum())} kept; kernel "
-        f"{k2_times[0]:.4f} ms, plain {k2_times[1]:.4f} ms [{card}]")
+    log(f"K2 nms_keep (8,512): a cluster of "
+        f"{_build.lib().ssyt_nms_keep_cluster()} thread blocks per frame "
+        f"(cudaLaunchKernelEx); bit-identical, {int(got.sum())} kept; kernel "
+        f"{k2_times[0]:.4f} ms by graph replay ({k2_times[2]:.4f} by events), "
+        f"plain {k2_times[1]:.4f} ms [{card}]")
     # about 15 operations per candidate pair: the IoU and its comparison
     k2_bound = bound(nbytes(boxes, conf, got), 15 * S * K * (K - 1) / 2)
     report.append(dict(
@@ -542,12 +556,21 @@ def check_k5(card: str) -> dict:
     unconverged pairs are clean). Tolerance: 1e-4 base px on the translation and 1e-6 on the
     linear part, the sums running in another order (a wrong damping
     constant moves the unconverged case by more than 3e-3 px, a step
-    more or less by pixels); two launches must be bit-identical."""
+    more or less by pixels); two launches must be bit-identical, and
+    each pair of the T=32 launch bit-identical to that pair launched
+    alone (N=1: a pair's cluster and bands do not depend on N). Times:
+    CUDA-graph replay (device time; the wrapper's checks and allocation
+    are host work), CUDA events around host launches, and at S=8 the C
+    entry point alone, its arguments prepared once."""
+    import ctypes
+
     import torch
 
+    from strongsort_yolo_tpu_torch.ops.cuda import _build
     from strongsort_yolo_tpu_torch.ops.cuda.lk_kernel import (
         lk_pyramid, lk_pyramid_plain,
     )
+    from strongsort_yolo_tpu_torch.tools.prof_conv import graph_ms
     from strongsort_yolo_tpu_torch.track.gmc_flow import (
         _ITERS_BY_LEVEL, BASE_H, BASE_W, _blur, _pool2,
     )
@@ -598,21 +621,44 @@ def check_k5(card: str) -> dict:
             raise AssertionError(f"K5 {case}: translation off by {trans_px} "
                                  f"base px, linear part by {lin}")
         max_err = max(max_err, float(d.max()))
+        if n == 32:
+            for k in range(n):
+                one = lk_pyramid([x[k:k + 1] for x in pyr[0]],
+                                 [x[k:k + 1] for x in pyr[1]],
+                                 params[k:k + 1], iters)
+                if not torch.equal(one[0], got[k]):
+                    raise AssertionError(f"K5 {case}: pair {k} alone differs "
+                                         "from its row of the N=32 launch")
+            log(f"K5 {case}: every pair bit-identical to its N=1 launch")
         timing = ""
         if not affine:
-            times[n] = (cuda_ms(run), cuda_ms(run_plain, iters=3, warmup=1))
+            times[n] = (graph_ms(run), cuda_ms(run_plain, iters=3, warmup=1),
+                        cuda_ms(run))
             if n == S_MAIN:
+                alone = k5_alone_ms(pyr, params, iters)
                 # about 90 operations per pixel and Gauss-Newton step (the
                 # bilinear taps, gradients, residual, 27 products summed)
                 steps = sum(lv.shape[1] * lv.shape[2] * it
                             for lv, it in zip(pyr[0], iters))
                 k5_bound = bound(nbytes(*pyr[0], *pyr[1], params, got),
                                  90 * n * steps)
-            timing = (f"; kernel {times[n][0]:.4f} ms, plain "
-                      f"{times[n][1]:.4f} ms [{card}]")
+            timing = (f"; kernel {times[n][0]:.4f} ms by graph replay "
+                      f"({times[n][2]:.4f} by events"
+                      + (f", {alone:.4f} the kernel alone" if n == S_MAIN
+                         else "")
+                      + f"), plain {times[n][1]:.4f} ms [{card}]")
         log(f"K5 lk_pyramid {case}, 180x320/90x160/45x80: bit-identical "
             f"across launches; vs plain max |err| translation {trans_px:.3g} "
             f"base px, linear {lin:.3g}{timing}")
+    dims = [d for x, it in zip(pyr[0], _ITERS_BY_LEVEL)
+            for d in (x.shape[1], x.shape[2], it)]
+    resident = _build.lib().ssyt_lk_pyramid_max_clusters(
+        len(dims) // 3, (ctypes.c_int * len(dims))(*dims))
+    log(f"K5 launches a cluster of {_build.lib().ssyt_lk_pyramid_cluster()} "
+        f"thread blocks per pair (cudaLaunchKernelEx); the card holds "
+        f"{resident} pairs' clusters at once; N=32 takes "
+        f"{times[32][0] / times[S_MAIN][0]:.2f}x the N={S_MAIN} time by graph "
+        f"replay [{card}]")
     check_k5_level(card, rng)
     return dict(
         name="lk_pyramid", route="cuda",
@@ -622,6 +668,34 @@ def check_k5(card: str) -> dict:
         max_abs_err=max_err, ms=times[S_MAIN][0], plain_ms=times[S_MAIN][1],
         bound_ms=k5_bound[0], bound_by=k5_bound[1], library_ms=None,
     )
+
+
+def k5_alone_ms(pyr, params, iters) -> float:
+    """K5's device time by graph replay, its C entry point called on
+    arguments prepared once, outside the timed calls (the wrapper's
+    checks and allocation left out)."""
+    import ctypes
+
+    import torch
+
+    from strongsort_yolo_tpu_torch.ops.cuda import _build
+    from strongsort_yolo_tpu_torch.tools.prof_conv import graph_ms
+
+    n, levels = params.shape[0], len(pyr[0])
+    out = torch.empty_like(params)
+    dims, strides = [], []
+    for a, b, it in zip(*pyr, iters):
+        dims += [a.shape[1], a.shape[2], int(it)]
+        strides += [a.stride(0), a.stride(1), b.stride(0), b.stride(1)]
+    args = (
+        (ctypes.c_void_p * levels)(*(x.data_ptr() for x in pyr[0])),
+        (ctypes.c_void_p * levels)(*(x.data_ptr() for x in pyr[1])),
+        (ctypes.c_longlong * len(strides))(*strides),
+        params.data_ptr(), out.data_ptr(), n, levels,
+        (ctypes.c_int * len(dims))(*dims),
+    )
+    return graph_ms(lambda: _build.check(_build.lib().ssyt_lk_pyramid(
+        *args, torch.cuda.current_stream().cuda_stream), "lk_pyramid"))
 
 
 def check_k5_level(card: str, rng) -> None:
@@ -634,6 +708,7 @@ def check_k5_level(card: str, rng) -> None:
     from strongsort_yolo_tpu_torch.ops.cuda.lk_kernel import (
         lk_level_plain, lk_pyramid,
     )
+    from strongsort_yolo_tpu_torch.tools.prof_conv import graph_ms
     from strongsort_yolo_tpu_torch.track.gmc_flow import BASE_H, BASE_W, _blur
 
     dev = torch.device("cuda")
@@ -664,12 +739,14 @@ def check_k5_level(card: str, rng) -> None:
     if not (trans_px <= 1e-4 and lin <= 1e-6):
         raise AssertionError(f"K5 one level: translation off by {trans_px} "
                              f"base px, linear part by {lin}")
-    ms, plain = cuda_ms(run), cuda_ms(run_plain, iters=3, warmup=1)
+    ms, ev = graph_ms(run), cuda_ms(run)
+    plain = cuda_ms(run_plain, iters=3, warmup=1)
     b = bound(nbytes(p0, c0, params, got), 90 * S_MAIN * BASE_H * BASE_W * iters)
     log(f"K5 lk_level (one level, S={S_MAIN} 180x320 pairs, {iters} steps): "
         f"bit-identical across launches; vs plain max |err| translation "
-        f"{trans_px:.3g} base px, linear {lin:.3g}; kernel {ms:.4f} ms, plain "
-        f"{plain:.4f} ms, bound {b[0]:.6f} ms ({b[1]}) [{card}]")
+        f"{trans_px:.3g} base px, linear {lin:.3g}; kernel {ms:.4f} ms by "
+        f"graph replay ({ev:.4f} by events), plain {plain:.4f} ms, bound "
+        f"{b[0]:.6f} ms ({b[1]}) [{card}]")
 
 
 def stage_macs(spec) -> int:
@@ -1367,6 +1444,7 @@ def phase_flow_path(card: str, kernels):
 
     from strongsort_yolo_tpu_torch.ops.cuda.lk_kernel import lk_pyramid
     from strongsort_yolo_tpu_torch.pipeline import BatchedPipeline
+    from strongsort_yolo_tpu_torch.tools.prof_conv import graph_ms
     from strongsort_yolo_tpu_torch.track.bytetrack import ByteTrackConfig
     from strongsort_yolo_tpu_torch.track.gmc_flow import (
         _ITERS_BY_LEVEL, batched_warps, frame_to_gray, pyramid,
@@ -1435,6 +1513,8 @@ def phase_flow_path(card: str, kernels):
         "gray": cuda_ms(lambda: frame_to_gray(frames)),
         "pyramid (both)": cuda_ms(lambda: (pyramid(prev), pyramid(gray))),
         "K5": cuda_ms(lambda: lk_pyramid(pp, pc, params, _ITERS_BY_LEVEL)),
+        "K5 by graph replay": graph_ms(
+            lambda: lk_pyramid(pp, pc, params, _ITERS_BY_LEVEL)),
         "batched_warps": cuda_ms(lambda: batched_warps(
             prev, gray, (h, w), torch.ones(S_MAIN, dtype=torch.bool,
                                            device=pipe.device))),

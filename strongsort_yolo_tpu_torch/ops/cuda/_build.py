@@ -43,13 +43,19 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 _IP = ctypes.POINTER(ctypes.c_int)  # a host array of ints
+_LP = ctypes.POINTER(ctypes.c_longlong)  # a host array of 64-bit ints
+_VP = ctypes.POINTER(ctypes.c_void_p)  # a host array of pointers
 # C entry point -> argtypes; every pointer and the stream are c_void_p so
 # ctypes passes them as 64-bit values
 _SIGNATURES = {
-    "ssyt_lk_pyramid": (_P, _P, _P, _P, _I, _I, _IP, _P),
+    "ssyt_lk_pyramid": (_VP, _VP, _LP, _P, _P, _I, _I, _IP, _P),
+    "ssyt_lk_pyramid_smem_bytes": (_I, _IP),
+    "ssyt_lk_pyramid_cluster": (),
+    "ssyt_lk_pyramid_max_clusters": (_I, _IP),
     "ssyt_letterbox_u8": (_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                           _F, _P),
     "ssyt_nms_keep": (_P, _P, _P, _I, _I, _F, _F, _P),
+    "ssyt_nms_keep_cluster": (),
     "ssyt_auction_smem_bytes": (_I, _I, _I),
     "ssyt_auction": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     "ssyt_banded_crop": (_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -65,7 +71,8 @@ _SIGNATURES = {
 }
 
 # byte counts; the other entry points return a CUDA error code
-_RESTYPES = {"ssyt_auction_smem_bytes": _L, "ssyt_os_stage_smem_bytes": _L}
+_RESTYPES = {"ssyt_auction_smem_bytes": _L, "ssyt_os_stage_smem_bytes": _L,
+             "ssyt_lk_pyramid_smem_bytes": _L}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None

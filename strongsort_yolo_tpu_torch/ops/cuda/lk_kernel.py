@@ -37,6 +37,8 @@ from strongsort_yolo_tpu_torch.ops.cuda import _build
 
 MAX_LEVELS = 3  # levels the kernel takes in one launch (kMaxLevels)
 MAX_SHIFT = 32.0  # largest translation a level samples, level px (kMaxShift)
+CLUSTER = 7  # thread blocks per pair, block r a band of each level (kCluster)
+THREADS = 256  # threads per block (kThreads)
 
 
 def _solve6(h_mat, g_vec, damp):
@@ -69,9 +71,15 @@ def _solve6(h_mat, g_vec, damp):
     return x
 
 
-def _refine_level(prev, cur, p, iters: int) -> torch.Tensor:
+def _sum_hw(x: torch.Tensor) -> torch.Tensor:
+    return x.sum((1, 2))
+
+
+def _refine_level(prev, cur, p, iters: int, total=_sum_hw) -> torch.Tensor:
     """``iters`` Gauss-Newton steps on one level: prev, cur (N, h, w)
-    float32; p (N, 6) -> (N, 6)."""
+    float32; p (N, 6) -> (N, 6). ``total`` sums an (N, h, w) tensor over
+    the level, (N, h, w) -> (N,) (an emulation of the kernel's order of
+    the sums passes its own)."""
     n, h, w = prev.shape
     dev, f32 = prev.device, torch.float32
 
@@ -125,17 +133,16 @@ def _refine_level(prev, cur, p, iters: int) -> torch.Tensor:
             + ((a11 - 1.0)[:, None, None] * gxn + a12[:, None, None] * gyn) * ixw
             + (a21[:, None, None] * gxn + (a22 - 1.0)[:, None, None] * gyn) * iyw
         )
-        n_valid = valid.sum((1, 2)) + 1.0
-        thr = torch.clamp(3.0 * (e.abs() * valid).sum((1, 2)) / n_valid,
-                          min=40.0)
+        n_valid = total(valid) + 1.0
+        thr = torch.clamp(3.0 * total(e.abs() * valid) / n_valid, min=40.0)
         wgt = torch.where(e.abs() < thr[:, None, None], valid, 0.0)
         js = (gxn * ixw, gyn * ixw, ixw, gxn * iyw, gyn * iyw, iyw)
         h_mat = [[None] * 6 for _ in range(6)]
         for i in range(6):
             for k in range(i + 1):
-                h_mat[i][k] = h_mat[k][i] = (js[i] * js[k] * wgt).sum((1, 2))
+                h_mat[i][k] = h_mat[k][i] = total(js[i] * js[k] * wgt)
         ew = e * wgt
-        g_vec = [(js[i] * ew).sum((1, 2)) for i in range(6)]
+        g_vec = [total(js[i] * ew) for i in range(6)]
         trace = (h_mat[0][0] + h_mat[1][1] + h_mat[2][2]
                  + h_mat[3][3] + h_mat[4][4] + h_mat[5][5])
         damp = 1e-4 * trace / six + 1e-6
@@ -172,8 +179,14 @@ def lk_pyramid(
     iters_by_level,
 ) -> torch.Tensor:
     """N (prev, cur) pyramids -> refined (N, 6) float32 params. CPU
-    tensors take :func:`lk_pyramid_plain`; CUDA tensors launch K5, one
-    thread block per pair walking every level and iteration."""
+    tensors take :func:`lk_pyramid_plain`; CUDA tensors launch K5, a
+    cluster of thread blocks per pair, each block a fixed band of rows of
+    every level. K5 reads the level planes where they lie (nothing is
+    packed or copied): each plane must have unit column stride, while its
+    rows and pairs may be strided (a view into a wider buffer); a plane
+    with another column stride raises ValueError, as does a level whose
+    band of rows does not fit a block's shared memory (a finest level of
+    up to about 130k pixels fits)."""
     dev = params.device
     if dev.type == "cpu":
         return lk_pyramid_plain(prev_levels, cur_levels, params,
@@ -194,19 +207,34 @@ def lk_pyramid(
             "level planes, one iteration count per level and (N, 6) float32 "
             "params on one device"
         )
-    out = torch.empty((n, 6), dtype=torch.float32, device=dev)
-    if n == 0:
-        return out
-    prev = torch.cat([x.reshape(n, -1) for x in prev_levels], 1).contiguous()
-    cur = torch.cat([x.reshape(n, -1) for x in cur_levels], 1).contiguous()
-    params = params.contiguous()
+    if any(x.shape[2] > 1 and x.stride(2) != 1 for x in planes):
+        raise ValueError("lk_pyramid wants level planes with unit column "
+                         "stride (x.stride(2) == 1)")
+    lib = _build.lib()
     dims = []
     for x, it in zip(prev_levels, iters_by_level):
         dims += [x.shape[1], x.shape[2], int(it)]
     dims_c = (ctypes.c_int * len(dims))(*dims)
-    err = _build.lib().ssyt_lk_pyramid(
-        prev.data_ptr(), cur.data_ptr(), params.data_ptr(), out.data_ptr(),
-        n, n_levels, dims_c, torch.cuda.current_stream(dev).cuda_stream,
+    smem = lib.ssyt_lk_pyramid_smem_bytes(n_levels, dims_c)
+    if not 0 < smem <= _build.MAX_SMEM:
+        raise ValueError(
+            f"lk_pyramid: levels {[tuple(x.shape[1:]) for x in prev_levels]} "
+            f"need {smem} bytes of shared memory per block, over "
+            f"{_build.MAX_SMEM}"
+        )
+    out = torch.empty((n, 6), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    params = params.contiguous()
+    prev_c = (ctypes.c_void_p * n_levels)(*(x.data_ptr() for x in prev_levels))
+    cur_c = (ctypes.c_void_p * n_levels)(*(x.data_ptr() for x in cur_levels))
+    strides = []
+    for a, b in zip(prev_levels, cur_levels):
+        strides += [a.stride(0), a.stride(1), b.stride(0), b.stride(1)]
+    strides_c = (ctypes.c_longlong * len(strides))(*strides)
+    err = lib.ssyt_lk_pyramid(
+        prev_c, cur_c, strides_c, params.data_ptr(), out.data_ptr(), n,
+        n_levels, dims_c, torch.cuda.current_stream(dev).cuda_stream,
     )
     lk_pyramid.launches += 1
     _build.check(err, "lk_pyramid")

@@ -34,7 +34,8 @@ def nms_keep(
     """Greedy NMS keep mask of S frames: boxes (S, K, 4) f32 score-desc
     sorted and class-offset, conf (S, K) f32 (rows with conf < conf_thres
     are invalid) -> (S, K) bool. CPU tensors take the plain version;
-    CUDA tensors launch K2 (one block per frame, K <= 512)."""
+    CUDA tensors launch K2 (a cluster of thread blocks per frame, K <=
+    512)."""
     if boxes.device.type == "cpu":
         return nms_keep_plain(
             boxes, conf, iou_thres=iou_thres, conf_thres=conf_thres

@@ -12,8 +12,10 @@ than its plain version, across a trimming threshold that is a step, so
 its params agree within 1e-4 base px and 1e-6 (a wrong damping
 constant moves them by more than 3e-3 px, a step more or less by
 pixels), on pans it has converged on and on rotated and scaled pairs
-it has not (one step per level), and two of its launches are
-bit-identical; K6 (the fused OSNet stage) sums in another order than
+it has not (one step per level), two of its launches are
+bit-identical, each pair of an N=33 launch is bit-identical to that
+pair launched alone, and planes strided by rows and pairs give the
+contiguous planes' params bit for bit; K6 (the fused OSNet stage) sums in another order than
 its plain version, so it is held to 1e-4 in float32; in bfloat16 its
 tensor-core form adds a chunk's products in the tensor cores' order,
 and a flipped rounding propagates (a gate value moves a whole channel;
@@ -130,6 +132,37 @@ def test_nms_kernel_equals_plain(dev, k):
         nms_keep(torch.zeros(1, 513, 4, device=dev),
                  torch.zeros(1, 513, device=dev), iou_thres=0.4,
                  conf_thres=0.3)
+
+
+@pytest.mark.parametrize("case", ["k31", "k33", "all invalid", "chains"])
+def test_nms_kernel_equals_plain_edges(dev, case):
+    """K2 at a partial scan tile (K = 31), one row past a tile (K = 33),
+    with every row invalid, and on suppression chains across a tile
+    boundary (A kills B, B would kill C, so C survives), with class
+    offsets: the keep mask equals the plain version's bit for bit."""
+    rng = np.random.default_rng(len(case))
+    s, k = 3, {"k31": 31, "k33": 33}.get(case, 100)
+    xy = rng.uniform(0, 300, (s, k, 2))
+    wh = rng.uniform(10, 80, (s, k, 2))
+    boxes = np.concatenate([xy, xy + wh], -1)
+    conf = -np.sort(-rng.uniform(0, 1, (s, k)), 1)
+    if case == "all invalid":
+        conf = conf * 0.25  # every score below conf_thres 0.3
+    if case == "chains":  # rows 30, 31, 32 (and 62, 63, 64) chain by 25 px
+        for a, y in ((30, 400.0), (62, 600.0)):
+            for m in range(3):
+                boxes[:, a + m] = [400.0 + 25 * m, y, 460.0 + 25 * m, y + 60]
+        boxes[:, 70:] += rng.integers(0, 3, (s, k - 70, 1)) * 7680.0
+        conf = np.maximum(conf, 0.31)
+    boxes = torch.from_numpy(boxes.astype(np.float32)).to(dev)
+    conf = torch.from_numpy(conf.astype(np.float32)).to(dev)
+    got = nms_keep(boxes, conf, iou_thres=0.4, conf_thres=0.3)
+    want = nms_keep_plain(boxes, conf, iou_thres=0.4, conf_thres=0.3)
+    assert torch.equal(got, want)
+    if case == "all invalid":
+        assert not bool(got.any())
+    if case == "chains":
+        assert got[:, [30, 32, 62, 64]].all() and not got[:, [31, 63]].any()
 
 
 @pytest.mark.parametrize("r,c", [(16, 16), (256, 128), (37, 5), (256, 256),
@@ -408,6 +441,47 @@ def test_lk_kernel_rejects_what_it_does_not_take(dev):
         lk_pyramid([plane] * 4, [plane] * 4, params, (2, 2, 2, 2))
     with pytest.raises(ValueError):  # not one iteration count per level
         lk_pyramid([plane] * 2, [plane] * 2, params, (2,))
+
+
+def test_lk_kernel_pair_independent_of_batch(dev):
+    """Each pair of an N=33 launch is bit-identical to that pair launched
+    alone: a pair's cluster and the bands of its levels depend on the
+    level shapes only, never on N."""
+    prev, cur = _smooth_planes(33, seed=7)
+    pp = [x.to(dev) for x in pyramid(prev)]
+    pc = [x.to(dev) for x in pyramid(cur)]
+    params = torch.tensor([1.0, 0.0, 0.0, 0.0, 1.0, 0.0],
+                          device=dev).repeat(33, 1)
+    got = lk_pyramid(pp, pc, params, (2, 5, 8))
+    for k in range(33):
+        one = lk_pyramid([x[k:k + 1] for x in pp], [x[k:k + 1] for x in pc],
+                         params[k:k + 1], (2, 5, 8))
+        assert torch.equal(one[0], got[k]), k
+
+
+def test_lk_kernel_reads_strided_planes(dev):
+    """K5 reads the planes where they lie: planes whose rows and pairs
+    are strided (views into wider buffers) give the contiguous launch's
+    params bit for bit; a plane whose columns are strided raises."""
+    prev, cur = _smooth_planes(4, seed=11)
+    pp = [x.to(dev) for x in pyramid(prev)]
+    pc = [x.to(dev) for x in pyramid(cur)]
+    params = torch.tensor([1.0, 0.0, 0.0, 0.0, 1.0, 0.0],
+                          device=dev).repeat(4, 1)
+    want = lk_pyramid(pp, pc, params, (2, 5, 8))
+
+    def padded(x):  # the same values inside a wider, taller buffer
+        n, h, w = x.shape
+        buf = torch.full((n + 1, h + 3, w + 7), float("nan"), device=dev)
+        buf[1:, 2:2 + h, 3:3 + w] = x
+        return buf[1:, 2:2 + h, 3:3 + w]
+
+    views = [padded(x) for x in pp], [padded(x) for x in pc]
+    assert not views[0][0].is_contiguous()
+    assert torch.equal(lk_pyramid(*views, params, (2, 5, 8)), want)
+    wide = torch.zeros(4, 45, 160, device=dev)[:, :, ::2]  # column stride 2
+    with pytest.raises(ValueError):
+        lk_pyramid([wide], [wide], params, (2,))
 
 
 def test_flow_pipeline_card_equals_cpu(dev):
