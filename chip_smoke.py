@@ -13,19 +13,24 @@ raises and the process exits nonzero:
    here, from the checkout, one nvcc per source, all at once);
 2. each hand-written kernel against its plain PyTorch version on the
    card, at the shapes the main path gives it, with CUDA-event times of
-   both sides (K2: its (8, 512) keep mask bit-identical, the size of its
-   cluster of thread blocks per frame printed, timed by CUDA-graph
-   replay beside events; K3: also (256, 256), (512, 250) and (1100, 300)
-   problems, whose benefit block K3 holds in its global scratch,
+   both sides (K1: bit-identical in float32 and bfloat16 at 1080x1920,
+   720x1280, portrait 1920x1080 (a side bar of 140 columns), 481x853
+   (rows of 2559 bytes) and 240x320, timed by CUDA-graph replay beside
+   events, and the SASS of K1 and K4 free of 64-bit integer division
+   (tools/sass.py); K2: its (8, 512) keep mask bit-identical, the size
+   of its cluster of thread blocks per frame printed, timed by
+   CUDA-graph replay beside events; K3: also (256, 256), (512, 250)
+   and (1100, 300) problems, whose benefit block K3 holds in its global
+   scratch,
    bit-identical, with the form each took, and in phase 3 the three
    calls of one steady BoT-SORT tick, captured on the main path,
    bit-identical and timed by CUDA-graph replay with their valid rows,
-   columns and rounds; K4: float32 within 1e-6,
-   bfloat16 within one unit in the last place, in its fixed-width and
-   its packed form; its times are taken in phase 3, on the StrongSORT
-   path's own crop batch; K5: the LK params of S=8 and of T=32 panned
-   pyramid pairs, and of S=8 rotated and scaled pairs after one step per
-   level, within 1e-4 base px and 1e-6, two launches bit-identical, each
+   columns and rounds; K4: bit-identical in float32 and bfloat16, on
+   1080p and on 481x853 frames, in its fixed-width and its packed form;
+   its times are taken in phase 3, on the StrongSORT path's own crop
+   batch, by CUDA-graph replay beside events; K5: the LK params of S=8
+   and of T=32 panned pyramid pairs, and of S=8 rotated and scaled
+   pairs after one step per level, within 1e-4 base px and 1e-6, two launches bit-identical, each
    pair of the T=32 launch bit-identical to its N=1 launch, the size of
    its cluster of thread blocks per pair and the pairs the card holds at
    once printed, timed by CUDA-graph replay beside events (and at S=8 its
@@ -54,9 +59,9 @@ raises and the process exits nonzero:
    1080p frames, 10 ticks each: BoT-SORT without camera-motion
    compensation (K1-K3); StrongSORT with OSNet-x0_25 (random weights
    from a seed, 256 track slots, 128 tracker dets, reid_topk 128),
-   which runs K1-K4, K4 once per tick, then K4 and its plain version
-   timed on the last tick's crop batch; the same with reid_fused=True
-   (K1-K4 and K6, K6 three times per tick), its ms/tick beside the
+   which runs K1-K4, K4 once per tick, then K4 (bit-identical) and its
+   plain version timed on the last tick's crop batch; the same with
+   reid_fused=True (K1-K4 and K6, K6 three times per tick), its ms/tick beside the
    unfused path's and OSNet on one crop batch fused against unfused;
    the fused path with reid_cadence=2 (the embed masks alternate, the
    crop batch about halves); the fused path with OSNet-x1_0 (seeded
@@ -98,8 +103,8 @@ The JSON line before the card's name is one object with one entry per
 kernel: its launches (K1-K3 and K5 counted on the flow path, K4 on the
 StrongSORT path, K6 on the fused one, K7 on yolo11n-pose with the
 route), its largest difference from its
-plain version, its time (K2, K5, K6, K7: device time by CUDA-graph
-replay; the others CUDA events) and its plain version's, its
+plain version, its time (K1, K2, K4, K5, K6, K7: device time by
+CUDA-graph replay; K3 CUDA events) and its plain version's, its
 bound (the larger of its bytes, each input read once and each output
 written once, over 3.35 TB/s, where K1 and K4 read only the 32-byte
 sectors of their input that hold a pixel their taps weigh above zero,
@@ -312,18 +317,6 @@ def phase_environment():
                     sorted(_build.compile_seconds.items())) + ")")
 
 
-def _bf16_ulps(a, b) -> int:
-    """Largest distance in bf16 units in the last place."""
-    import torch
-
-    ia = a.view(torch.int16).int()
-    ib = b.view(torch.int16).int()
-    # map sign-magnitude to a monotone integer line
-    ia = torch.where(ia < 0, -32768 - ia, ia)
-    ib = torch.where(ib < 0, -32768 - ib, ib)
-    return int((ia - ib).abs().max())
-
-
 def phase_kernels(card: str) -> list[dict]:
     import torch
 
@@ -345,34 +338,41 @@ def phase_kernels(card: str) -> list[dict]:
     rng = np.random.default_rng(0)
     report = []
 
-    # K1 at the main path's shape, plus a two-tap (non-decimating) one
+    # K1 at the main path's shape, a portrait one (a side bar of 140
+    # columns, not a multiple of 8), two two-tap (non-decimating) ones,
+    # 481x853 with rows of 2559 bytes, and a small one
     k1_err, k1_times = 0.0, None
-    for hw in ((1080, 1920), (720, 1280)):
+    for hw, size in (((1080, 1920), 640), ((720, 1280), 640),
+                     ((1920, 1080), 640), ((481, 853), 640),
+                     ((240, 320), 160)):
         frames = torch.from_numpy(
             rng.integers(0, 256, (8, *hw, 3), dtype=np.uint8)
         ).to(dev)
-        lp = letterbox_params(*hw, 640)
+        lp = letterbox_params(*hw, size)
         taps = resize_taps(hw, lp, dev)
         for dt in (torch.float32, torch.bfloat16):
             got = letterbox_u8(frames, lp, dtype=dt, taps=taps)
             want = letterbox(frames, lp, dtype=dt, taps=taps)
             err = float((got.float() - want.float()).abs().max())
-            if dt == torch.float32 and err != 0.0:
-                raise AssertionError(f"K1 f32 {hw}: max |err| {err} != 0")
-            if dt == torch.bfloat16 and _bf16_ulps(got, want) > 1:
-                raise AssertionError(f"K1 bf16 {hw}: more than 1 ulp off")
+            if not torch.equal(got, want):
+                raise AssertionError(f"K1 {dt} {hw}: differs from the plain "
+                                     f"version, max |err| {err}")
             k1_err = max(k1_err, err)
-            log(f"K1 letterbox (8,{hw[0]},{hw[1]},3)->640 {dt}: "
-                f"max |err| {err:.3g}")
+            log(f"K1 letterbox (8,{hw[0]},{hw[1]},3)->{size} {dt}: "
+                f"bit-identical (top {lp.top}, left {lp.left})")
         if hw == (1080, 1920):
             k1_times = (
-                cuda_ms(lambda: letterbox_u8(frames, lp, dtype=torch.bfloat16,
-                                             taps=taps)),
+                graph_ms(lambda: letterbox_u8(frames, lp, dtype=torch.bfloat16,
+                                              taps=taps)),
                 cuda_ms(lambda: letterbox(frames, lp, dtype=torch.bfloat16,
                                           taps=taps)),
+                cuda_ms(lambda: letterbox_u8(frames, lp, dtype=torch.bfloat16,
+                                             taps=taps)),
             )
-    log(f"K1 time (8,1080,1920,3)->bf16 640: kernel {k1_times[0]:.4f} ms, "
-        f"plain {k1_times[1]:.4f} ms [{card}]")
+    log(f"K1 time (8,1080,1920,3)->bf16 640: kernel {k1_times[0]:.4f} ms by "
+        f"graph replay ({k1_times[2]:.4f} by events), plain "
+        f"{k1_times[1]:.4f} ms [{card}]")
+    check_no_div64(("letterbox_kernel", "banded_crop_kernel"))
     frames = torch.zeros((8, 1080, 1920, 3), dtype=torch.uint8, device=dev)
     lp = letterbox_params(1080, 1920, 640)
     taps = resize_taps((1080, 1920), lp, dev)
@@ -998,25 +998,33 @@ def check_tensor_core_sass(kernel: str, instruction: str, label: str) -> None:
     build/torch_kernels/ holds ``instruction`` (HGMMA for K7's wgmma,
     HMMA for K6's mma.sync)."""
     from strongsort_yolo_tpu_torch.ops.cuda import _build
+    from strongsort_yolo_tpu_torch.tools.sass import functions
 
     path = _build.lib_path()
-    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", path], capture_output=True,
-                          text=True, timeout=300, check=True).stdout
-    counts, fn = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            fn = line.split("Function :")[1].strip()
-            if kernel in fn:
-                counts[fn] = 0
-        elif fn in counts and instruction in line:
-            counts[fn] += 1
+    counts = {fn: sum(instruction in ins for _, ins in lines)
+              for fn, lines in functions(path, kernel).items()}
     if not counts or min(counts.values()) == 0:
         raise AssertionError(f"{label}: {instruction} instructions per {kernel} "
                              f"instance {counts}")
     log(f"{label}: {len(counts)} {kernel} instances in "
         f"{os.path.basename(path)}, {instruction} instructions in each "
         f"({min(counts.values())}-{max(counts.values())}; cuobjdump -sass)")
+
+
+def check_no_div64(kernels) -> None:
+    """No instance of ``kernels`` calls the 64-bit integer division routine
+    or holds its conversion (tools/sass.py on cuobjdump -sass)."""
+    from strongsort_yolo_tpu_torch.ops.cuda import _build
+    from strongsort_yolo_tpu_torch.tools.sass import DIV64_MARK, report
+
+    for kernel in kernels:
+        counts, marks = report(_build.lib_path(), kernel)
+        log(f"SASS {kernel}: 64-bit division calls per instance "
+            f"{[c[0] for c in counts]}, calls of any routine "
+            f"{[c[1] for c in counts]}, {DIV64_MARK} instructions {marks} "
+            f"(cuobjdump -sass)")
+        if marks or any(c[0] for c in counts):
+            raise AssertionError(f"{kernel} divides 64-bit integers")
 
 
 def check_k7(card: str) -> dict:
@@ -1136,25 +1144,10 @@ def check_k7(card: str) -> dict:
     )
 
 
-def _k4_boxes(rng, n: int, h: int, w: int) -> np.ndarray:
-    """n crop boxes of one frame: sizes that select each pyramid level,
-    boxes across all four frame edges, and degenerate ones."""
-    frac = rng.choice([0.05, 0.12, 0.3, 0.6, 0.95], n)
-    bw = frac * w * rng.uniform(0.3, 1.0, n)
-    bh = frac * h * rng.uniform(0.5, 1.0, n)
-    x1 = rng.uniform(-30, w - bw / 2)
-    y1 = rng.uniform(-30, h - bh / 2)
-    boxes = np.stack([x1, y1, x1 + bw, y1 + bh], 1)
-    boxes[:8] = [[0, 0, 0, 0], [200, 300, 200, 300.5],
-                 [-60, 400, 90, 700], [w - 90, 100, w + 60, 420],
-                 [700, -80, 860, 160], [900, h - 150, 1060, h + 90],
-                 [0, 0, w, h], [w - 1, h - 1, w + 30, h + 50]]
-    return boxes.astype(np.float32)
-
-
 def check_k4(rng) -> dict:
-    """K4 against banded_crop_plain: S=8 1080p frames, 64 boxes each, in
-    the fixed-width form (slot b*64 + i from frame b) and the packed
+    """K4 against banded_crop_plain: S=8 1080p frames, 64 boxes each, and
+    S=3 481x853 frames (level rows of 853 values, not 16-byte aligned),
+    in the fixed-width form (slot b*64 + i from frame b) and the packed
     form (ragged per-frame counts padded to 8 with the dummy box)."""
     import torch
 
@@ -1162,49 +1155,52 @@ def check_k4(rng) -> dict:
     from strongsort_yolo_tpu_torch.ops.cuda.crop_kernel import (
         banded_crop, banded_crop_frames, banded_crop_plain,
     )
+    from strongsort_yolo_tpu_torch.tools.prof_resample import k4_boxes
 
     dev = torch.device("cuda")
-    S, M, (h, w), out_hw = 8, 64, (1080, 1920), (128, 64)
-    frames = torch.from_numpy(
-        rng.integers(0, 256, (S, h, w, 3), dtype=np.uint8)).to(dev)
-    boxes = np.stack([_k4_boxes(rng, M, h, w) for _ in range(S)])
-    counts = [64, 0, 37, 5, 64, 12, 1, 50]
-    packed, slot_frame = [], []
-    for f, n in enumerate(counts):
-        pad = -(-n // 8) * 8
-        packed.append(np.concatenate(
-            [boxes[f, :n], np.tile([[0, 0, 16, 32]], (pad - n, 1))]))
-        slot_frame += [f] * pad
-    packed = torch.from_numpy(np.concatenate(packed).astype(np.float32)).to(dev)
-    slot_frame = torch.tensor(slot_frame, dtype=torch.int32, device=dev)
-    boxes_t = torch.from_numpy(boxes).to(dev)
-    fixed_frame = (torch.arange(S * M, device=dev) // M).to(torch.int32)
+    M, out_hw = 64, (128, 64)
     max_err = 0.0
-    for dt in (torch.float32, torch.bfloat16):
-        imgs = frames.permute(0, 3, 1, 2).to(dt) / torch.full(
-            (), 255.0, dtype=dt, device=dev)
-        pyr = pyramid_stack(imgs)
-        scal_f, ints_f = banded_prep(boxes_t.reshape(-1, 4), (h, w), pyr.dims,
-                                     out_hw)
-        scal_p, ints_p = banded_prep(packed, (h, w), pyr.dims, out_hw)
-        if set(ints_f[:, 2].tolist()) != {0, 1, 2}:
-            raise AssertionError("K4 check: the boxes miss a pyramid level")
-        for form, got, want in (
-            ("fixed-width", banded_crop_frames(imgs, boxes_t).reshape(
-                S * M, 3, *out_hw),
-             banded_crop_plain(pyr, scal_f, ints_f, fixed_frame)),
-            ("packed", banded_crop(pyr, scal_p, ints_p, slot_frame),
-             banded_crop_plain(pyr, scal_p, ints_p, slot_frame)),
-        ):
-            torch.cuda.synchronize()
-            err = float((got.float() - want.float()).abs().max())
-            if dt == torch.float32 and err > 1e-6:
-                raise AssertionError(f"K4 {form} f32: max |err| {err} > 1e-6")
-            if dt == torch.bfloat16 and _bf16_ulps(got, want) > 1:
-                raise AssertionError(f"K4 {form} bf16: more than 1 ulp off")
-            max_err = max(max_err, err)
-            log(f"K4 banded_crop {form} ({got.shape[0]} slots of {S} 1080p "
-                f"frames) {dt}: max |err| {err:.3g}")
+    for (h, w), counts in (((1080, 1920), [64, 0, 37, 5, 64, 12, 1, 50]),
+                           ((481, 853), [64, 9, 1])):
+        S = len(counts)
+        frames = torch.from_numpy(
+            rng.integers(0, 256, (S, h, w, 3), dtype=np.uint8)).to(dev)
+        boxes = np.stack([k4_boxes(rng, M, h, w) for _ in range(S)])
+        packed, slot_frame = [], []
+        for f, n in enumerate(counts):
+            pad = -(-n // 8) * 8
+            packed.append(np.concatenate(
+                [boxes[f, :n], np.tile([[0, 0, 16, 32]], (pad - n, 1))]))
+            slot_frame += [f] * pad
+        packed = torch.from_numpy(
+            np.concatenate(packed).astype(np.float32)).to(dev)
+        slot_frame = torch.tensor(slot_frame, dtype=torch.int32, device=dev)
+        boxes_t = torch.from_numpy(boxes).to(dev)
+        fixed_frame = (torch.arange(S * M, device=dev) // M).to(torch.int32)
+        for dt in (torch.float32, torch.bfloat16):
+            imgs = frames.permute(0, 3, 1, 2).to(dt) / torch.full(
+                (), 255.0, dtype=dt, device=dev)
+            pyr = pyramid_stack(imgs)
+            scal_f, ints_f = banded_prep(boxes_t.reshape(-1, 4), (h, w),
+                                         pyr.dims, out_hw)
+            scal_p, ints_p = banded_prep(packed, (h, w), pyr.dims, out_hw)
+            if set(ints_f[:, 2].tolist()) != set(range(len(pyr.dims))):
+                raise AssertionError("K4 check: the boxes miss a pyramid level")
+            for form, got, want in (
+                ("fixed-width", banded_crop_frames(imgs, boxes_t).reshape(
+                    S * M, 3, *out_hw),
+                 banded_crop_plain(pyr, scal_f, ints_f, fixed_frame)),
+                ("packed", banded_crop(pyr, scal_p, ints_p, slot_frame),
+                 banded_crop_plain(pyr, scal_p, ints_p, slot_frame)),
+            ):
+                err = float((got.float() - want.float()).abs().max())
+                if not torch.equal(got, want):
+                    raise AssertionError(f"K4 {form} {h}x{w} {dt}: differs "
+                                         f"from the plain version, max |err| "
+                                         f"{err}")
+                max_err = max(max_err, err)
+                log(f"K4 banded_crop {form} ({got.shape[0]} slots of {S} "
+                    f"{h}x{w} frames) {dt}: bit-identical")
     return dict(
         name="banded_crop", route="cuda",
         source="strongsort_yolo_tpu_torch/csrc/banded_crop.cu",
@@ -1571,6 +1567,8 @@ def phase_strongsort_path(card: str, kernels):
     K4's entries, median ms/tick, the pipeline, the ticks, G per tick)."""
     import torch
 
+    from strongsort_yolo_tpu_torch.tools.prof_conv import graph_ms
+
     from strongsort_yolo_tpu_torch.ops.cuda.crop_kernel import (
         banded_crop, banded_crop_plain,
     )
@@ -1632,14 +1630,20 @@ def phase_strongsort_path(card: str, kernels):
     log(f"strongsort embed split at G={slots.shape[1]} (median of 5, ms): "
         + ", ".join(f"{k} {sorted(v)[2]:.3f}" for k, v in split.items())
         + f" [{card}]")
-    k4_times = (cuda_ms(lambda: banded_crop(pyr, *params)),
-                cuda_ms(lambda: banded_crop_plain(pyr, *params), iters=5))
+    if not torch.equal(crops, banded_crop_plain(pyr, *params)):
+        raise AssertionError("K4 on the path's crop batch differs from its "
+                             "plain version")
+    k4_times = (graph_ms(lambda: banded_crop(pyr, *params)),
+                cuda_ms(lambda: banded_crop_plain(pyr, *params), iters=5),
+                cuda_ms(lambda: banded_crop(pyr, *params)))
     # about 7 operations per output value: two column taps, two row taps
     k4_bound = bound(k4_bytes(pyr, *params, crops), 7 * crops.numel())
     log(f"K4 time on the path's crop batch (G={slots.shape[1]} slots of "
-        f"{S_MAIN} 1080p frames, bf16 -> (G,3,128,64)): kernel "
-        f"{k4_times[0]:.4f} ms, plain {k4_times[1]:.4f} ms, bound "
-        f"{k4_bound[0]:.4f} ms ({k4_bound[1]}) [{card}]")
+        f"{S_MAIN} 1080p frames, bf16 -> (G,3,128,64), bit-identical): "
+        f"kernel {k4_times[0]:.4f} ms by graph replay ({k4_times[2]:.4f} by "
+        f"events), plain {k4_times[1]:.4f} ms, bound {k4_bound[0]:.4f} ms "
+        f"({k4_bound[1]}), {100 * k4_bound[0] / k4_times[0]:.1f}% of it "
+        f"[{card}]")
     k4 = dict(ms=k4_times[0], plain_ms=k4_times[1], bound_ms=k4_bound[0],
               bound_by=k4_bound[1])
     median = sorted(times[2:])[len(times[2:]) // 2]

@@ -82,7 +82,8 @@ def banded_crop(
 ) -> torch.Tensor:
     """G crop slots sampled from the pyramid of S frames -> (G, 3, oh, ow)
     in the pyramid's dtype. CPU tensors take :func:`banded_crop_plain`;
-    CUDA tensors launch K4, one thread per slot, output row and column."""
+    CUDA tensors launch K4, one block per slot and tile of 16 output rows
+    and 64 columns."""
     stack = pyr.stack
     if stack.device.type == "cpu":
         return banded_crop_plain(pyr, scal, ints, slot_frame, out_hw)
