@@ -86,7 +86,23 @@ raises and the process exits nonzero:
    events); and yolov8n-seg with BoT-SORT (K1-K3, a mask and a polygon
    per track row, the polygons traced on the host and timed apart from
    the tick); each path's launch counts are zeroed before it and must
-   all have moved after it;
+   all have moved after it; every path steps through BatchedPipeline.step,
+   which is materialize(step_async(...)): frames through a pinned ring,
+   outputs through pinned, event-fenced copies; the task paths also time
+   the track rows' extras to the host, pinned on the download stream
+   against a pageable .cpu();
+3b. the asynchronous API on paths a, b-fused, c and e (S=8 1080p): the
+   step loop and the overlapped loop (step_async t, then materialize
+   t - 1, as the app runs) in turns, step, overlapped, overlapped, step,
+   their Results bit-identical (cuDNN deterministic); ms per tick (median,
+   p90) of both loops and step_async's host ms; the sync check: four
+   overlapped ticks under torch.cuda.set_sync_debug_mode("warn") issue
+   no synchronizing op, and the host waits only for each handle's event
+   and, on the ReID path, once per tick for the detection counts (ms per
+   tick printed); the device's busy share of both loops under
+   torch.profiler; on path a the upload split (pageable .to() against
+   the ring's fill of a pinned slot, PyTorch's threaded CPU copy, and
+   that slot's copy by CUDA events);
 4. the trained synth160 checkpoints on rendered frames, on the card with
    the kernels and on the CPU with the plain versions (float32, TF32
    off), for ByteTrack, for StrongSORT with the trained OSNet
@@ -1210,6 +1226,14 @@ def check_k4(rng) -> dict:
     )
 
 
+def to_card(frames: np.ndarray):
+    """Host frames as a tensor on the card that the caller owns (the
+    pipeline's own uploads go through its pinned ring)."""
+    import torch
+
+    return torch.from_numpy(np.ascontiguousarray(frames)).to("cuda")
+
+
 def calibrate_candidates(pipe, frame: np.ndarray, conf: float, target: int):
     """Shift the class-head output biases so that about ``target``
     anchors of ``frame`` clear ``conf``."""
@@ -1499,8 +1523,8 @@ def phase_flow_path(card: str, kernels):
         f"{_ms_line(times)} [{card}]")
 
     # the GMC share of a tick, on the last tick's frames (CUDA events)
-    frames = pipe._upload(ticks[-1])
-    prev = frame_to_gray(pipe._upload(ticks[-2]))
+    frames = to_card(ticks[-1])
+    prev = frame_to_gray(to_card(ticks[-2]))
     gray = frame_to_gray(frames)
     pp, pc = pyramid(prev), pyramid(gray)
     params = torch.tensor([1.0, 0.0, 0.0, 0.0, 1.0, 0.0],
@@ -1553,8 +1577,8 @@ def _record_slots(pipe) -> list[int]:
     """Note G, the crop slots, of every embed of ``pipe``."""
     slot_counts, embed_slots = [], pipe.embed_slots
 
-    def recording(det, mask=None):
-        slots = embed_slots(det, mask)
+    def recording(counts, mask=None):
+        slots = embed_slots(counts, mask)
         slot_counts.append(slots.shape[1])
         return slots
 
@@ -1574,6 +1598,7 @@ def phase_strongsort_path(card: str, kernels):
     )
     from strongsort_yolo_tpu_torch.pipeline import BatchedPipeline
     from strongsort_yolo_tpu_torch.track.strongsort import StrongSortConfig
+    from strongsort_yolo_tpu_torch.utils.transfer import to_device
 
     h, w = 1080, 1920
     pool = make_frames(h, w, seed=1)
@@ -1601,9 +1626,9 @@ def phase_strongsort_path(card: str, kernels):
         f"synchronized): {_ms_line(times)} [{card}]")
 
     # the embed of the last tick, split with a synced host clock
-    frames = pipe._upload(ticks[-1])
+    frames = to_card(ticks[-1])
     det = pipe.detect(frames)
-    slots = embed_slots(det)
+    slots = embed_slots(det.count.cpu().numpy())
     split = {"pyramid": [], "slot upload + banded_prep": [], "K4": [],
              "OSNet": []}
     with torch.no_grad():
@@ -1617,7 +1642,8 @@ def phase_strongsort_path(card: str, kernels):
             stamp()
             pyr = pipe.pyramid(frames)
             stamp()
-            params = pipe.crop_params(pyr, det, slots)
+            params = pipe.crop_params(pyr, det,
+                                      to_device(slots, pipe.device))
             stamp()
             crops = banded_crop(pyr, *params)
             stamp()
@@ -1690,12 +1716,13 @@ def phase_fused_strongsort_path(card: str, kernels, unfused):
         f"{unfused_ms:.2f} [{card}]")
 
     # OSNet on the last tick's crop batch, fused against unfused
-    frames = pipe._upload(ticks[-1])
+    frames = to_card(ticks[-1])
     det = pipe.detect(frames)
-    slots = pipe.embed_slots(det)
+    slots = torch.from_numpy(pipe.embed_slots(det.count.cpu().numpy()))
     with torch.no_grad():
         pyr = pipe.pyramid(frames)
-        crops = banded_crop(pyr, *pipe.crop_params(pyr, det, slots))
+        crops = banded_crop(pyr, *pipe.crop_params(pyr, det,
+                                                   slots.to(pipe.device)))
         f_fused, f_plain = pipe.reid(crops), upipe.reid(crops)
         cos = (f_fused * f_plain).sum(-1)
         if not (torch.isfinite(f_fused).all() and float(cos.mean()) >= 0.99):
@@ -1818,7 +1845,7 @@ def _forward_ms(pipe, frames) -> tuple[float, float]:
     from strongsort_yolo_tpu_torch.tools.prof_conv import graph_ms
 
     lp = letterbox_params(*frames.shape[1:3], pipe.det_cfg.imgsz)
-    img = letterbox(pipe._upload(frames), lp, dtype=pipe.compute_dtype)
+    img = letterbox(to_card(frames), lp, dtype=pipe.compute_dtype)
     with torch.no_grad():
         return cuda_ms(lambda: pipe.model(img)), graph_ms(lambda: pipe.model(img))
 
@@ -1826,25 +1853,41 @@ def _forward_ms(pipe, frames) -> tuple[float, float]:
 def _extras_split(label: str, pipe, frames, results, card: str) -> None:
     """The task extras' share of a tick: detect with and without the
     extras of the top tracker_max_dets rows (CUDA events), and the copy
-    of the track rows' extras to the host (synchronized host clock)."""
+    of the track rows' extras to the host (synchronized host clock), the
+    pipeline's (gathered on its download stream into pinned memory)
+    against a pageable .cpu() of the same rows."""
     import torch
 
-    dev_frames = pipe._upload(frames)
+    dev_frames = to_card(frames)
     k = pipe.tracker_max_dets
     det_ms = cuda_ms(lambda: pipe.detect(dev_frames))
     ext_ms = cuda_ms(lambda: pipe.detect_with_extras(dev_frames, k))
     _, extras = pipe.detect_with_extras(dev_frames, k)
     rows = [np.arange(len(r)) for r in results]
-    copy_ms = []
+    sel = torch.from_numpy(np.stack([
+        np.repeat(np.arange(len(rows)), [len(r) for r in rows]),
+        np.concatenate(rows)])).to(pipe.device)
+    size = sum(v[0, 0].numel() * v.element_size()
+               for v in extras.values()) * sel.shape[1]
+    copy_ms = {"pinned": [], "pageable": []}
     for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        pipe._extras_rows(extras, rows)
-        copy_ms.append((time.perf_counter() - t0) * 1e3)
+        for how in copy_ms:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if how == "pinned":
+                ready = torch.cuda.Event()
+                ready.record()
+                pipe._extras_rows(extras, rows, ready)
+            else:
+                [v[sel[0], sel[1]].cpu() for v in extras.values()]
+            copy_ms[how].append((time.perf_counter() - t0) * 1e3)
     log(f"{label} extras split (S={S_MAIN}, last tick): detect {det_ms:.4f} ms, "
         f"with the extras of {k} rows per frame {ext_ms:.4f} ms (CUDA events, "
-        f"mean of 20); copy of {sum(map(len, rows))} rows' extras to the host "
-        f"{sorted(copy_ms)[2]:.3f} ms (median of 5) [{card}]")
+        f"mean of 20); copy of {sel.shape[1]} rows' extras "
+        f"({size / 1e6:.1f} MB) to the host, median of 5: pinned, on the "
+        f"download stream {float(np.median(copy_ms['pinned'])):.3f} ms, "
+        f"pageable .cpu() {float(np.median(copy_ms['pageable'])):.3f} ms "
+        f"[{card}]")
 
 
 def phase_task_paths(card: str, kernels, conv_act) -> dict:
@@ -2074,6 +2117,239 @@ def phase_trained_checkpoint():
             + (", warps within 2e-3" if warps["cpu"] else ""))
 
 
+def _stats(times: list[float]) -> tuple[float, float]:
+    """(median, p90) of host ms per tick."""
+    return float(np.median(times)), float(np.percentile(times, 90))
+
+
+def _step_loop(bp, ticks, warps=None):
+    """``step`` tick by tick: -> (host ms per tick, Results per tick)."""
+    times, results = [], []
+    for frames in ticks:
+        t0 = time.perf_counter()
+        results.append(bp.step(frames, warps))
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times, results
+
+
+def _overlapped_loop(bp, ticks, warps=None):
+    """The app's loop: step_async(t), then materialize(t - 1). -> (host ms
+    per turn of the loop, host ms of each step_async, host ms of each
+    fill of the ring's host slot, Results per tick)."""
+    times, dispatch, fills, results, pending = [], [], [], [], None
+    for frames in ticks:
+        t0 = time.perf_counter()
+        handle = bp.step_async(frames, warps)
+        dispatch.append((time.perf_counter() - t0) * 1e3)
+        fills.append(bp.ring.fill_ms)
+        if pending is not None:
+            results.append(bp.materialize(pending))
+        pending = handle
+        times.append((time.perf_counter() - t0) * 1e3)
+    results.append(bp.materialize(pending))
+    return times, dispatch, fills, results
+
+
+def _assert_identical(label: str, want, got) -> None:
+    """Two runs' Results bit for bit: rows, boxes, scores, classes, ids,
+    keypoints and masks."""
+    for t, (w_t, g_t) in enumerate(zip(want, got)):
+        for s, (a, b) in enumerate(zip(w_t, g_t)):
+            what = f"{label} t={t} s={s}"
+            if len(a) != len(b):
+                raise AssertionError(f"{what}: {len(b)} rows against {len(a)}")
+            for name in ("xyxy", "conf", "cls", "id"):
+                if not np.array_equal(getattr(a.boxes, name),
+                                      getattr(b.boxes, name)):
+                    raise AssertionError(f"{what}: boxes.{name} differ")
+            for name in ("keypoints", "masks"):
+                x, y = getattr(a, name), getattr(b, name)
+                if (x is None) != (y is None) or (
+                        x is not None and not np.array_equal(x.data, y.data)):
+                    raise AssertionError(f"{what}: {name} differ")
+
+
+def busy_share(run) -> tuple[float, float] | None:
+    """Run ``run()`` under torch.profiler -> (device busy ms, the loop's
+    wall ms): the union of the kernels' and copies' spans on the card,
+    all streams together; None where the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        return None
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3, wall
+
+
+def _upload_split(frames: np.ndarray, fill_ms: list[float], card: str) -> None:
+    """One tick's frames: the old pageable copy (.to(), synchronized host
+    clock, and CUDA events) against the ring's parts, the host's fill of
+    a pinned slot (PyTorch's threaded CPU copy, measured in the
+    overlapped loop; one thread's np.copyto beside it) and the pinned
+    slot's copy to the card (CUDA events)."""
+    import torch
+
+    dev = torch.device("cuda")
+    host = torch.from_numpy(frames)
+    pageable = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host.to(dev)
+        torch.cuda.synchronize()
+        pageable.append((time.perf_counter() - t0) * 1e3)
+    pinned = torch.empty(host.shape, dtype=torch.uint8, pin_memory=True)
+    one_thread = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        np.copyto(pinned.numpy(), frames)
+        one_thread.append((time.perf_counter() - t0) * 1e3)
+    slot = torch.empty(host.shape, dtype=torch.uint8, device=dev)
+    copy_ms = cuda_ms(lambda: slot.copy_(pinned, non_blocking=True), iters=10)
+    mb = host.numel() / 1e6
+    log(f"upload of {tuple(host.shape)} u8 ({mb:.1f} MB): pageable .to() "
+        f"{float(np.median(pageable)):.3f} ms (synchronized host clock, "
+        f"median of 5), {cuda_ms(lambda: host.to(dev), iters=5, warmup=1):.3f}"
+        f" ms by events; the ring: the fill of a pinned slot "
+        f"{float(np.median(fill_ms)):.3f} ms on the host ({torch.get_num_threads()}"
+        f" threads, median over the overlapped loop; np.copyto on one "
+        f"thread {float(np.median(one_thread)):.3f}), its copy to the card "
+        f"{copy_ms:.3f} ms by events "
+        f"({mb / copy_ms:.1f} GB/s), on the upload stream beside the previous "
+        f"tick [{card}]")
+
+
+def phase_async_paths(card: str) -> None:
+    """The asynchronous API at full width, S=8 1080p, on paths a
+    (BoT-SORT, gmc none), b-fused (StrongSORT + fused OSNet-x0_25), c
+    (BoT-SORT flow_tpu, panned) and e (yolov8n-seg): the step loop and
+    the overlapped loop (step_async t, then materialize t - 1) in turns
+    (step, overlapped, overlapped, step), each from fresh streams, their
+    Results bit-identical; ms per tick (median, p90) of both loops and
+    the host ms of step_async; the sync check (no synchronizing op in the
+    overlapped ticks; the ReID count read is the one host wait, counted
+    and timed); the device's busy share under torch.profiler for both
+    loops; and on path a the upload split."""
+    import torch
+
+    from strongsort_yolo_tpu_torch.pipeline import BatchedPipeline
+    from strongsort_yolo_tpu_torch.tools.sync_count import count_syncs
+    from strongsort_yolo_tpu_torch.track.bytetrack import ByteTrackConfig
+    from strongsort_yolo_tpu_torch.track.strongsort import StrongSortConfig
+
+    h, w = 1080, 1920
+    botsort = ByteTrackConfig(tracker_type="botsort", gmc_method="none")
+    scene = panned_scene(h, w)
+    paths = (
+        ("a", botsort, {}, make_frames(h, w)),
+        ("b-fused", StrongSortConfig(gmc_method="none"), dict(fused=True),
+         make_frames(h, w, seed=1)),
+        ("c", ByteTrackConfig(tracker_type="botsort", gmc_method="flow_tpu"),
+         {}, [scene]),
+        ("e", botsort, dict(model="yolov8n-seg"), make_frames(h, w, seed=2)),
+    )
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for label, tracker, kw, pool in paths:
+            pipe = _main_pipeline(tracker, pool, **kw)
+            if label == "c":
+                ticks = [np.stack([np.roll(scene, (t * dy, t * dx), axis=(0, 1))
+                                   for dx, dy in PANS]) for t in range(TICKS)]
+            else:
+                ticks = [np.stack([pool[(s + t) % len(pool)]
+                                   for s in range(S_MAIN)]) for t in range(TICKS)]
+            step_ms, over_ms, dispatch, fill = [], [], [], []
+            runs, waits, wait_ms, stalls = {}, 0, 0.0, 0
+            for mode in ("step", "overlapped", "overlapped", "step"):
+                bp = BatchedPipeline(pipe, S_MAIN, (h, w))
+                if mode == "step":
+                    times, results = _step_loop(bp, ticks)
+                    step_ms += times[2:]
+                else:
+                    before = (pipe.count_waits, pipe.count_wait_ms)
+                    times, disp, fills, results = _overlapped_loop(bp, ticks)
+                    waits += pipe.count_waits - before[0]
+                    wait_ms += pipe.count_wait_ms - before[1]
+                    over_ms += times[2:]
+                    dispatch += disp[2:]
+                    fill += fills[2:]
+                    stalls += bp.ring.stalls
+                if mode in runs:
+                    _assert_identical(f"async {label} {mode} rounds",
+                                      runs[mode], results)
+                else:
+                    runs[mode] = results
+            _assert_identical(f"async {label}: step loop against overlapped",
+                              runs["step"], runs["overlapped"])
+            _check_results(f"async {label}", runs["step"][-1])
+            (sm, sp), (om, op) = _stats(step_ms), _stats(over_ms)
+            dm = float(np.median(dispatch))
+            log(f"async path {label} (S={S_MAIN} 1080p, {TICKS} ticks x 2 "
+                f"rounds each, in turns): step loop ms/tick median {sm:.2f}, "
+                f"p90 {sp:.2f}; overlapped loop median {om:.2f}, p90 "
+                f"{op:.2f}; step_async's host ms median {dm:.2f}, the host "
+                f"waited for a ring slot {stalls} times; Results "
+                f"bit-identical across the four rounds; steady ticks, step "
+                f"{[round(x, 2) for x in step_ms]}, overlapped "
+                f"{[round(x, 2) for x in over_ms]} [{card}]")
+            before = pipe.count_waits
+            fresh = BatchedPipeline(pipe, S_MAIN, (h, w))
+            sites = count_syncs(lambda: _overlapped_loop(fresh, ticks[:4]),
+                                ROOT)
+            n_waits = pipe.count_waits - before
+            if sites:
+                raise AssertionError(f"async path {label}: synchronizing ops "
+                                     f"in the overlapped ticks: {dict(sites)}")
+            if n_waits != 4 * (pipe.reid is not None):
+                raise AssertionError(f"async path {label}: {n_waits} count "
+                                     "waits in 4 ticks")
+            msg = ""
+            if pipe.reid is not None:
+                msg = (f"; the ReID count read, the one host wait: "
+                       f"{wait_ms / waits:.3f} ms per tick blocked, mean of "
+                       f"the {waits} overlapped ticks")
+            log(f"async path {label} sync check: no synchronizing op in 4 "
+                f"overlapped ticks under set_sync_debug_mode('warn'), "
+                f"{n_waits} count waits{msg} [{card}]")
+            shares = {}
+            for mode, loop in (("step", _step_loop),
+                               ("overlapped", _overlapped_loop)):
+                bp = BatchedPipeline(pipe, S_MAIN, (h, w))
+                loop(bp, ticks[:2])  # the fresh ring's first copies
+                shares[mode] = busy_share(lambda: loop(bp, ticks))
+            if any(v is None for v in shares.values()):
+                log(f"async path {label} device busy share: not measured (the "
+                    "profiler recorded no device time)")
+            else:
+                log(f"async path {label} under torch.profiler, {TICKS} ticks: "
+                    + "; ".join(
+                        f"{m} loop device busy {b:.2f} of {wall:.2f} ms "
+                        f"(share {b / wall:.3f}, idle {1 - b / wall:.3f}), "
+                        f"{b / TICKS:.2f} ms of device time per tick"
+                        for m, (b, wall) in shares.items())
+                    + f"; step_async's host ms median {dm:.2f} [{card}]")
+            if label == "a":
+                _upload_split(ticks[-1], fill, card)
+            del pipe, runs
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
 def main() -> int:
     import torch
 
@@ -2117,6 +2393,8 @@ def main() -> int:
         f"flow_tpu {flow_ms:.2f} [{card}]")
     task_counts = phase_task_paths(card, (letterbox_u8, nms_keep, auction),
                                    conv_act)
+    mark("phase 3b: the asynchronous API, step loop against overlapped loop")
+    phase_async_paths(card)
     counts["banded_crop"] = ss_counts["banded_crop"]
     counts["os_stage"] = fused_counts["os_stage"]
     counts["conv_act"] = task_counts["conv_act"]

@@ -18,6 +18,7 @@ the JAX functions keep (..., H, W, C).
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -57,23 +58,30 @@ def _pad_dims(dims):
     ]
 
 
+@functools.lru_cache(maxsize=64)
+def _taps(dst: int, src: int, device: torch.device):
+    """One axis's tap indices (int64) and float32 weights on ``device``,
+    uploaded once per shape: a copy from pageable memory on every call
+    would synchronise the stream."""
+    idx, wts = _axis_taps(dst, src)
+    lo, hi = (torch.from_numpy(i.astype(np.int64)).to(device) for i in idx)
+    w_lo, w_hi = (torch.from_numpy(v).to(device) for v in wts)
+    return lo, hi, w_lo, w_hi
+
+
 def resize_bilinear(x: torch.Tensor, new_h: int, new_w: int) -> torch.Tensor:
     """(..., H, W) float -> (..., new_h, new_w) in x's dtype: the
     cv2.INTER_LINEAR resize of the JAX ``resize_bilinear_matmul``, two
     taps per axis, rows first, each pass summed in float32 and rounded
     to x's dtype (as the JAX contraction rounds its output)."""
     h, w = x.shape[-2], x.shape[-1]
-    dt, f32, dev = x.dtype, torch.float32, x.device
+    dt, f32 = x.dtype, torch.float32
     if new_h != h:
-        idx, wts = _axis_taps(new_h, h)
-        lo, hi = (torch.from_numpy(i.astype(np.int64)).to(dev) for i in idx)
-        w_lo, w_hi = (torch.from_numpy(v).to(dev)[:, None] for v in wts)
-        x = (w_lo * x.index_select(-2, lo).to(f32)
-             + w_hi * x.index_select(-2, hi).to(f32)).to(dt)
+        lo, hi, w_lo, w_hi = _taps(new_h, h, x.device)
+        x = (w_lo[:, None] * x.index_select(-2, lo).to(f32)
+             + w_hi[:, None] * x.index_select(-2, hi).to(f32)).to(dt)
     if new_w != w:
-        idx, wts = _axis_taps(new_w, w)
-        lo, hi = (torch.from_numpy(i.astype(np.int64)).to(dev) for i in idx)
-        w_lo, w_hi = (torch.from_numpy(v).to(dev) for v in wts)
+        lo, hi, w_lo, w_hi = _taps(new_w, w, x.device)
         x = (w_lo * x.index_select(-1, lo).to(f32)
              + w_hi * x.index_select(-1, hi).to(f32)).to(dt)
     return x
@@ -101,6 +109,12 @@ class PyramidStack(NamedTuple):
     src_hw: tuple[int, int]  # the frames' (H, W)
 
 
+@functools.lru_cache(maxsize=64)
+def _row_offsets(offs: tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """(L,) int32 level offsets on ``device``, uploaded once per shape."""
+    return torch.tensor(offs, dtype=torch.int32, device=device)
+
+
 def pyramid_stack(images: torch.Tensor) -> PyramidStack:
     """(S, C, H, W) float frames -> their :class:`PyramidStack`."""
     levels = build_pyramid(images)
@@ -110,9 +124,8 @@ def pyramid_stack(images: torch.Tensor) -> PyramidStack:
     stack = images.new_zeros((s, c, offs[-1], dims[0][1]))
     for lv, (h, w), off in zip(levels, dims, offs):
         stack[:, :, off:off + h, :w] = lv
-    row_off = torch.tensor(offs[:-1], dtype=torch.int32, device=images.device)
-    return PyramidStack(stack, row_off, dims,
-                        (images.shape[-2], images.shape[-1]))
+    return PyramidStack(stack, _row_offsets(tuple(offs[:-1]), images.device),
+                        dims, (images.shape[-2], images.shape[-1]))
 
 
 def banded_prep(boxes: torch.Tensor, src_hw, dims, out_hw):
@@ -130,8 +143,8 @@ def banded_prep(boxes: torch.Tensor, src_hw, dims, out_hw):
     H, W = src_hw
     oh, ow = out_hw
 
-    def const(v):
-        return torch.tensor(v, dtype=f32, device=dev)
+    def const(v):  # a fill on the device, not a copy from the host
+        return torch.full((), v, dtype=f32, device=dev)
 
     boxes = boxes.to(f32)
     x1, y1, x2, y2 = (boxes[..., i] for i in range(4))

@@ -29,6 +29,17 @@ warps from the caller, and a step without them raises ``ValueError``.
 semantics of T ``track`` calls: one detect batch, one embed batch, one
 K5 launch over the T frame pairs, then the tracker frame by frame.
 
+The asynchronous API is the JAX package's: :meth:`Pipeline.track_async`
+and :meth:`BatchedPipeline.step_async` dispatch a tick and return a
+:class:`TickHandle`; ``materialize`` waits for that tick alone, and
+``track``/``step`` are ``materialize`` of the async call. On the card
+the compute runs on the caller's current stream and the copies on side
+streams (``utils/transfer.py``): frames through a ring of pinned slots,
+outputs through pinned memory with an event per handle, the track rows'
+task extras gathered after their own tick only. A tick synchronises no
+stream; its one host wait is a ReID tracker's read of the detection
+counts (:meth:`Pipeline.embed`).
+
 ``Results``/``Boxes``/``Masks``/``Keypoints`` mirror the ultralytics
 result surface (``.boxes{.xyxy,.conf,.cls,.id}``, ``.masks.xy``,
 ``.keypoints.xy``, ``.names``). A track row takes the extras of the
@@ -40,6 +51,7 @@ first read, one mask at a time.
 from __future__ import annotations
 
 import os
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -106,6 +118,11 @@ from strongsort_yolo_tpu_torch.track.strongsort import (
     strongsort_step,
 )
 from strongsort_yolo_tpu_torch.utils.coco_names import COCO_NAMES
+from strongsort_yolo_tpu_torch.utils.transfer import (
+    Copies,
+    Download,
+    to_device,
+)
 
 PACK_G = 8  # slot quantum of the packed embed: each stream's crop count
 # rounds up to it, as the TPU kernel's crop blocks do
@@ -205,6 +222,28 @@ class _Geometry(NamedTuple):
     lp: LetterboxParams
     taps: ResizeTaps
     src_hw: tuple[int, int]
+    pad: torch.Tensor  # (4,) float32 [pad_x, pad_y, pad_x, pad_y]
+
+
+class TickHandle:
+    """One dispatched tick (:meth:`Pipeline.track_async`,
+    :meth:`BatchedPipeline.step_async`): its packed track outputs on their
+    way to pinned host memory, fenced by one event, and the task extras
+    still on the device until the first ``materialize`` copies the track
+    rows' share of them (kept for later calls)."""
+
+    __slots__ = ("packed", "extras", "src_hw", "orig_imgs", "host_extras")
+
+    def __init__(self, packed: Download, extras: dict, src_hw, orig_imgs=None):
+        self.packed = packed
+        self.extras = extras
+        self.src_hw = tuple(src_hw)
+        self.orig_imgs = orig_imgs
+        self.host_extras: list[dict] | None = None
+
+    def query(self) -> bool:
+        """Whether the tick's outputs have reached the host (never blocks)."""
+        return self.packed.query()
 
 
 def _reid_checkpoint(weights: str | None, params: dict | None, seed: int):
@@ -364,6 +403,11 @@ class Pipeline:
             mask[list(det_cfg.classes)] = True
             self._class_filter = mask.to(self.device)
         self._geoms: dict[tuple[int, int], _Geometry] = {}
+        self._copies = Copies(self.device)
+        self._dummy_box = torch.tensor(_DUMMY_BOX, device=self.device)
+        # the ReID count read, the tick's one host wait: how many, how long
+        self.count_waits = 0
+        self.count_wait_ms = 0.0
         self.track_state = self.init_states(1)
 
     def init_states(self, num_streams: int) -> TrackState:
@@ -375,10 +419,12 @@ class Pipeline:
 
     def _geometry(self, src_hw: tuple[int, int]) -> _Geometry:
         src_hw = (int(src_hw[0]), int(src_hw[1]))
-        if src_hw not in self._geoms:
+        if src_hw not in self._geoms:  # uploaded once per geometry
             lp = letterbox_params(*src_hw, self.det_cfg.imgsz)
+            pad = torch.tensor([lp.pad_x, lp.pad_y] * 2, dtype=torch.float32,
+                               device=self.device)
             self._geoms[src_hw] = _Geometry(
-                lp, resize_taps(src_hw, lp, self.device), src_hw
+                lp, resize_taps(src_hw, lp, self.device), src_hw, pad
             )
         return self._geoms[src_hw]
 
@@ -431,26 +477,23 @@ class Pipeline:
         else:
             coefs = torch.gather(out["mask_coef"], 1,
                                  idx[..., None].expand(-1, -1, cfg.nm))
-            pad = torch.tensor([lp.pad_x, lp.pad_y] * 2, dtype=torch.float32,
-                               device=self.device)
             # crop to the clipped frame boxes mapped back to the model input
             crop = torch.where(det.valid[:, :k, None],
-                               det.boxes[:, :k] * lp.gain + pad, 0.0)
+                               det.boxes[:, :k] * lp.gain + geo.pad, 0.0)
             extras["masks"] = process_masks(coefs, out["proto"], crop,
                                             (size, size))
         return det, extras
 
-    def embed_slots(self, det: Detections,
+    def embed_slots(self, counts: np.ndarray,
                     mask: np.ndarray | None = None) -> np.ndarray:
-        """The packed crop slots of one tick, from the real detection
-        count: stream s gets min(count_s, cap) slots rounded up to
-        ``PACK_G``, streams in order (cap = min(reid_topk,
+        """The packed crop slots of one tick, from the (S,) real detection
+        counts on the host: stream s gets min(count_s, cap) slots rounded
+        up to ``PACK_G``, streams in order (cap = min(reid_topk,
         tracker_max_dets)), none where the (S,) bool ``mask`` is False.
         -> (3, G) int64 host array of [frame, row, real] per slot;
-        padding slots have real = 0. Reading the (S,) counts is the
-        tick's one extra device-to-host copy."""
+        padding slots have real = 0."""
         cap = min(self.reid_topk, self.tracker_max_dets)
-        counts = np.minimum(det.count.cpu().numpy().astype(np.int64), cap)
+        counts = np.minimum(np.asarray(counts).astype(np.int64), cap)
         if mask is not None:
             counts = counts * mask
         padded = -(-counts // PACK_G) * PACK_G
@@ -470,18 +513,26 @@ class Pipeline:
         return pyramid_stack(imgs)
 
     def crop_params(self, pyr: PyramidStack, det: Detections,
-                    slots: np.ndarray):
-        """The slots of :meth:`embed_slots` -> K4's per-slot arguments
-        (scal, ints, slot_frame) on the device; padding slots crop the
-        dummy box."""
-        dev = self.device
-        frame, row, real = torch.from_numpy(slots).to(dev).unbind(0)
+                    slots: torch.Tensor):
+        """The slots of :meth:`embed_slots`, as a (3, G) int64 tensor on
+        the device -> K4's per-slot arguments (scal, ints, slot_frame);
+        padding slots crop the dummy box."""
+        frame, row, real = slots.unbind(0)
         boxes = det.boxes[frame, row.clamp(max=det.boxes.shape[1] - 1)]
-        boxes = torch.where(real.bool()[:, None], boxes,
-                            torch.tensor(_DUMMY_BOX, device=dev))
+        boxes = torch.where(real.bool()[:, None], boxes, self._dummy_box)
         scal, ints = banded_prep(boxes, pyr.src_hw, pyr.dims,
                                  self.reid.cfg.crop_hw)
         return scal, ints, frame.to(torch.int32)
+
+    def _wait_counts(self, read: Download) -> np.ndarray:
+        """The tick's one host wait: the (S,) detection counts that size
+        the crop batch. Counted and timed (``count_waits``,
+        ``count_wait_ms``)."""
+        t0 = time.perf_counter()
+        counts = read.wait()
+        self.count_wait_ms += (time.perf_counter() - t0) * 1e3
+        self.count_waits += 1
+        return counts
 
     @torch.no_grad()
     def embed(self, frames: torch.Tensor, det: Detections,
@@ -491,22 +542,29 @@ class Pipeline:
         covers the real detections of all S frames (sized from the
         counts, so it grows with the load, not with S); rows past a
         frame's count, or past ``reid_topk``, and every row of a frame
-        whose (S,) ``mask`` entry is False get a zero feature."""
+        whose (S,) ``mask`` entry is False get a zero feature. The counts
+        start for the host before the pyramid is queued and are waited
+        for after it, so the device has the pyramid to run meanwhile."""
         if self.reid is None:
             return None
         s, t = frames.shape[0], self.tracker_max_dets
         feats = torch.zeros((s, t, self.feat_dim), dtype=torch.float32,
                             device=self.device)
-        slots = self.embed_slots(det, mask)
+        read = Download(det.count)
+        pyr = self.pyramid(frames)
+        slots = self.embed_slots(self._wait_counts(read), mask)
         real = slots[2].astype(bool)
         if real.any():
-            pyr = self.pyramid(frames)
-            crops = banded_crop(pyr, *self.crop_params(pyr, det, slots),
-                                self.reid.cfg.crop_hw)  # (G, 3, 128, 64)
-            feats_g = self.reid(crops)
-            keep = torch.from_numpy(np.flatnonzero(real)).to(self.device)
-            frame, row = torch.from_numpy(slots[:2, real]).to(self.device)
-            feats[frame, row] = feats_g[keep]
+            g, n = slots.shape[1], int(real.sum())
+            # the slots and the real slots' (index, frame, row): one copy
+            idx = to_device(np.concatenate(
+                [slots.ravel(), np.flatnonzero(real), slots[0, real],
+                 slots[1, real]]), self.device)
+            keep, frame, row = idx[3 * g:].view(3, n)
+            crops = banded_crop(
+                pyr, *self.crop_params(pyr, det, idx[:3 * g].view(3, g)),
+                self.reid.cfg.crop_hw)  # (G, 3, 128, 64)
+            feats[frame, row] = self.reid(crops)[keep]
         return feats
 
     @torch.no_grad()
@@ -555,35 +613,38 @@ class Pipeline:
                 "(the warp is estimated on the device from the previous "
                 "frame); use another gmc_method to pass host warps"
             )
-        w = torch.as_tensor(np.asarray(warps, np.float32), device=self.device)
+        w = np.asarray(warps, np.float32)
         if w.shape != (n, 2, 3):
             raise ValueError(f"warps must be ({n}, 2, 3), got {tuple(w.shape)}")
-        return w
+        return to_device(w, self.device)
 
-    def _upload(self, frames: np.ndarray) -> torch.Tensor:
-        frames = np.ascontiguousarray(frames)
-        if frames.dtype != np.uint8 or frames.ndim != 4 or frames.shape[-1] != 3:
-            raise ValueError(
-                f"frames must be (B, H, W, 3) uint8 BGR, got {frames.shape} "
-                f"{frames.dtype}"
-            )
-        return torch.from_numpy(frames).to(self.device)
-
-    def _extras_rows(self, extras: dict, rows: list[np.ndarray]) -> list[dict]:
+    def _extras_rows(self, extras: dict, rows: list[np.ndarray],
+                     after: torch.cuda.Event | None) -> list[dict]:
         """The extras of the given detection rows of each frame (``rows[f]``,
         -1 for none, which gets zeros) -> per frame, name -> host array.
-        Only the selected rows leave the device, one copy per name."""
+        Only the selected rows leave the device, one pinned copy per name.
+        On the card the gather and its copies run on the download stream
+        once ``after`` (the event of the tick that made ``extras``; None
+        on the CPU) has passed, so they wait for no later tick."""
         if not extras:
             return [{} for _ in rows]
         frame = np.repeat(np.arange(len(rows)), [len(r) for r in rows])
         flat = np.concatenate(rows).astype(np.int64)
         k = next(iter(extras.values())).shape[1]
-        sel = (torch.from_numpy(frame).to(self.device),
-               torch.from_numpy(np.clip(flat, 0, k - 1)).to(self.device))
+        sel = np.stack([frame, np.clip(flat, 0, k - 1)])
+        stream = self._copies.download  # None on the CPU: no stream switch
+        if stream is not None:
+            stream.wait_event(after)
+            for value in extras.values():
+                value.record_stream(stream)
+        with torch.cuda.stream(stream):
+            f, r = to_device(sel, self.device)
+            downs = {name: Download(value[f, r])
+                     for name, value in extras.items()}
         split = np.cumsum([len(r) for r in rows])[:-1]
         out = [{} for _ in rows]
-        for name, value in extras.items():
-            data = value[sel].cpu().numpy()
+        for name, down in downs.items():
+            data = down.wait()
             data[flat < 0] = 0.0
             for f, part in enumerate(np.split(data, split)):
                 out[f][name] = part
@@ -600,18 +661,25 @@ class Pipeline:
         return Results(boxes, self.names, masks=masks, keypoints=keypoints,
                        orig_img=orig_img)
 
-    def _track_results(self, packed: np.ndarray, extras: dict, src_hw,
-                       orig_imgs=None) -> list[Results]:
-        """Results of each frame from its packed (K, 9) track outputs and
-        the task extras of its detections (:meth:`detect_with_extras`)."""
+    def _materialize(self, handle: TickHandle) -> list[Results]:
+        """Results of each frame of a tick from its packed (K, 9) track
+        outputs and the task extras of its detections
+        (:meth:`detect_with_extras`); waits for this tick only."""
+        packed = handle.packed.wait()
         active = [out[:, 7] > 0.5 for out in packed]
-        rows = self._extras_rows(
-            extras, [out[a, 8].astype(np.int64) for out, a in zip(packed, active)])
+        if handle.host_extras is None:
+            handle.host_extras = self._extras_rows(
+                handle.extras,
+                [out[a, 8].astype(np.int64) for out, a in zip(packed, active)],
+                handle.packed.done)
+            handle.extras = None
+        orig = handle.orig_imgs
         return [
             self._results(
                 Boxes(out[a, :4], out[a, 5], out[a, 6], id=out[a, 4]), ex,
-                src_hw, None if orig_imgs is None else orig_imgs[f])
-            for f, (out, a, ex) in enumerate(zip(packed, active, rows))
+                handle.src_hw, None if orig is None else orig[f])
+            for f, (out, a, ex) in enumerate(
+                zip(packed, active, handle.host_extras))
         ]
 
     # -- host-facing API ------------------------------------------------
@@ -624,29 +692,47 @@ class Pipeline:
 
     def predict(self, frame_bgr: np.ndarray) -> Results:
         """Detect without tracking; pose and segment extras for every row."""
-        det, extras = self.detect_with_extras(self._upload(frame_bgr[None]),
-                                              self.det_cfg.max_det)
-        n = int(det.count[0])
-        boxes = Boxes(
-            det.boxes[0, :n].cpu().numpy(), det.scores[0, :n].cpu().numpy(),
-            det.classes[0, :n].cpu().numpy(),
-        )
-        ex = self._extras_rows(extras, [np.arange(n)])[0]
+        with self._copies.frames(frame_bgr[None]) as frames:
+            det, extras = self.detect_with_extras(frames,
+                                                  self.det_cfg.max_det)
+        rows = Download(torch.cat([det.boxes[0], det.scores[0, :, None],
+                                   det.classes[0, :, None].float()], -1))
+        n = int(Download(det.count).wait()[0])
+        out = rows.wait()
+        boxes = Boxes(out[:n, :4], out[:n, 4], out[:n, 5])
+        ex = self._extras_rows(extras, [np.arange(n)], rows.done)[0]
         return self._results(boxes, ex, frame_bgr.shape[:2], frame_bgr)
+
+    def track_async(self, frame_bgr: np.ndarray, warp=None) -> TickHandle:
+        """Dispatch one detect + track step of this pipeline's stream and
+        return its handle without waiting for the device; ``warp`` (2, 3)
+        for a tracker whose camera motion comes from the caller (refused
+        with ``flow_tpu``). :meth:`materialize` turns the handle into
+        Results. Handles may be materialized in any order, and more than
+        once."""
+        w = None if warp is None else self._warps(np.asarray(warp)[None], 1)
+        with self._copies.frames(frame_bgr[None]) as frames:
+            if self.gmc is not None:
+                w = self.gmc.warps(frames)
+            det, extras = self.detect_with_extras(frames,
+                                                  self.tracker_max_dets)
+            feats = self.embed(frames, det)
+        self.track_state, out = self.associate(self.track_state, det, w, feats)
+        return TickHandle(Download(_pack_outputs(out)), extras,
+                          frame_bgr.shape[:2], [frame_bgr])
+
+    def materialize(self, handle: TickHandle) -> Results:
+        """Wait for a :meth:`track_async` handle (that tick only) -> its
+        Results."""
+        return self._materialize(handle)[0]
 
     def track(self, frame_bgr: np.ndarray, warp=None) -> Results:
         """Detect + track one frame of this pipeline's stream; ``warp``
         (2, 3) for a tracker whose camera motion comes from the caller."""
-        frames = self._upload(frame_bgr[None])
-        w = None if warp is None else self._warps(np.asarray(warp)[None], 1)
-        if self.gmc is not None:
-            w = self.gmc.warps(frames)
-        det, extras = self.detect_with_extras(frames, self.tracker_max_dets)
-        self.track_state, out = self.associate(
-            self.track_state, det, w, self.embed(frames, det)
-        )
-        return self._track_results(_pack_outputs(out), extras,
-                                   frame_bgr.shape[:2], [frame_bgr])[0]
+        return self.materialize(self.track_async(frame_bgr, warp))
+
+    def __call__(self, frame_bgr: np.ndarray, track: bool = True) -> Results:
+        return self.track(frame_bgr) if track else self.predict(frame_bgr)
 
     def track_chunk(self, frames_bgr: np.ndarray, warps=None) -> list[Results]:
         """T consecutive frames (T, H, W, 3) of this pipeline's stream ->
@@ -655,13 +741,14 @@ class Pipeline:
         ``flow_tpu`` warps of all T frame pairs come from one K5 launch
         (otherwise ``warps`` (T, 2, 3) from the caller), and the tracker
         steps frame by frame."""
-        frames = self._upload(frames_bgr)
-        t = frames.shape[0]
+        t = len(frames_bgr)
         w = self._warps(warps, t)
-        if self.gmc is not None:
-            w = self.gmc.warps(frames)
-        det, extras = self.detect_with_extras(frames, self.tracker_max_dets)
-        feats = self.embed(frames, det)
+        with self._copies.frames(frames_bgr) as frames:
+            if self.gmc is not None:
+                w = self.gmc.warps(frames)
+            det, extras = self.detect_with_extras(frames,
+                                                  self.tracker_max_dets)
+            feats = self.embed(frames, det)
         outs = []
         for k in range(t):
             self.track_state, out = self.associate(
@@ -670,15 +757,31 @@ class Pipeline:
                 None if feats is None else feats[k:k + 1],
             )
             outs.append(out)
-        return self._track_results(_pack_outputs(*outs), extras,
-                                   frames_bgr.shape[1:3], frames_bgr)
+        return self._materialize(TickHandle(
+            Download(_pack_outputs(*outs)), extras, frames_bgr.shape[1:3],
+            frames_bgr))
+
+    def track_batch_prepare(self, num_streams: int, src_hw, *, mesh=None,
+                            auto_topk: bool = False) -> BatchedPipeline:
+        """-> a :class:`BatchedPipeline` of ``num_streams`` streams of
+        ``src_hw`` frames. ``mesh``: the JAX package shards the streams
+        over chips with it; the port runs on one card and raises for any
+        mesh. ``auto_topk`` is taken and changes nothing: the JAX package
+        uses it to pick a narrower ReID crop batch and replay a tick that
+        overflows it, while the port sizes its crop batch from each
+        tick's real detection counts, so either value gives the same
+        results, which equal the JAX package's with either value."""
+        if mesh is not None:
+            raise ValueError("track_batch_prepare: the port runs on one "
+                             "card and takes no mesh")
+        return BatchedPipeline(self, num_streams, src_hw)
 
 
-def _pack_outputs(*outs: TrackOutputs) -> np.ndarray:
-    """(sum S, K, 9) float32 host array [x1 y1 x2 y2 id score cls active
-    det_index] of one or more steps' outputs in one device-to-host copy
-    (ids, classes and detection rows are exact in float32)."""
-    packed = torch.cat([
+def _pack_outputs(*outs: TrackOutputs) -> torch.Tensor:
+    """(sum S, K, 9) float32 [x1 y1 x2 y2 id score cls active det_index]
+    of one or more steps' outputs, for one device-to-host copy (ids,
+    classes and detection rows are exact in float32)."""
+    return torch.cat([
         torch.cat(
             [
                 out.boxes,
@@ -692,7 +795,6 @@ def _pack_outputs(*outs: TrackOutputs) -> np.ndarray:
         )
         for out in outs
     ])
-    return packed.cpu().numpy()
 
 
 class BatchedPipeline:
@@ -707,12 +809,21 @@ class BatchedPipeline:
     StrongSORT tracker, stream s embeds on ticks where (s + tick) % k ==
     0 (tick counting steps from 0), so each tick crops about S / k
     streams; ``last_embed_mask`` holds the last step's (S,) bool mask
-    (None at cadence 1)."""
+    (None at cadence 1).
+
+    :meth:`step_async` dispatches a tick and returns its handle without
+    waiting for the device; :meth:`materialize` waits for that tick only.
+    On the card the frames go through ``ring``, pinned host slots and
+    device slots allocated here, and a tick waits on the host only for
+    the ReID trackers' detection counts; on the CPU a tick is computed
+    when it is dispatched."""
 
     def __init__(self, pipeline: Pipeline, num_streams: int, src_hw):
         self.pipeline = pipeline
         self.num_streams = num_streams
         self.src_hw = (int(src_hw[0]), int(src_hw[1]))
+        pipeline._geometry(self.src_hw)  # its constants uploaded here
+        self.ring = pipeline._copies.ring((num_streams, *self.src_hw, 3))
         self.states = pipeline.init_states(num_streams)
         self.flow = pipeline.gmc is not None
         self.prev_grays = None
@@ -738,15 +849,19 @@ class BatchedPipeline:
 
     def reset_stream(self, i: int) -> None:
         """Reinitialise one stream's tracker state in place; its next
-        warp is the identity."""
+        warp is the identity. Ordered on the device after every tick
+        dispatched before it, so pending handles keep their results."""
         fresh = self.pipeline.init_states(1)
         for batched, f in zip(self.states, fresh):
             batched[i] = f[0]
         self.has_prev[i] = False
 
-    def step(self, frames: np.ndarray, warps: np.ndarray | None = None):
-        """frames (S, H, W, 3) uint8 BGR; warps (S, 2, 3) when the
-        tracker takes camera motion from the caller -> list of S Results."""
+    def step_async(self, frames: np.ndarray,
+                   warps: np.ndarray | None = None) -> TickHandle:
+        """Dispatch one tick of the S streams -> its handle, without
+        waiting for the device. frames (S, H, W, 3) uint8 BGR, copied
+        before this returns; warps (S, 2, 3) when the tracker takes
+        camera motion from the caller."""
         p = self.pipeline
         if tuple(frames.shape[:3]) != (self.num_streams, *self.src_hw):
             raise ValueError(
@@ -754,22 +869,42 @@ class BatchedPipeline:
                 f"{self.src_hw[1]}, 3), got {tuple(frames.shape)}"
             )
         w = p._warps(warps, self.num_streams)
-        frames = p._upload(frames)
-        if self.flow:  # all S warps in one K5 launch
-            grays = frame_to_gray(frames)
-            w = batched_warps(self.prev_grays, grays, self.src_hw,
-                              self.has_prev)
-        det, extras = p.detect_with_extras(frames, p.tracker_max_dets)
         mask = has_app = None
         if self.cadence > 1:
             phase = self.tick % self.cadence
             mask, has_app = self._masks[phase], self._has_app[phase]
+        with p._copies.frames(frames, self.ring) as dev_frames:
+            if self.flow:  # all S warps in one K5 launch
+                grays = frame_to_gray(dev_frames)
+                w = batched_warps(self.prev_grays, grays, self.src_hw,
+                                  self.has_prev)
+            det, extras = p.detect_with_extras(dev_frames, p.tracker_max_dets)
+            feats = p.embed(dev_frames, det, mask)
         self.tick += 1
-        self.states, out = p.associate(self.states, det, w,
-                                       p.embed(frames, det, mask), has_app)
+        self.states, out = p.associate(self.states, det, w, feats, has_app)
         if self.flow:
             self.prev_grays = grays
             self.has_prev.fill_(True)
         self.last_warps = w
         self.last_embed_mask = mask
-        return p._track_results(_pack_outputs(out), extras, self.src_hw)
+        return TickHandle(Download(_pack_outputs(out)), extras, self.src_hw)
+
+    def materialize(self, handle: TickHandle) -> list[Results]:
+        """Wait for a :meth:`step_async` handle (that tick only) -> list of
+        S Results. Handles may be materialized in any order, and more
+        than once; a later tick never changes an earlier tick's Results."""
+        return self.pipeline._materialize(handle)
+
+    def step(self, frames: np.ndarray, warps: np.ndarray | None = None):
+        """frames (S, H, W, 3) uint8 BGR; warps (S, 2, 3) when the
+        tracker takes camera motion from the caller -> list of S Results."""
+        return self.materialize(self.step_async(frames, warps))
+
+    def sync(self) -> None:
+        """Wait for every tick dispatched so far (and every
+        ``reset_stream``) on the device: an event recorded now on the
+        current stream."""
+        if self.pipeline.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
+            done.synchronize()

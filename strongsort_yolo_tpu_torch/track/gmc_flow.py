@@ -36,7 +36,6 @@ _LEVELS = 3
 _ITERS_BY_LEVEL = (2, 5, 8)
 _LUMA_BGR = (0.114, 0.587, 0.299)  # cv2.COLOR_BGR2GRAY weights
 _BLUR = (1.0 / 16, 4.0 / 16, 6.0 / 16, 4.0 / 16, 1.0 / 16)
-_IDENTITY = ((1.0, 0.0, 0.0), (0.0, 1.0, 0.0))
 
 
 @functools.lru_cache(maxsize=64)
@@ -76,7 +75,7 @@ def frame_to_gray(frame_u8: torch.Tensor) -> torch.Tensor:
     The luma's three products and two sums are each rounded to bf16 (u8
     values are exact there), then the resize runs in bf16."""
     x = frame_u8.to(torch.bfloat16)
-    k = [torch.tensor(c, dtype=torch.bfloat16, device=x.device)
+    k = [torch.full((), c, dtype=torch.bfloat16, device=x.device)
          for c in _LUMA_BGR]
     gray = k[0] * x[..., 0] + k[1] * x[..., 1] + k[2] * x[..., 2]
     return _resize(gray, BASE_H, BASE_W).float()
@@ -113,8 +112,9 @@ def pyramid(gray: torch.Tensor) -> list[torch.Tensor]:
 
 
 def _identity(n: int, device) -> torch.Tensor:
-    return torch.tensor(_IDENTITY, dtype=torch.float32,
-                        device=device).expand(n, 2, 3).contiguous()
+    """(n, 2, 3) float32 identity warps, made on the device (no copy)."""
+    return torch.eye(2, 3, dtype=torch.float32,
+                     device=device).expand(n, 2, 3).contiguous()
 
 
 def estimate_warp(
@@ -128,8 +128,7 @@ def estimate_warp(
     original frame coordinates (``scale_*`` = original / base pixel
     ratio). All N pairs take one K5 launch on the card."""
     n, dev = prev_gray.shape[0], prev_gray.device
-    params = torch.tensor([1.0, 0.0, 0.0, 0.0, 1.0, 0.0], dtype=torch.float32,
-                          device=dev).repeat(n, 1)
+    params = _identity(1, dev).reshape(1, 6).repeat(n, 1)
     params = lk_pyramid(pyramid(prev_gray), pyramid(cur_gray), params,
                         _ITERS_BY_LEVEL)
     a11, a12, tx, a21, a22, ty = params.unbind(1)
@@ -139,8 +138,8 @@ def estimate_warp(
     tpx = s * tx + cx - a11 * cx - a12 * cy
     tpy = s * ty + cy - a21 * cx - a22 * cy
     # conjugate by the base -> original scaling diag(sx, sy)
-    sx = torch.tensor(scale_x, dtype=torch.float32, device=dev)
-    sy = torch.tensor(scale_y, dtype=torch.float32, device=dev)
+    sx = torch.full((), scale_x, dtype=torch.float32, device=dev)
+    sy = torch.full((), scale_y, dtype=torch.float32, device=dev)
     return torch.stack([
         torch.stack([a11, a12 * sx / sy, tpx * sx], -1),
         torch.stack([a21 * sy / sx, a22, tpy * sy], -1),

@@ -104,8 +104,8 @@ def _port_run(cadence, frame_seq):
     bp = BatchedPipeline(pipe, 2, (320, 320))
     g, embed_slots = [], pipe.embed_slots
 
-    def recording(det, mask=None):
-        slots = embed_slots(det, mask)
+    def recording(counts, mask=None):
+        slots = embed_slots(counts, mask)
         g.append(slots.shape[1])
         return slots
 

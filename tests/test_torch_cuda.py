@@ -850,3 +850,155 @@ def test_task_pipeline_card_equals_cpu(dev, asset, conv_kernel):
                     np.testing.assert_array_equal(pb, pa)
             rows += len(a)
     assert rows > 0
+
+
+# -- the asynchronous API -------------------------------------------------
+
+ASYNC_T = 5
+
+
+def _async_case(name, dev):
+    """-> (BatchedPipeline of 2 streams on the card, frames (ASYNC_T, 2,
+    H, W, 3), warps (ASYNC_T, 2, 2, 3) or None): BoT-SORT with host
+    warps, BoT-SORT with flow_tpu, StrongSORT + the trained OSNet, or the
+    trained pose / segment checkpoints with ByteTrack; float32."""
+    rng = np.random.default_rng(11)
+    bg = (rng.uniform(0, 0.3, (2, 320, 320, 3)) * 255).astype(np.uint8)
+    yy, xx = np.mgrid[0:320, 0:320]
+    frames = np.empty((ASYNC_T, 2, 320, 320, 3), np.uint8)
+    for t in range(ASYNC_T):
+        for s in range(2):
+            f = np.roll(bg[s], (-2 * t, 3 * t), axis=(0, 1))
+            if name in ("pose", "seg"):
+                f[((xx - 100 - 4 * t - 90 * s) / 48) ** 2
+                  + ((yy - 150) / 34) ** 2 <= 1] = 209
+            else:
+                f[60 + 3 * t:160 + 3 * t, 80:150] = 210
+                f[170:250, 200 - 2 * t:270 - 2 * t] = 140
+            frames[t, s] = f
+    warps = None
+    kw = dict(track_slots=16, tracker_max_dets=16, device=dev)
+    det = DetectorConfig(weights=CKPT, imgsz=160, half=False, max_det=16)
+    if name in ("pose", "seg"):
+        asset = "yolo11n_pose_synth160" if name == "pose" else "yolov8n_seg_synth160"
+        det = DetectorConfig(weights=os.path.join(ASSETS, asset + ".npz"),
+                             imgsz=160, half=False, max_det=8)
+        kw.update(track_slots=8, tracker_max_dets=8, tracker="bytetrack.yaml")
+    elif name == "strongsort":
+        kw.update(tracker=StrongSortConfig(gmc_method="none"),
+                  reid_weights=OSNET)
+    else:
+        gmc = "flow_tpu" if name == "flow_tpu" else "sparseOptFlow"
+        kw.update(tracker=ByteTrackConfig(tracker_type="botsort",
+                                          gmc_method=gmc))
+        if gmc != "flow_tpu":
+            warps = np.tile(np.eye(2, 3, dtype=np.float32),
+                            (ASYNC_T, 2, 1, 1))
+            warps[..., 2] = (3.0, -2.0)
+    return BatchedPipeline(Pipeline(det, **kw), 2, (320, 320)), frames, warps
+
+
+def _warp(warps, t):
+    return None if warps is None else warps[t]
+
+
+def _assert_bitwise(want, got, what):
+    assert len(got) == len(want), what
+    for name in ("xyxy", "conf", "cls", "id"):
+        np.testing.assert_array_equal(getattr(got.boxes, name),
+                                      getattr(want.boxes, name), err_msg=what)
+    for name in ("keypoints", "masks"):
+        a, b = getattr(want, name), getattr(got, name)
+        assert (a is None) == (b is None), what
+        if a is not None:
+            np.testing.assert_array_equal(b.data, a.data, err_msg=what)
+
+
+@pytest.mark.parametrize("name", ["botsort_warps", "flow_tpu", "strongsort",
+                                  "pose", "seg"])
+def test_step_async_issues_no_stream_sync(dev, name):
+    """After two ticks (kernels built, per-shape constants uploaded), the
+    overlapped loop (step_async t, materialize t - 1) runs under
+    torch.cuda.set_sync_debug_mode("error") without raising: no
+    synchronizing op, no pageable copy. The host waits only on events:
+    each handle's own, and on StrongSORT once per tick in
+    Pipeline._wait_counts, the ReID count read, counted here."""
+    bp, frames, warps = _async_case(name, dev)
+    pipe = bp.pipeline
+    for t in range(2):
+        bp.step(frames[t], _warp(warps, t))
+    waits, rows = pipe.count_waits, 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            torch.zeros(1, device=dev).cpu()  # the mode is on
+        pending = None
+        for t in range(2, ASYNC_T):
+            handle = bp.step_async(frames[t], _warp(warps, t))
+            if pending is not None:
+                rows += sum(map(len, bp.materialize(pending)))
+            pending = handle
+        rows += sum(map(len, bp.materialize(pending)))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert pipe.count_waits - waits == (ASYNC_T - 2) * (name == "strongsort")
+    assert rows > 0
+
+
+@pytest.mark.parametrize("name", ["pose", "seg", "strongsort"])
+def test_five_pending_ticks_through_a_ring_of_two(dev, name, monkeypatch):
+    """Five step_async calls on distinct frames before any materialize,
+    through a ring of two slots, materialized newest first: the five
+    step results bit for bit (boxes, ids, keypoints, masks)."""
+    from strongsort_yolo_tpu_torch.utils.transfer import RING_DEPTH
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    assert RING_DEPTH == 2
+    bp, frames, warps = _async_case(name, dev)
+    want = [bp.step(frames[t]) for t in range(ASYNC_T)]
+    queued = BatchedPipeline(bp.pipeline, 2, (320, 320))
+    handles = [queued.step_async(frames[t]) for t in range(ASYNC_T)]
+    rows = 0
+    for t in reversed(range(ASYNC_T)):
+        for s, (a, b) in enumerate(zip(want[t], queued.materialize(handles[t]))):
+            _assert_bitwise(a, b, f"t={t} s={s}")
+            rows += len(b)
+    assert rows > 0
+
+
+def test_materialize_waits_for_its_own_tick_only(dev):
+    """The compute stream held by torch.cuda._sleep between two ticks:
+    materialize(t - 1), masks gathered and copied on the download stream,
+    returns while tick t's event still reports query() == False."""
+    bp, frames, _ = _async_case("seg", dev)
+    for t in range(3):
+        bp.step(frames[t])
+    first = bp.step_async(frames[3])
+    torch.cuda._sleep(2_000_000_000)  # about a second of the stream
+    second = bp.step_async(frames[4])
+    results = bp.materialize(first)
+    assert not second.query()
+    assert sum(len(r.masks) for r in results) > 0
+    bp.materialize(second)
+    assert second.query()
+
+
+def test_reset_stream_and_sync_between_pending_ticks_on_the_card(dev):
+    """reset_stream and sync while ticks are pending give the results of
+    the synchronous sequence, bit for bit."""
+    bp, frames, warps = _async_case("botsort_warps", dev)
+    want = []
+    for t in range(ASYNC_T):
+        if t == 3:
+            bp.reset_stream(1)
+        want.append(bp.step(frames[t], warps[t]))
+    queued = BatchedPipeline(bp.pipeline, 2, (320, 320))
+    handles = []
+    for t in range(ASYNC_T):
+        if t == 3:
+            queued.reset_stream(1)
+            queued.sync()
+        handles.append(queued.step_async(frames[t], warps[t]))
+    for t in reversed(range(ASYNC_T)):
+        for s, (a, b) in enumerate(zip(want[t], queued.materialize(handles[t]))):
+            _assert_bitwise(a, b, f"t={t} s={s}")

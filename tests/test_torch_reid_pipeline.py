@@ -134,12 +134,12 @@ def test_embed_sizes_the_crop_batch_from_the_counts():
     _, tp = _pipes(JStrongSortConfig(gmc_method="none"),
                    StrongSortConfig(gmc_method="none"))
     frames = _video(3, 1)[:, 0]
-    det = tp.detect(tp._upload(frames))
+    det = tp.detect(torch.from_numpy(frames))
     counts = det.count.tolist()
-    slots = tp.embed_slots(det)
+    slots = tp.embed_slots(det.count.numpy())
     assert slots.shape[1] == sum(-(-c // 8) * 8 for c in counts)
     assert slots[2].sum() == sum(counts)
-    feats = tp.embed(tp._upload(frames), det)
+    feats = tp.embed(torch.from_numpy(frames), det)
     norms = feats.norm(dim=-1)
     for s, c in enumerate(counts):
         assert (norms[s, :c] > 0.99).all() and (norms[s, c:] == 0).all()
