@@ -90,7 +90,19 @@ raises and the process exits nonzero:
    which is materialize(step_async(...)): frames through a pinned ring,
    outputs through pinned, event-fenced copies; the task paths also time
    the track rows' extras to the host, pinned on the download stream
-   against a pageable .cpu();
+   against a pageable .cpu(); then the v5 and v7 detector paths (S=8
+   1080p, imgsz 640, bf16, seeded random weights, the head's output rows
+   spread and its objectness (u: class) biases calibrated to about 120
+   candidates per frame): (f) yolov5s, classic anchor head, with
+   StrongSORT + OSNet-x0_25 fused (K1-K4 and K6) and (g) yolov7, RepConv
+   deployed and BN fused, with the same tracker, 10 ticks each; (f-u)
+   yolov5su with BoT-SORT, gmc none (K1-K3), 4 ticks; each with its
+   launch counts, ms/tick, the forward by CUDA events and the NMS
+   (ranking, K2 and the selection, on 25 200 anchors for the anchor heads)
+   on the last tick's model outputs; on f and g the crop batch G of
+   each tick, and on the last tick's batch K4 bit-identical to its
+   plain version and each K6 stage, on the inputs the OSNet feeds it,
+   against its plain version within K6's bars;
 3b. the asynchronous API on paths a, b-fused, c and e (S=8 1080p): the
    step loop and the overlapped loop (step_async t, then materialize
    t - 1, as the app runs) in turns, step, overlapped, overlapped, step,
@@ -113,7 +125,11 @@ raises and the process exits nonzero:
    1e-3 px, equal track ids (and flow warps within 2e-3); and the
    trained yolov8n-seg, yolov8n-pose and yolo11n-pose synth160 task
    checkpoints with ByteTrack, the K7 route off and on: equal rows and
-   ids, boxes and keypoints within 1e-3 px, equal mask polygons.
+   ids, boxes and keypoints within 1e-3 px, equal mask polygons; and
+   ultralytics-format .pt files of a seeded yolov5s (StrongSORT + the
+   trained OSNet, fused) and yolov7 (ByteTrack), written by
+   save_ultralytics and loaded through Pipeline(weights=path) on both
+   sides: equal rows and ids, boxes within 1e-3 px.
 
 The JSON line before the card's name is one object with one entry per
 kernel: its launches (K1-K3 and K5 counted on the flow path, K4 on the
@@ -144,6 +160,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1235,8 +1252,8 @@ def to_card(frames: np.ndarray):
 
 
 def calibrate_candidates(pipe, frame: np.ndarray, conf: float, target: int):
-    """Shift the class-head output biases so that about ``target``
-    anchors of ``frame`` clear ``conf``."""
+    """Set the head of ``pipe.model`` so that about ``target`` anchors of
+    ``frame`` clear ``conf`` (:func:`calibrate_head`)."""
     import torch
 
     from strongsort_yolo_tpu_torch.ops.letterbox import letterbox, letterbox_params
@@ -1244,14 +1261,102 @@ def calibrate_candidates(pipe, frame: np.ndarray, conf: float, target: int):
     lp = letterbox_params(*frame.shape[:2], pipe.det_cfg.imgsz)
     img = letterbox(torch.from_numpy(frame[None]).to(pipe.device), lp,
                     dtype=pipe.compute_dtype)
+    calibrate_head(pipe.model, img, conf, target)
+
+
+# the spread calibrate_head gives the raw outputs of a v5 or v7 head, per
+# level and channel kind: a random network's are nearly constant (std
+# 1e-4 to 2e-2), so that every anchor would score alike
+HEAD_STD = {"xy": 0.5, "wh": 0.5, "obj": 1.5, "cls": 1.5, "box": 0.5}
+
+
+def _head_raws(model, img, convs):
+    """The raw outputs of ``convs`` in one forward of ``img``, float32."""
+    import torch
+
+    raws = []
+    hooks = [c.register_forward_hook(lambda m, a, o: raws.append(o.float()))
+             for c in convs]
+    try:
+        with torch.no_grad():
+            model(img)
+    finally:
+        for h in hooks:
+            h.remove()
+    return raws
+
+
+def _scale_rows(conv, rows, gain) -> None:
+    import torch
+
     with torch.no_grad():
-        cls = pipe.model(img)["cls_logits"]
+        conv.w[rows] *= gain
+        conv.b[rows] *= gain
+
+
+def calibrate_head(model, img, conf: float, target: int,
+                   spread: dict | None = None) -> None:
+    """Set the output biases of ``model``'s head so that about ``target``
+    anchors of ``img`` (one letterboxed frame) clear ``conf``, with margin.
+
+    A v8 / v11 model (the main path's) has only its class biases shifted.
+    The v5 and v7 heads first have their output rows scaled per level to
+    the spread of HEAD_STD (a random network's are nearly constant), then:
+    the anchor-based head its objectness biases shifted (by bisection: its
+    score is obj * cls), the u head its class biases. ``spread`` replaces
+    HEAD_STD; a kind it lacks keeps its rows as they are."""
+    import torch
+
+    from strongsort_yolo_tpu_torch.models.yolo import YoloModel
+    from strongsort_yolo_tpu_torch.models.yolov5 import AnchorHead
+
+    head = model.detect
+    spread = HEAD_STD if spread is None else spread
+    logit_conf = math.log(conf / (1 - conf))
+    if isinstance(head, AnchorHead):
+        no = 5 + head.nc
+        kinds = {"xy": [0, 1], "wh": [2, 3], "obj": [4],
+                 "cls": list(range(5, no))}
+        for conv, raw in zip(head.m, _head_raws(model, img, head.m)):
+            raw = raw.view(raw.shape[0], head.na, no, -1)
+            for kind, ch in kinds.items():
+                if kind not in spread:
+                    continue
+                gain = spread[kind] / max(float(raw[:, :, ch].std()), 1e-12)
+                rows = [a * no + c for a in range(head.na) for c in ch]
+                _scale_rows(conv, rows, gain)
+        obj, best = [], []
+        for raw in _head_raws(model, img, head.m):
+            raw = raw[0].view(head.na, no, -1)
+            obj.append(raw[:, 4].reshape(-1))
+            best.append(torch.sigmoid(raw[:, 5:]).amax(1).reshape(-1))
+        obj, best = torch.cat(obj).cpu(), torch.cat(best).cpu()
+        want = min(conf + 0.05, 0.5 * (conf + float(best.max())))
+        lo, hi = -40.0, 40.0
+        for _ in range(60):  # the target-th score rises with the offset
+            mid = 0.5 * (lo + hi)
+            kth = torch.topk(torch.sigmoid(obj + mid) * best, target).values[-1]
+            lo, hi = (lo, mid) if float(kth) >= want else (mid, hi)
+        with torch.no_grad():
+            for conv in head.m:
+                conv.b[4::no] += hi
+        return
+    if not isinstance(model, YoloModel):  # the u head of v5
+        for convs, kind in ((head.cls, "cls"), (head.box, "box")):
+            if kind not in spread:
+                continue
+            outs = [b.out for b in convs]
+            for conv, raw in zip(outs, _head_raws(model, img, outs)):
+                gain = spread[kind] / max(float(raw.std()), 1e-12)
+                _scale_rows(conv, slice(None), gain)
+    with torch.no_grad():
+        cls = model(img)["cls_logits"]
     logits = cls[0].float().amax(-1).cpu().numpy()
     kth = np.partition(logits, -target)[-target]
     # land above the threshold with margin: bf16 logits tie heavily
-    offset = float(math.log(conf / (1 - conf)) + 0.7 - kth)
+    offset = float(logit_conf + 0.7 - kth)
     with torch.no_grad():
-        for branch in pipe.model.detect.cls:
+        for branch in head.cls:
             branch.out.b.add_(offset)
 
 
@@ -2117,6 +2222,336 @@ def phase_trained_checkpoint():
             + (", warps within 2e-3" if warps["cpu"] else ""))
 
 
+# ultralytics-format .pt files, written from the port's models
+
+ULTRALYTICS_PATHS = ("ultralytics", "ultralytics.nn", "ultralytics.nn.tasks",
+                     "ultralytics.nn.modules", "ultralytics.utils")
+_CONV_LEAF = {"w": "conv.weight", "b": "conv.bias", "bn_scale": "bn.weight",
+              "bn_bias": "bn.bias", "bn_mean": "bn.running_mean",
+              "bn_var": "bn.running_var"}
+_SEQ_LEAF = {"w": "0.weight", "bn_scale": "1.weight", "bn_bias": "1.bias",
+             "bn_mean": "1.running_mean", "bn_var": "1.running_var"}
+_BARE_LEAF = {"w": "weight", "b": "bias"}
+
+
+def ultralytics_state_dict(model) -> dict[str, np.ndarray]:
+    """The state of a port Yolov5Model or Yolov7Model (unfused) in the
+    ultralytics key layout that ``models/porting.load_checkpoint`` reads
+    (the inverse of its key maps), OIHW float32 arrays."""
+    from strongsort_yolo_tpu_torch.models.porting import _V5_LAYOUT, _V7_IDX
+    from strongsort_yolo_tpu_torch.models.yolov5 import Yolov5Model
+
+    out = {}
+    for key, value in model.state_dict().items():
+        parts = key.split(".")
+        top, leaf, mid = parts[0], parts[-1], parts[1:-1]
+        if isinstance(model, Yolov5Model):
+            base = f"model.{_V5_LAYOUT['head' if top == 'detect' else top]}"
+            if top == "detect" and mid[0] == "m":  # bare Conv2d
+                name = f"{base}.m.{mid[1]}.{_BARE_LEAF[leaf]}"
+            elif top == "detect":  # u towers: box -> cv2, cls -> cv3
+                tower = {"box": "cv2", "cls": "cv3"}[mid[0]]
+                step = {"a": "0", "b": "1", "out": "2"}[mid[2]]
+                sub = _BARE_LEAF if step == "2" else _CONV_LEAF
+                name = f"{base}.{tower}.{mid[1]}.{step}.{sub[leaf]}"
+            else:
+                name = ".".join([base, *mid, _CONV_LEAF[leaf]])
+        else:
+            idx = _V7_IDX[top]
+            if top == "detect":
+                name = f"model.{idx}.m.{mid[1]}.{_BARE_LEAF[leaf]}"
+            elif top.startswith("rep"):
+                branch = {"dense": "rbr_dense", "one": "rbr_1x1"}[mid[0]]
+                name = f"model.{idx}.{branch}.{_SEQ_LEAF[leaf]}"
+            elif top.startswith("elan"):
+                cv1, cv2, inner, merge = idx
+                i = {"cv1": cv1, "cv2": cv2, "merge": merge}.get(mid[0])
+                i = inner[int(mid[1])] if i is None else i
+                name = f"model.{i}.{_CONV_LEAF[leaf]}"
+            elif top.startswith("mp"):
+                i = idx[("cv1", "cv2", "cv3").index(mid[0])]
+                name = f"model.{i}.{_CONV_LEAF[leaf]}"
+            elif top == "sppcspc":
+                name = f"model.{idx}.{mid[0]}.{_CONV_LEAF[leaf]}"
+            else:
+                name = f"model.{idx}.{_CONV_LEAF[leaf]}"
+        out[name] = value.detach().float().cpu().numpy()
+    return out
+
+
+def save_ultralytics(path: str, sd: dict, names: dict, *, half: bool = False,
+                     args: bool = False) -> None:
+    """``torch.save`` of {"model": a DetectionModel whose attribute tree
+    spells the keys of ``sd`` (tensors, in half precision with ``half``),
+    with ``names`` (and ``args``, an IterableSimpleNamespace, with
+    ``args``), "epoch"}: the classes live in ultralytics.nn.tasks,
+    ultralytics.nn.modules and ultralytics.utils, modules that exist in
+    ``sys.modules`` only while the file is written."""
+    import types
+
+    import torch
+    from torch import nn
+
+    mods = {p: types.ModuleType(p) for p in ULTRALYTICS_PATHS}
+    classes = {}
+    for name, base, home in (
+            ("DetectionModel", nn.Module, "ultralytics.nn.tasks"),
+            ("Block", nn.Module, "ultralytics.nn.modules"),
+            ("IterableSimpleNamespace", types.SimpleNamespace,
+             "ultralytics.utils")):
+        classes[name] = type(name, (base,), {"__module__": home})
+        setattr(mods[home], name, classes[name])
+    root = classes["DetectionModel"]()
+    for key, arr in sd.items():
+        *path_, leaf = key.split(".")
+        node = root
+        for part in path_:
+            if part not in node._modules:
+                node.add_module(part, classes["Block"]())
+            node = node._modules[part]
+        t = torch.from_numpy(np.array(arr, np.float32))
+        t = t.half() if half else t
+        if leaf.startswith("running_") or leaf == "anchor_grid":
+            node.register_buffer(leaf, t)
+        else:
+            node.register_parameter(leaf, nn.Parameter(t, requires_grad=False))
+    root.names = dict(names)
+    if args:
+        root.args = classes["IterableSimpleNamespace"](imgsz=640, task="detect")
+    saved = {p: sys.modules.pop(p) for p in ULTRALYTICS_PATHS if p in sys.modules}
+    sys.modules.update(mods)
+    try:
+        torch.save({"model": root, "epoch": -1}, path)
+    finally:
+        for p in ULTRALYTICS_PATHS:
+            del sys.modules[p]
+        sys.modules.update(saved)
+
+
+# the parity runs' head spread: the scores only, a third of HEAD_STD (the
+# gain magnifies the float32 differences of the features alike, and
+# wh = (2 sig)^2 * anchor would carry them past 1e-3 px)
+PARITY_SPREAD = {"obj": 0.5, "cls": 0.5}
+
+
+def fabricated_checkpoint(name: str, frame: np.ndarray, out_dir: str,
+                          seed: int = 0) -> str:
+    """An ultralytics-format .pt of ``name`` (yolov5s, yolov7) with seeded
+    random weights, its head calibrated on ``frame`` (imgsz 160, about 24
+    candidates, PARITY_SPREAD), in ``out_dir``; -> its path."""
+    import torch
+
+    from strongsort_yolo_tpu_torch.models.yolo import build_model, detector_family
+    from strongsort_yolo_tpu_torch.ops.letterbox import letterbox, letterbox_params
+
+    cfg = build_model(name)
+    model = detector_family(cfg)[1](cfg, torch.Generator().manual_seed(seed)).eval()
+    lp = letterbox_params(*frame.shape[:2], 160)
+    img = letterbox(torch.from_numpy(frame[None]), lp, dtype=torch.float32)
+    calibrate_head(model, img, 0.3, 24, PARITY_SPREAD)
+    path = os.path.join(out_dir, f"{name}.pt")
+    save_ultralytics(path, ultralytics_state_dict(model),
+                     {i: f"class{i}" for i in range(cfg.nc)})
+    return path
+
+
+def phase_fabricated_checkpoints() -> None:
+    """The fabricated yolov5s and yolov7 .pt files (Pipeline(weights=path))
+    on the card with the kernels and on the CPU with the plain versions,
+    float32, TF32 off, as phase_trained_checkpoint holds the trained ones:
+    equal rows, boxes within 1e-3 px, equal track ids."""
+    from strongsort_yolo_tpu_torch.config import DetectorConfig
+    from strongsort_yolo_tpu_torch.pipeline import BatchedPipeline, Pipeline
+    from strongsort_yolo_tpu_torch.track.strongsort import StrongSortConfig
+
+    S, T = 2, 12
+    streams = [render_synthetic(T, seed=s + 1) for s in range(S)]
+    frames = np.stack([np.stack(f) for f in streams], axis=1)  # (T, S, ...)
+    for name, tracker, reid in (
+        ("yolov5s", StrongSortConfig(gmc_method="none"), OSNET),
+        ("yolov7", "bytetrack.yaml", None),
+    ):
+        outs = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            path = fabricated_checkpoint(name, frames[0, 0], tmp)
+            for device in ("cuda", "cpu"):
+                pipe = Pipeline(
+                    DetectorConfig(weights=path, imgsz=160, half=False,
+                                   max_det=16),
+                    tracker=tracker, track_slots=16, tracker_max_dets=16,
+                    reid_weights=reid, reid_fused=reid is not None,
+                    device=device)
+                bp = BatchedPipeline(pipe, S, (320, 320))
+                outs[device] = [bp.step(frames[t]) for t in range(T)]
+        rows = 0
+        for t in range(T):
+            for s in range(S):
+                a, b = outs["cpu"][t][s].boxes, outs["cuda"][t][s].boxes
+                if len(a) != len(b):
+                    raise AssertionError(
+                        f"fabricated {name} t={t} s={s}: {len(b)} rows vs {len(a)}")
+                np.testing.assert_allclose(b.xyxy, a.xyxy, atol=1e-3)
+                np.testing.assert_array_equal(b.id, a.id)
+                rows += len(a)
+        if rows == 0:
+            raise AssertionError(f"fabricated {name}: no track rows")
+        log(f"fabricated {name}.pt (ultralytics format, seeded, head "
+            f"calibrated; imgsz 160, f32, TF32 off"
+            + (", StrongSORT + trained OSNet fused" if reid else ", ByteTrack")
+            + f"): card == CPU on {S}x{T} frames, {rows} track rows, same ids, "
+            "boxes within 1e-3")
+
+
+# the detector paths of phase 3: (label, weights, tracker, fused OSNet, ticks)
+DETECTOR_PATHS = (
+    ("f", "yolov5s", "strongsort", True, 10),
+    ("g", "yolov7", "strongsort", True, 10),
+    ("f-u", "yolov5su", "botsort", False, 4),
+)
+
+
+def check_path_crops(label: str, pipe, frames, card: str) -> int:
+    """K4 and K6 on one tick's crop batch of a path with the fused OSNet,
+    at the G that tick gives them: K4's crops bit-identical to
+    banded_crop_plain, and each of the three K6 stages, on the inputs the
+    OSNet feeds it (captured in one forward), against os_stage_plain
+    under k6_error's bars. -> G."""
+    import torch
+
+    from strongsort_yolo_tpu_torch.models import osnet
+    from strongsort_yolo_tpu_torch.ops.cuda.crop_kernel import (
+        banded_crop, banded_crop_plain,
+    )
+    from strongsort_yolo_tpu_torch.ops.cuda.osnet_kernel import (
+        os_stage_plain, stage_form,
+    )
+
+    det = pipe.detect(frames)
+    # the class's embed_slots: the instance's may be _record_slots' recorder
+    slots = type(pipe).embed_slots(pipe, det.count.cpu().numpy())
+    calls, real = [], osnet.os_stage
+
+    def recording(x, w, spec):
+        out = real(x, w, spec)
+        calls.append((x, w, spec, out))
+        return out
+
+    with torch.no_grad():
+        pyr = pipe.pyramid(frames)
+        params = pipe.crop_params(pyr, det,
+                                  torch.from_numpy(slots).to(pipe.device))
+        crops = banded_crop(pyr, *params)
+        if not torch.equal(crops, banded_crop_plain(pyr, *params)):
+            raise AssertionError(f"path {label}: K4 on the crop batch (G="
+                                 f"{crops.shape[0]}) differs from its plain "
+                                 "version")
+        osnet.os_stage = recording
+        try:
+            feats = pipe.reid(crops)
+        finally:
+            osnet.os_stage = real
+    if len(calls) != 3 or not torch.isfinite(feats).all():
+        raise AssertionError(f"path {label}: {len(calls)} K6 stages, or "
+                             "non-finite embeddings")
+    g, parts = crops.shape[0], []
+    for i, (x, w, spec, got) in enumerate(calls):
+        form = stage_form(spec, x.dtype)
+        name = (f"path {label} K6 stage {i + 2} {tuple(x.shape)} {x.dtype} "
+                f"({form})")
+        err, scaled, share, mean = k6_error(name, got, os_stage_plain(x, w, spec),
+                                            form)
+        parts.append(f"stage {i + 2} ({form}) max |err| {err:.3g}, scaled "
+                     f"{scaled:.3g}, mean {mean:.3g} of the largest output, "
+                     f"{share:.3%} differ")
+    log(f"path {label}: K4 on one tick's crop batch (G={g}) bit-identical to "
+        f"banded_crop_plain; K6 against os_stage_plain: " + "; ".join(parts)
+        + f" [{card}]")
+    return g
+
+
+def phase_detector_paths(card: str, kernels: dict) -> None:
+    """The v5 and v7 detector paths at full width (S=8 1080p, imgsz 640,
+    bf16, BN fused, v7 deployed): yolov5s (classic head) and yolov7 with
+    StrongSORT + OSNet-x0_25 fused (K1-K4 and K6, K4 once and K6 three
+    times per tick), yolov5su with BoT-SORT, gmc none (K1-K3); each with
+    its launch counts, ms/tick, the forward by CUDA events and the NMS
+    (ranking, K2's keep mask and the selection) on the last tick's model
+    outputs; on f and g, G per tick, and K4 and K6 held against their
+    plain versions on the last tick's crop batch (check_path_crops)."""
+    import torch
+
+    from strongsort_yolo_tpu_torch.models.yolo import feat_hw
+    from strongsort_yolo_tpu_torch.ops.letterbox import letterbox, letterbox_params
+    from strongsort_yolo_tpu_torch.ops.nms import nms_from_logits, non_max_suppression
+    from strongsort_yolo_tpu_torch.pipeline import BatchedPipeline
+    from strongsort_yolo_tpu_torch.track.bytetrack import ByteTrackConfig
+    from strongsort_yolo_tpu_torch.track.strongsort import StrongSortConfig
+
+    pool = make_frames(1080, 1920, seed=4)
+    h, w = pool[0].shape[:2]
+    for label, weights, kind, fused, n_ticks in DETECTOR_PATHS:
+        reid = kind == "strongsort"
+        tracker = (StrongSortConfig(gmc_method="none") if reid else
+                   ByteTrackConfig(tracker_type="botsort", gmc_method="none"))
+        path_kernels = [kernels[k] for k in ("letterbox_u8", "nms_keep", "auction")]
+        if reid:
+            path_kernels += [kernels["banded_crop"], kernels["os_stage"]]
+        pipe = _main_pipeline(tracker, pool, fused=fused, model=weights)
+        ticks = [np.stack([pool[(s + t) % len(pool)] for s in range(S_MAIN)])
+                 for t in range(n_ticks)]
+        dets = pipe.detect(to_card(ticks[0])).count.cpu().numpy()
+        slot_counts = _record_slots(pipe) if reid else []
+        counts, times, results = _drive(
+            BatchedPipeline(pipe, S_MAIN, (h, w)), ticks, path_kernels)
+        for name, n in counts.items():
+            if n == 0:
+                raise AssertionError(f"path {label} never launched {name}")
+        if reid and (counts["os_stage"] != 3 * n_ticks
+                     or counts["banded_crop"] != n_ticks):
+            raise AssertionError(
+                f"path {label}: K6 launched {counts['os_stage']} and K4 "
+                f"{counts['banded_crop']} times in {n_ticks} ticks")
+        tracks = _check_results(f"path {label}", results)
+        if reid:
+            g = check_path_crops(label, pipe, to_card(ticks[-1]), card)
+            log(f"path {label} crop slots G per tick: {slot_counts}; the "
+                f"last tick's batch held against the plain versions: G={g}")
+        cfg, det_cfg = pipe.model_cfg, pipe.det_cfg
+        lp = letterbox_params(h, w, det_cfg.imgsz)
+        img = letterbox(to_card(ticks[-1]), lp, dtype=pipe.compute_dtype)
+        nms_kw = dict(conf_thres=det_cfg.conf, iou_thres=det_cfg.iou,
+                      max_det=det_cfg.max_det, agnostic=det_cfg.agnostic_nms)
+        with torch.no_grad():
+            out = pipe.model(img)
+            forward_ms = cuda_ms(lambda: pipe.model(img))
+            if "boxes" in out:
+                def nms():
+                    return non_max_suppression(out["boxes"], out["scores"],
+                                               **nms_kw)
+                anchors = out["boxes"].shape[1]
+            else:
+                size = det_cfg.imgsz
+                def nms():
+                    return nms_from_logits(
+                        out["box_logits"], out["cls_logits"],
+                        feat_dims=feat_hw((size, size), cfg.strides),
+                        level_strides=cfg.strides, reg_max=cfg.reg_max,
+                        **nms_kw)
+                anchors = out["cls_logits"].shape[1]
+            nms_ms = cuda_ms(nms)
+        dtype = "bf16" if det_cfg.half else "f32"
+        log(f"path {label}: {weights} {det_cfg.imgsz} {dtype} (BN fused"
+            + (", RepConv deployed" if weights == "yolov7" else "")
+            + f"), S={S_MAIN} {h}x{w}, "
+            + ("strongsort + osnet_x0_25 fused" if reid else "botsort gmc none")
+            + f"; detections per frame {dets.tolist()}; launches over "
+            f"{n_ticks} ticks: {counts}; active tracks per stream {tracks}")
+        log(f"path {label} ms/tick (S={S_MAIN}, {h}x{w}, host clock, "
+            f"synchronized): {_ms_line(times)}; forward {forward_ms:.4f} ms, "
+            f"NMS (ranking + K2 + select) on {anchors} anchors per frame "
+            f"{nms_ms:.4f} ms (CUDA events, mean of 20) [{card}]")
+
+
 def _stats(times: list[float]) -> tuple[float, float]:
     """(median, p90) of host ms per tick."""
     return float(np.median(times)), float(np.percentile(times, 90))
@@ -2393,6 +2828,9 @@ def main() -> int:
         f"flow_tpu {flow_ms:.2f} [{card}]")
     task_counts = phase_task_paths(card, (letterbox_u8, nms_keep, auction),
                                    conv_act)
+    mark("phase 3: the v5 and v7 detector paths")
+    phase_detector_paths(card, {k.__name__: k for k in (
+        letterbox_u8, nms_keep, auction, banded_crop, os_stage)})
     mark("phase 3b: the asynchronous API, step loop against overlapped loop")
     phase_async_paths(card)
     counts["banded_crop"] = ss_counts["banded_crop"]
@@ -2405,6 +2843,7 @@ def main() -> int:
     mark("phase 4: card against CPU on trained checkpoints")
     phase_trained_checkpoint()
     phase_trained_tasks(conv_act)
+    phase_fabricated_checkpoints()
     mark("done")
     log(json.dumps({"kernels": [
         {k: e[k] for k in ("name", "route", "source", "replaces", "launches",

@@ -1,9 +1,10 @@
-"""Shared YOLOv8 / YOLO11 blocks as PyTorch modules, NCHW.
+"""Shared YOLOv5 / v7 / v8 / YOLO11 blocks as PyTorch modules, NCHW.
 
 Counterpart of ``strongsort_yolo_tpu/models/common.py`` (Conv+BN+SiLU
-with groups, Bottleneck, C2f, C3, C3k2, SPPF, the v11 position-sensitive
-attention Attention / PSABlock / C2PSA, nearest 2x upsample; not the
-int8 path). Parameter names follow the JAX parameter tree leaf for leaf
+with groups and an explicit padding, Bottleneck, C2f, C3 with 1x1 or 3x3
+first bottleneck convs, C3k2, SPPF, the v11 position-sensitive attention
+Attention / PSABlock / C2PSA, nearest 2x upsample; not the int8 path)
+and of ``models/yolov7.py``'s max-pools. Parameter names follow the JAX parameter tree leaf for leaf
 (``w``, ``b``, ``bn_scale``, ``bn_bias``, ``bn_mean``, ``bn_var``; lists
 become ``ModuleList``s), so a state_dict key is the JAX path joined with
 dots. Weights are OIHW where the JAX package keeps HWIO.
@@ -51,15 +52,18 @@ class Conv(nn.Module):
     ``fused=True`` holds the BN folded into ``w`` and a bias ``b``
     (:func:`fuse_conv_bn`); with ``act=False`` that is also the plain
     conv-with-bias of the head output layers. ``groups`` as in
-    ``F.conv2d`` (the v11 depthwise convs: groups = channels).
+    ``F.conv2d`` (the v11 depthwise convs: groups = channels). ``pad``
+    overrides the 'same' padding (v5's 6x6/2 stem takes 2).
     """
 
     def __init__(
         self, c_in: int, c_out: int, k: int = 1, stride: int = 1, *,
         act: bool = True, fused: bool = False, groups: int = 1,
+        pad: int | None = None,
     ):
         super().__init__()
-        self.stride, self.pad, self.act, self.fused = stride, autopad(k), act, fused
+        self.stride, self.act, self.fused = stride, act, fused
+        self.pad = autopad(k) if pad is None else pad
         self.groups = groups
         self.w = nn.Parameter(torch.empty(c_out, c_in // groups, k, k))
         if fused:
@@ -134,7 +138,7 @@ def fuse_conv_bn(conv: Conv) -> Conv:
         return conv
     c_out, c_in, k, _ = conv.w.shape
     out = Conv(c_in * conv.groups, c_out, k, conv.stride, act=conv.act,
-               fused=True, groups=conv.groups)
+               fused=True, groups=conv.groups, pad=conv.pad)
     with torch.no_grad():
         scale = conv.bn_scale * torch.rsqrt(conv.bn_var + BN_EPS)
         out.w.copy_(conv.w * scale[:, None, None, None])
@@ -144,11 +148,11 @@ def fuse_conv_bn(conv: Conv) -> Conv:
 
 class Bottleneck(nn.Module):
     def __init__(self, c_in: int, c_out: int, *, shortcut: bool,
-                 e: float = 0.5, fused: bool = False):
+                 e: float = 0.5, fused: bool = False, k1: int = 3):
         super().__init__()
         c_mid = int(c_out * e)
         self.shortcut = shortcut
-        self.cv1 = Conv(c_in, c_mid, 3, fused=fused)
+        self.cv1 = Conv(c_in, c_mid, k1, fused=fused)
         self.cv2 = Conv(c_mid, c_out, 3, fused=fused)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -178,19 +182,20 @@ class C2f(nn.Module):
 
 
 class C3(nn.Module):
-    """The CSP block with 3x3 bottlenecks that is the C3k unit of a v11
-    C3k2 (the JAX ``init_c3`` with ``bottleneck_k1=3``; v5's 1x1 form is
-    not ported)."""
+    """The CSP block of YOLOv5 (bottlenecks with a 1x1 first conv,
+    ``k1=1``, the JAX ``init_c3`` default) and the C3k unit of a v11 C3k2
+    (``k1=3``, the JAX ``bottleneck_k1=3``)."""
 
     def __init__(self, c_in: int, c_out: int, n: int, *, shortcut: bool,
-                 fused: bool = False):
+                 fused: bool = False, k1: int = 3):
         super().__init__()
         c_mid = c_out // 2
         self.cv1 = Conv(c_in, c_mid, 1, fused=fused)
         self.cv2 = Conv(c_in, c_mid, 1, fused=fused)
         self.cv3 = Conv(2 * c_mid, c_out, 1, fused=fused)
         self.m = nn.ModuleList(
-            Bottleneck(c_mid, c_mid, shortcut=shortcut, e=1.0, fused=fused)
+            Bottleneck(c_mid, c_mid, shortcut=shortcut, e=1.0, fused=fused,
+                       k1=k1)
             for _ in range(n)
         )
 
@@ -242,9 +247,9 @@ class SPPF(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.cv1(x)
-        p1 = F.max_pool2d(y, self.k, 1, self.k // 2)
-        p2 = F.max_pool2d(p1, self.k, 1, self.k // 2)
-        p3 = F.max_pool2d(p2, self.k, 1, self.k // 2)
+        p1 = maxpool_same(y, self.k)
+        p2 = maxpool_same(p1, self.k)
+        p3 = maxpool_same(p2, self.k)
         return self.cv2(torch.cat([y, p1, p2, p3], dim=1))
 
 
@@ -305,6 +310,17 @@ class C2PSA(nn.Module):
         for block in self.m:
             b = block(b)
         return self.cv2(torch.cat([a, b], dim=1))
+
+
+def maxpool_same(x: torch.Tensor, k: int) -> torch.Tensor:
+    """k x k stride-1 max-pool padded with -inf to the input size (SPPF,
+    and v7's SPPCSPC at k = 5, 9, 13)."""
+    return F.max_pool2d(x, k, 1, k // 2)
+
+
+def maxpool2(x: torch.Tensor) -> torch.Tensor:
+    """2x2 stride-2 max-pool without padding (v7's MP transition)."""
+    return F.max_pool2d(x, 2, 2)
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """YOLOv8 / YOLO11 detection, segmentation and pose models as PyTorch
 modules, NCHW.
 
-Counterpart of ``strongsort_yolo_tpu/models/yolo.py`` (v5 is not ported):
+Counterpart of ``strongsort_yolo_tpu/models/yolo.py`` (v5 and v7 are in
+``yolov5.py`` and ``yolov7.py``):
 C2f (v8) or C3k2 + C2PSA (v11) backbones, SPPF, PAN neck, anchor-free
 decoupled heads with DFL ``reg_max=16`` at strides 8/16/32, the v11
 depthwise class tower, the pose keypoint towers and the segment mask
@@ -18,7 +19,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import math
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 from torch import nn
@@ -86,9 +87,19 @@ class YoloConfig:
         return (self.ch(256), self.ch(512), self.ch(1024))
 
 
-def build_model(name: str) -> YoloConfig:
-    """Parse a model name such as 'yolov8n' or 'yolo11n-pose'."""
+def build_model(name: str):
+    """Parse a model name such as 'yolov8n' or 'yolo11n-pose' into its
+    YoloConfig; 'yolov5*' names give a ``Yolov5Config``
+    (:func:`~.yolov5.build_v5`), 'yolov7*' a ``Yolov7Config``."""
     base = name.lower().removesuffix(".pt")
+    if base.startswith("yolov5"):
+        from strongsort_yolo_tpu_torch.models.yolov5 import build_v5
+
+        return build_v5(name)
+    if base.startswith("yolov7"):
+        from strongsort_yolo_tpu_torch.models.yolov7 import Yolov7Config
+
+        return Yolov7Config()
     task = "detect"
     if base.endswith("-seg"):
         task, base = "segment", base.removesuffix("-seg")
@@ -99,8 +110,6 @@ def build_model(name: str) -> YoloConfig:
     elif base.startswith("yolo11") or base.startswith("yolov11"):
         family = "v11"
         scale = base.removeprefix("yolov11").removeprefix("yolo11")
-    elif base.startswith("yolov5"):
-        raise ValueError("yolov5 models are not ported yet (ROADMAP A11)")
     else:
         raise ValueError(f"unknown model name: {name}")
     if scale not in "nsmlx" or len(scale) != 1:
@@ -379,13 +388,32 @@ def feat_hw(input_hw: tuple[int, int], strides=(8, 16, 32)):
     return [(h // s, w // s) for s in strides]
 
 
-def fuse_model(model: YoloModel) -> YoloModel:
-    """A copy of ``model`` with every BN folded into its conv."""
-    if model.fused:
+def fuse_model(model: nn.Module) -> nn.Module:
+    """A copy of ``model`` (a YoloModel, Yolov5Model or Yolov7Model) with
+    every BN folded into its conv and every RepConv in its deploy form
+    (:func:`~.yolov7.fuse_repconv`)."""
+    from strongsort_yolo_tpu_torch.models.yolov7 import RepConv, fuse_repconv
+
+    if model.fused and getattr(model, "rep_deploy", True):
         return model
-    fused = YoloModel(model.cfg, fused=True)
+    fused = type(model)(model.cfg, fused=True)
     src = dict(model.named_modules())
     for name, mod in fused.named_modules():
-        if isinstance(mod, Conv):
-            mod.load_state_dict(fuse_conv_bn(src[name]).state_dict())
-    return fused.to(model.detect.box[0].out.w.device)
+        old = src.get(name)  # None inside a RepConv that was not deployed
+        if isinstance(old, RepConv):
+            mod.load_state_dict(fuse_repconv(old).state_dict())
+        elif isinstance(old, Conv):
+            mod.load_state_dict(fuse_conv_bn(old).state_dict())
+    return fused.to(next(model.parameters()).device)
+
+
+def detector_family(cfg) -> tuple[type[nn.Module], Callable]:
+    """(model class, random init) of ``cfg``'s family: Yolov5Config,
+    Yolov7Config, else v8 / v11 (a YoloConfig or any config with its
+    fields)."""
+    from strongsort_yolo_tpu_torch.models import yolov5, yolov7
+
+    return {
+        yolov5.Yolov5Config: (yolov5.Yolov5Model, yolov5.init_yolov5),
+        yolov7.Yolov7Config: (yolov7.Yolov7Model, yolov7.init_yolov7),
+    }.get(type(cfg), (YoloModel, init_model))

@@ -1,9 +1,11 @@
 """Fixed-shape class-aware NMS over a batch of frames.
 
 Counterpart of ``strongsort_yolo_tpu/ops/nms.py`` with the frame axis
-written out as a leading batch dimension:
+written out as a leading batch dimension, for the anchor-free heads' logits
+(:func:`nms_from_logits`) and the anchor-based heads' decoded boxes
+(:func:`non_max_suppression`):
 
-- candidates are ranked by best-class logit and cut to a static
+- candidates are ranked by best-class logit (or confidence) and cut to a static
   ``pre_nms_topk`` by an exact, stable sort (equal values keep the lower
   anchor first, as ``lax.top_k`` does; ``torch.topk`` promises no order
   among ties);
@@ -103,6 +105,39 @@ def nms_from_logits(
     top_boxes = decode_boxes(rows, top_anchors, top_strides, reg_max)
     return _nms_on_candidates(
         top_boxes, top_conf, top_cls, top_valid,
+        conf_thres=conf_thres, iou_thres=iou_thres, max_det=max_det,
+        agnostic=agnostic, row_ids=top_idx.to(torch.int32),
+    )
+
+
+def non_max_suppression(
+    boxes: torch.Tensor,  # (B, N, 4) xyxy in model-input pixels
+    scores: torch.Tensor,  # (B, N, nc) per-class confidences (sigmoided)
+    *,
+    conf_thres: float = 0.3,
+    iou_thres: float = 0.4,
+    max_det: int = 300,
+    pre_nms_topk: int = 512,
+    agnostic: bool = False,
+    class_filter: torch.Tensor | None = None,
+) -> Detections:
+    """Class-aware greedy NMS over decoded predictions (the anchor-based
+    v5 and v7 heads): rank by best-class confidence with non-candidates
+    (confidence below ``conf_thres``) at -1, keep the top
+    ``pre_nms_topk`` by the stable sort, then suppress as
+    :func:`nms_from_logits` does. ``class_filter`` (nc,) bool zeroes the
+    confidences of the other classes."""
+    n = scores.shape[1]
+    if class_filter is not None:
+        scores = torch.where(class_filter, scores, 0.0)
+    conf = scores.amax(-1)
+    cls = scores.argmax(-1)
+    k = min(pre_nms_topk, n)
+    top_conf, top_idx = _sort_desc(torch.where(conf >= conf_thres, conf, -1.0), k)
+    top_boxes = torch.gather(boxes, 1, top_idx[..., None].expand(-1, -1, 4))
+    top_cls = torch.gather(cls, 1, top_idx).to(torch.int32)
+    return _nms_on_candidates(
+        top_boxes, top_conf, top_cls, top_conf >= conf_thres,
         conf_thres=conf_thres, iou_thres=iou_thres, max_det=max_det,
         agnostic=agnostic, row_ids=top_idx.to(torch.int32),
     )

@@ -1,8 +1,9 @@
 """Detect -> NMS -> (ReID embed) -> track, for one stream or S in lockstep.
 
 Counterpart of ``strongsort_yolo_tpu/pipeline.py`` for the YOLOv8 and
-YOLO11 detect, pose and segment models with ByteTrack, BoT-SORT (with
-or without ReID) or StrongSORT. One tick of :class:`BatchedPipeline`
+YOLO11 detect, pose and segment models and the YOLOv5 (classic and
+``u``) and YOLOv7 detectors with ByteTrack, BoT-SORT (with or without
+ReID) or StrongSORT. One tick of :class:`BatchedPipeline`
 uploads the (S, H, W, 3) uint8 frames once, then runs the letterbox
 (K1), the model as one batch-S forward, NMS of all S frames (one K2
 launch), the rescale to frame coordinates, the task extras of the rows
@@ -69,8 +70,10 @@ from strongsort_yolo_tpu_torch.models.osnet import (
     osnet_from_state_dict,
 )
 from strongsort_yolo_tpu_torch.models.porting import (
-    load_npz_checkpoint,
+    ModelConfig,
+    load_checkpoint,
     load_osnet_npz,
+    load_reid_checkpoint,
     model_from_state_dict,
     osnet_params_from_jax,
     params_from_jax,
@@ -78,9 +81,9 @@ from strongsort_yolo_tpu_torch.models.porting import (
 from strongsort_yolo_tpu_torch.models.yolo import (
     YoloConfig,
     build_model,
+    detector_family,
     feat_hw,
     fuse_model,
-    init_model,
 )
 from strongsort_yolo_tpu_torch.ops.boxes import scale_boxes
 from strongsort_yolo_tpu_torch.ops.crops import (
@@ -99,7 +102,11 @@ from strongsort_yolo_tpu_torch.ops.letterbox import (
     resize_taps,
 )
 from strongsort_yolo_tpu_torch.ops.masks import masks_to_polygons, process_masks
-from strongsort_yolo_tpu_torch.ops.nms import Detections, nms_from_logits
+from strongsort_yolo_tpu_torch.ops.nms import (
+    Detections,
+    nms_from_logits,
+    non_max_suppression,
+)
 from strongsort_yolo_tpu_torch.track.bytetrack import ByteTrackConfig, bytetrack_step
 from strongsort_yolo_tpu_torch.track.gmc_flow import (
     BASE_H,
@@ -248,8 +255,8 @@ class TickHandle:
 
 def _reid_checkpoint(weights: str | None, params: dict | None, seed: int):
     """-> (OSNet checkpoint, OsnetConfig) from ``reid_params`` (variant
-    read from the stem's width), a variant name (random from ``seed``) or
-    an ``.npz`` path of the JAX package."""
+    read from the stem's width), a variant name (random from ``seed``), an
+    ``.npz`` path of the JAX package or a torchreid ``.pt``/``.pth``."""
     if params is not None:
         if weights is not None:
             raise ValueError("pass reid_params or reid_weights, not both")
@@ -268,7 +275,10 @@ def _reid_checkpoint(weights: str | None, params: dict | None, seed: int):
         raise FileNotFoundError(
             f"reid_weights {weights!r} is neither an OSNet variant "
             f"{sorted(VARIANTS)} nor a file")
-    tree, cfg = load_osnet_npz(weights)
+    if weights.endswith(".npz"):
+        tree, cfg = load_osnet_npz(weights)
+    else:
+        tree, cfg = load_reid_checkpoint(weights)
     return osnet_params_from_jax(tree, cfg), cfg
 
 
@@ -279,9 +289,15 @@ class Pipeline:
     ``params``: a state_dict of the port's model (for instance from
     :func:`~strongsort_yolo_tpu_torch.models.porting.params_from_jax`),
     fused or not. Without it the weights come from ``det_cfg.weights``:
-    an ``.npz`` checkpoint of the JAX package, or a model name such as
-    ``"yolov8n"``, ``"yolo11n-pose"`` or ``"yolov8n-seg"`` initialised at
-    random from ``seed``. Pose models give each result row its
+    a file, an ``.npz`` checkpoint of the JAX package or an
+    ultralytics-format ``.pt`` of YOLOv8 / YOLO11, YOLOv5 (classic or
+    ``u``) or YOLOv7, or else a model name such as ``"yolov8n"``,
+    ``"yolo11n-pose"``, ``"yolov8n-seg"``, ``"yolov5s"``, ``"yolov5su"`` or
+    ``"yolov7"`` initialised at random from ``seed``. The anchor-based
+    heads (v5 classic, v7) give decoded boxes, which ``ops/nms.
+    non_max_suppression`` suppresses; the others logits, which
+    ``nms_from_logits`` does. With ``det_cfg.fuse`` every BN is folded
+    (v7: and its RepConvs reparameterized). Pose models give each result row its
     ``keypoints``, segment models its ``masks``: computed for the top
     ``max_det`` rows in ``predict`` and the top ``tracker_max_dets`` rows
     (those that can reach the tracker) when tracking.
@@ -290,7 +306,8 @@ class Pipeline:
     rule for its ``conv_act`` entry point: stride-1 'same' convs, k 1 or
     3, on planes of 1600 pixels or more with at most 192 input channels)
     with K7, its bias added in float32 and the output rounded once; the
-    CPU runs K7's plain version. Off by default, as in the JAX package,
+    CPU runs K7's plain version; v8 and v11 only (a ``ValueError`` for v5
+    and v7). Off by default, as in the JAX package,
     whose product path leaves every conv to XLA; in bfloat16 its rounding
     differs from the default convs', so detections move slightly.
     ``tracker``: a built-in name or YAML path, or a config object;
@@ -299,7 +316,8 @@ class Pipeline:
     state_dict, :func:`~strongsort_yolo_tpu_torch.models.osnet.checkpoint_keys`,
     RGB convention) or ``reid_weights``: a variant name (default
     ``"osnet_x0_25"``) initialised at random from ``seed + 1``, or else
-    the path of an OSNet ``.npz`` of the JAX package. The top ``reid_topk`` detections of
+    the path of an OSNet ``.npz`` of the JAX package or of a torchreid
+    ``.pt``/``.pth``. The top ``reid_topk`` detections of
     each frame that reach the tracker are embedded; the rest carry a
     zero feature. ``reid_cadence``: a :class:`BatchedPipeline` with a
     StrongSORT tracker embeds each stream on one tick in ``reid_cadence``
@@ -322,7 +340,7 @@ class Pipeline:
         tracker: str | TrackerConfig = "botsort.yaml",
         *,
         params: dict[str, torch.Tensor] | None = None,
-        model_cfg: YoloConfig | None = None,
+        model_cfg: ModelConfig | None = None,
         track_slots: int = 256,
         seed: int = 0,
         names: dict[int, str] | None = None,
@@ -348,12 +366,16 @@ class Pipeline:
         self.device = torch.device(device)
         self.det_cfg = det_cfg
         if params is None and os.path.exists(det_cfg.weights):
-            tree, model_cfg, names_loaded = load_npz_checkpoint(det_cfg.weights)
+            tree, model_cfg, names_loaded = load_checkpoint(det_cfg.weights)
             params = params_from_jax(tree, model_cfg)
             names = names or names_loaded
         self.model_cfg = model_cfg or build_model(det_cfg.weights)
+        if conv_kernel and not isinstance(self.model_cfg, YoloConfig):
+            raise ValueError(
+                "conv_kernel=True takes a v8 or v11 model; K7's route is not "
+                f"held for {type(self.model_cfg).__name__}")
         if params is None:
-            model = init_model(
+            model = detector_family(self.model_cfg)[1](
                 self.model_cfg, torch.Generator().manual_seed(seed)
             )
         else:
@@ -447,17 +469,16 @@ class Pipeline:
         size = det_cfg.imgsz
         img = letterbox_u8(frames, geo.lp, dtype=self.compute_dtype, taps=geo.taps)
         out = self.model(img)
-        det = nms_from_logits(
-            out["box_logits"], out["cls_logits"],
-            feat_dims=feat_hw((size, size), cfg.strides),
-            level_strides=cfg.strides,
-            reg_max=cfg.reg_max,
-            conf_thres=det_cfg.conf,
-            iou_thres=det_cfg.iou,
-            max_det=det_cfg.max_det,
-            agnostic=det_cfg.agnostic_nms,
-            class_filter=self._class_filter,
-        )
+        nms = dict(conf_thres=det_cfg.conf, iou_thres=det_cfg.iou,
+                   max_det=det_cfg.max_det, agnostic=det_cfg.agnostic_nms,
+                   class_filter=self._class_filter)
+        if "boxes" in out:  # anchor-based v5 / v7: decoded by the head
+            det = non_max_suppression(out["boxes"], out["scores"], **nms)
+        else:
+            det = nms_from_logits(
+                out["box_logits"], out["cls_logits"],
+                feat_dims=feat_hw((size, size), cfg.strides),
+                level_strides=cfg.strides, reg_max=cfg.reg_max, **nms)
         lp = geo.lp
         boxes = scale_boxes(det.boxes, lp.gain, (lp.pad_x, lp.pad_y), geo.src_hw)
         det = det._replace(boxes=torch.where(det.valid[..., None], boxes, 0.0))

@@ -1002,3 +1002,18 @@ def test_reset_stream_and_sync_between_pending_ticks_on_the_card(dev):
     for t in reversed(range(ASYNC_T)):
         for s, (a, b) in enumerate(zip(want[t], queued.materialize(handles[t]))):
             _assert_bitwise(a, b, f"t={t} s={s}")
+
+
+@pytest.mark.parametrize("name", ["yolov5s", "yolov7"])
+def test_v5_v7_pipeline_runs_on_the_card_by_default(dev, name):
+    """Pipeline(weights="yolov5s" / "yolov7") without a device builds on
+    CUDA and runs one tick, its NMS keep mask through K2."""
+    pipe = Pipeline(DetectorConfig(weights=name, imgsz=640),
+                    tracker="bytetrack.yaml")
+    assert pipe.device.type == "cuda"
+    assert next(pipe.model.parameters()).is_cuda
+    frame = np.random.default_rng(0).integers(0, 255, (1080, 1920, 3), np.uint8)
+    nms_keep.launches = 0
+    r = pipe.track(frame)
+    assert nms_keep.launches > 0
+    assert np.isfinite(r.boxes.xyxy).all()

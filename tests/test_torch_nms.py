@@ -158,3 +158,47 @@ def test_anchors_from_indices_equal_anchor_table():
     a, s = tdecode.anchors_from_indices(idx, FEAT, STRIDES)
     assert torch.equal(a, anchors.reshape(5, -1, 2))
     assert torch.equal(s, strides.reshape(5, -1, 1))
+
+
+def _decoded(rng, b, n, nc):
+    """Decoded predictions as the anchor-based heads give them: boxes in
+    clusters over a 640 input, per-class confidences mostly below 0.3,
+    some rows repeating an earlier row's confidence exactly (ties)."""
+    boxes = np.stack([_cands(rng, n, "clusters")[0] for _ in range(b)])
+    scores = rng.uniform(0, 0.25, (b, n, nc)).astype(np.float32)
+    hot = rng.random((b, n)) < 0.15
+    cls = rng.integers(0, nc, (b, n))
+    peak = rng.uniform(0.2, 0.95, (b, n)).astype(np.float32)
+    bi, ni = np.nonzero(hot)
+    scores[bi, ni, cls[bi, ni]] = peak[bi, ni]
+    tie = np.nonzero(hot[0])[0][:8]
+    scores[0, tie[1::2]] = scores[0, tie[::2]]
+    return boxes, scores
+
+
+@pytest.mark.parametrize("agnostic", [False, True])
+@pytest.mark.parametrize("filtered", [False, True])
+def test_non_max_suppression_vs_jax(agnostic, filtered):
+    """The decoded-box entry against the JAX non_max_suppression, frame by
+    frame (3 frames of 1575 rows, nc 80: imgsz 160 of v5): equal counts,
+    validity, rows and classes, equal scores, boxes within 1e-5."""
+    rng = np.random.default_rng(7 + 2 * agnostic + filtered)
+    nc = 80
+    boxes, scores = _decoded(rng, 3, 1575, nc)
+    filt = (np.arange(nc) % 3 != 0) if filtered else None
+    kw = dict(conf_thres=0.3, iou_thres=0.4, max_det=100, agnostic=agnostic)
+    got = tnms.non_max_suppression(
+        torch.from_numpy(boxes), torch.from_numpy(scores),
+        class_filter=None if filt is None else torch.from_numpy(filt), **kw)
+    jfn = jax.jit(lambda b, s: jnms.non_max_suppression(
+        b, s, class_filter=None if filt is None else jnp.asarray(filt), **kw))
+    for s in range(3):
+        want = jax.tree.map(np.asarray, jfn(boxes[s], scores[s]))
+        assert int(got.count[s]) == int(want.count) > 10
+        np.testing.assert_array_equal(got.valid[s].numpy(), want.valid)
+        np.testing.assert_array_equal(got.index[s].numpy(), want.index)
+        np.testing.assert_array_equal(got.classes[s].numpy(), want.classes)
+        np.testing.assert_array_equal(got.scores[s].numpy(), want.scores)
+        np.testing.assert_allclose(got.boxes[s].numpy(), want.boxes, atol=1e-5)
+        if filtered:
+            assert filt[got.classes[s, :int(got.count[s])].numpy()].all()

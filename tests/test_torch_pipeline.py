@@ -152,6 +152,9 @@ def test_port_imports_no_jax():
     # ops.cuda.crop_kernel, track.strongsort
     assert int(out.stdout.strip()) >= 24
     assert {"strongsort_yolo_tpu_torch.models.osnet",
+            "strongsort_yolo_tpu_torch.models.porting",
+            "strongsort_yolo_tpu_torch.models.yolov5",
+            "strongsort_yolo_tpu_torch.models.yolov7",
             "strongsort_yolo_tpu_torch.ops.crops",
             "strongsort_yolo_tpu_torch.ops.cuda.crop_kernel",
             "strongsort_yolo_tpu_torch.track.strongsort"} <= set(mods)

@@ -148,5 +148,10 @@ def test_v11_widths_and_tree():
 
 
 def test_v5_still_refused():
-    with pytest.raises(ValueError, match="A11"):
-        tyolo.build_model("yolov5n")
+    """Once refused, v5 and v7 names are now built (their configs); a name
+    of no family still raises."""
+    assert tyolo.build_model("yolov5n").anchor_free is False
+    assert tyolo.build_model("yolov5su").anchor_free is True
+    assert type(tyolo.build_model("yolov7")).__name__ == "Yolov7Config"
+    with pytest.raises(ValueError, match="unknown model name"):
+        tyolo.build_model("yolov6n")
