@@ -129,7 +129,36 @@ raises and the process exits nonzero:
    ultralytics-format .pt files of a seeded yolov5s (StrongSORT + the
    trained OSNet, fused) and yolov7 (ByteTrack), written by
    save_ultralytics and loaded through Pipeline(weights=path) on both
-   sides: equal rows and ids, boxes within 1e-3 px.
+   sides: equal rows and ids, boxes within 1e-3 px;
+5. the app and CLI: a media probe (cv2 present or absent, the drawing
+   shim built with its seconds or the compiler's error, the libav
+   decoder and encoder loaded or the loader's error); then the app at
+   full width, S=8 streams of 1080p SyntheticSource frames (seeds 0-7,
+   APP_FRAMES frames), yolov8n with the class bias calibrated as in
+   phase 3 (written as an .npz checkpoint), imgsz 640, bf16, --track
+   --count --count-line, --log-events, --checkpoint-every 5, run as
+   cli.main runs it (parse_config, app.run, cli.report) on mp4 files
+   (written by the native encoder, else cv2, and read back through the
+   app's open_source), else on the in-memory sources with save off (the
+   line says which); the default botsort.yaml, run as flow_tpu (K1-K3
+   and K5 launched), then strongsort.yaml with the trained OSNet and
+   SSYT_OSNET=fused (K4 and K6 too, bf16; G per tick printed, and K4
+   and K6 held against their plain versions on tick 1's crop batch, the
+   trained weights in K6's tensor-core form: check_path_crops, its G
+   equal to the app's); each on one pipeline built by
+   app.make_pipeline, which serves a 2-frame warm-up run and then the
+   measured run; per stream its fps, counts and StageTimers stages (means
+   over all the measured run's ticks), every stream at
+   APP_FRAMES frames without an error, the event log's kinds; the app
+   on the card against the CPU (synth160, imgsz 160, float32, two
+   SyntheticDetSource streams, bytetrack.yaml and botsort.yaml): equal
+   counts, line counts and event kinds, the last checkpoints' track_id,
+   status and next_id equal and their means within 1e-3, label files
+   parsed (frame, class and id exact, conf within 1e-3, coordinates
+   within 1 px); and a run killed after frame 3 and resumed on the card,
+   sequential and batched (cuDNN deterministic), equal to the
+   uninterrupted run: final checkpoints field for field and the label
+   files byte for byte.
 
 The JSON line before the card's name is one object with one entry per
 kernel: its launches (K1-K3 and K5 counted on the flow path, K4 on the
@@ -155,6 +184,7 @@ result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -2785,6 +2815,342 @@ def phase_async_paths(card: str) -> None:
         torch.backends.cudnn.deterministic = deterministic
 
 
+# -- phase 5: the app and CLI ----------------------------------------------
+
+APP_FRAMES = 12  # frames per stream of the full-width app runs
+APP_LINE = "960,0,960,1080"  # the count line of the 1080p app runs
+
+
+def save_npz_checkpoint(path: str, model, family: str, scale: str) -> None:
+    """A detect model of the port (unfused) in the JAX package's ``.npz``
+    checkpoint format, which ``Pipeline(weights=path)`` loads: each
+    parameter under its tree path joined by '/', conv weights HWIO, and
+    ``__cfg__`` = (family, scale, task, nc)."""
+    arrays = {}
+    for key, value in model.state_dict().items():
+        arr = value.detach().float().cpu().numpy()
+        if key.endswith(".w") and arr.ndim == 4:
+            arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+        arrays[key.replace(".", "/")] = arr
+    arrays["__cfg__"] = np.array([family, scale, "detect",
+                                  str(model.cfg.nc)])
+    np.savez(path, **arrays)
+
+
+def app_checkpoint(frame: np.ndarray, out_dir: str) -> str:
+    """yolov8n with seeded random weights, its class biases calibrated on
+    ``frame`` (1080p, imgsz 640) to about TARGET_DETS candidates, as the
+    phase 3 paths are, written as an ``.npz`` in ``out_dir``; -> its path."""
+    import torch
+
+    from strongsort_yolo_tpu_torch.models.yolo import build_model, detector_family
+    from strongsort_yolo_tpu_torch.ops.letterbox import letterbox, letterbox_params
+
+    cfg = build_model("yolov8n")
+    model = detector_family(cfg)[1](
+        cfg, torch.Generator().manual_seed(0)).eval().to("cuda")
+    lp = letterbox_params(*frame.shape[:2], 640)
+    img = letterbox(torch.from_numpy(frame[None]).to("cuda"), lp,
+                    dtype=torch.float32)
+    calibrate_head(model, img, 0.3, TARGET_DETS)
+    path = os.path.join(out_dir, "yolov8n_calibrated.npz")
+    save_npz_checkpoint(path, model, "v8", "n")
+    return path
+
+
+def _event_kinds(path: str) -> list[str]:
+    with open(path) as f:
+        return [json.loads(line)["event"] for line in f]
+
+
+def _stage_line(stats) -> str:
+    st = stats.stage_times or {}
+    return ", ".join(f"{k} {v['mean_ms']:.2f} ms x {v['count']}"
+                     for k, v in st.items())
+
+
+def _first_frames(sources) -> np.ndarray:
+    """Frame 0 of each source as the app reads it (decoded, for files):
+    the app's tick 1."""
+    from strongsort_yolo_tpu_torch.app import open_source
+
+    frames = []
+    for src in sources:
+        reader = open_source(src)[0]
+        frames.append(next(iter(reader)))
+        getattr(reader, "release", lambda: None)()
+    return np.stack(frames)
+
+
+def _app_path(card: str, label: str, argv: list[str], sources, kernels,
+              out_dir: str, files: bool, crops: bool = False) -> list:
+    """One full-width app run as ``cli.main`` runs it (``parse_config``,
+    ``run``, ``report``): on mp4 files (``sources`` are paths; outputs
+    written), else on the in-memory sources with save off. One pipeline,
+    built by ``make_pipeline`` as ``run`` builds it, serves a warm-up run
+    of 2 frames and then the measured run of APP_FRAMES, launch counts
+    zeroed just before it and read just after; its stage means are over
+    all its ticks, the first included. Every stream must reach APP_FRAMES
+    frames without an error; the event log's kinds checked. With
+    ``crops``, G is recorded per tick, and K4 and K6 are held against
+    their plain versions on tick 1's crop batch (check_path_crops), whose
+    G must be the app's."""
+    from strongsort_yolo_tpu_torch import cli
+    from strongsort_yolo_tpu_torch.app import make_pipeline, run
+
+    events = os.path.join(out_dir, "events.jsonl")
+    cfg = cli.parse_config(
+        (["--source", *sources] if files else ["--no-save"]) + argv
+        + ["--output", out_dir, "--log-events", events, "--checkpoint-every",
+           "5", "--max-frames", str(APP_FRAMES)])
+    srcs = None if files else sources
+    pipe = make_pipeline(cfg)
+
+    run(dataclasses.replace(cfg, output_dir=out_dir + "_warm",
+                            log_events=None, max_frames=2), srcs, pipe)
+    slots = _record_slots(pipe) if crops else []
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    stats = run(cfg, srcs, pipe)
+    wall = time.perf_counter() - t0
+    counts = {k.__name__: k.launches for k in kernels}
+    how = ("mp4 files, outputs written" if files else
+           "in-memory SyntheticSource, save off")
+    cli.report(stats)
+    log(f"{label}: {how}; {len(stats)} streams x {APP_FRAMES} frames in "
+        f"{wall:.2f} s; launches {counts}"
+        + (f"; crop slots G per tick {slots}" if crops else "") + f" [{card}]")
+    for name, n in counts.items():
+        if n == 0:
+            raise AssertionError(f"{label}: never launched {name}")
+    for i, st in enumerate(stats):
+        if st.failed is not None or st.errors or st.frames != APP_FRAMES:
+            raise AssertionError(
+                f"{label} stream {i}: frames {st.frames}, errors {st.errors}, "
+                f"failed {st.failed}")
+        log(f"{label} stream {i}: fps {st.mean_fps:.2f}, counts {st.counts}, "
+            f"line_counts {st.line_counts}; stages (ms each; decode, stack, "
+            f"dispatch, infer_track per tick of the group) {_stage_line(st)} "
+            f"[{card}]")
+    kinds = _event_kinds(events)
+    n = len(stats)
+    want = ["stream_start"] * n + ["checkpoint"] * (APP_FRAMES // 5) + [
+        "stream_end"] * n
+    if kinds != want:
+        raise AssertionError(f"{label}: event kinds {kinds}, not {want}")
+    log(f"{label}: event kinds {sorted(set(kinds))} as expected "
+        f"({len(kinds)} events)")
+    if files:
+        for st in stats:
+            if not os.path.getsize(st.output_video):
+                raise AssertionError(f"{label}: empty {st.output_video}")
+    if crops:
+        g = check_path_crops(label, pipe, to_card(_first_frames(sources)),
+                             card)
+        if g != slots[0]:
+            raise AssertionError(f"{label}: tick 1's crop batch G={g} here, "
+                                 f"{slots[0]} in the app's run")
+    return stats
+
+
+def _write_sources(srcs, out_dir: str):
+    """The app's sources as mp4 files, written by the native encoder where
+    it loads, else by cv2, and read back through ``app.open_source`` ->
+    (paths, how), or (None, why not)."""
+    from strongsort_yolo_tpu_torch.app import open_source
+    from strongsort_yolo_tpu_torch.media.native_decoder import (
+        NativeVideoWriter,
+        encoder_available,
+    )
+    from strongsort_yolo_tpu_torch.media.video import VideoWriter
+
+    writer = NativeVideoWriter if encoder_available() else VideoWriter
+    t0 = time.perf_counter()
+    paths = []
+    try:
+        for s, src in enumerate(srcs):
+            paths.append(os.path.join(out_dir, f"cam{s}.mp4"))
+            w = writer(paths[-1], src.w, src.h, 30.0)
+            for f in src:
+                w.write(f)
+            w.release()
+        write_s = time.perf_counter() - t0
+        reader, w, h = open_source(paths[0])
+        n = 0 if reader is None else sum(1 for _ in reader)
+    except (ImportError, OSError, RuntimeError) as e:
+        return None, f"no video files ({type(e).__name__}: {e})"
+    if (n, w, h) != (APP_FRAMES, srcs[0].w, srcs[0].h):
+        return None, f"no video files (read back {n} frames of {w}x{h})"
+    return paths, (f"{len(paths)} mp4 files written by "
+                   f"{writer.__name__} in {write_s:.2f} s, read back by "
+                   f"{type(reader).__name__}")
+
+
+def _app_cpu_card(out_dir: str, tracker: str, device: str, save: bool,
+                  **kw):
+    from strongsort_yolo_tpu_torch.app import AppConfig, run
+    from strongsort_yolo_tpu_torch.media.video import SyntheticDetSource
+
+    cfg = AppConfig(
+        track=True, count=True, weights=CKPT, imgsz=160, max_det=16,
+        half=False, tracker=tracker, device=device, output_dir=out_dir,
+        count_line=(120.0, 0.0, 120.0, 320.0), save=save,
+        log_events=os.path.join(out_dir, "events.jsonl"), **kw)
+    srcs = [SyntheticDetSource(num_frames=APP_FRAMES, size=(320, 320),
+                               num_objects=3, seed=s) for s in range(2)]
+    return run(cfg, sources=srcs)
+
+
+def _labels_close(want: str, got: str) -> tuple[int, int]:
+    """Label files parsed: frame, class and id exact, conf within 0.001,
+    coordinates within 1 px -> (rows, fields that differ)."""
+    with open(want) as f:
+        a_rows = [line.split() for line in f]
+    with open(got) as f:
+        b_rows = [line.split() for line in f]
+    if len(a_rows) != len(b_rows):
+        raise AssertionError(f"{got}: {len(b_rows)} rows vs {len(a_rows)}")
+    differ = 0
+    for a, b in zip(a_rows, b_rows):
+        if (a[:3] != b[:3] or abs(float(a[3]) - float(b[3])) > 1e-3 + 1e-9
+                or any(abs(int(a[i]) - int(b[i])) > 1 for i in range(4, 8))):
+            raise AssertionError(f"{got}: {b} vs {a}")
+        differ += sum(x != y for x, y in zip(a[3:8], b[3:8]))
+    return len(a_rows), differ
+
+
+def _ckpt(out_dir: str, name: str):
+    import torch
+
+    return torch.load(os.path.join(out_dir, f"{name}_ckpt", "state.pt"),
+                      weights_only=True)
+
+
+def phase_app(card: str, kernels: dict) -> None:
+    """Phase 5: the media probe, the app and CLI at full width (the default
+    botsort.yaml run as flow_tpu, and StrongSORT + the trained OSNet,
+    fused), the app on the card against the CPU, and resume on the card."""
+    import torch
+
+    from strongsort_yolo_tpu_torch.media import media_status
+    from strongsort_yolo_tpu_torch.media.video import SyntheticSource
+
+    status = media_status()
+    log(f"media probe: cv2 {status['cv2'] or 'absent'}; libmedia_shim.so "
+        f"{status['shim']}; decoder {status['decoder']}; encoder "
+        f"{status['encoder']}")
+    # outputs need an encoder: the native one, else cv2's
+    save = status["encoder"] == "loaded" or status["cv2"] is not None
+    k = kernels
+    with tempfile.TemporaryDirectory() as tmp:
+        srcs = [SyntheticSource(num_frames=APP_FRAMES, size=(1080, 1920),
+                                num_objects=6, seed=s) for s in range(S_MAIN)]
+        weights = app_checkpoint(next(iter(srcs[0])), tmp)
+        paths, how = _write_sources(srcs, tmp)
+        log(f"app sources: {how}")
+        files = paths is not None
+        sources = paths if files else srcs
+        base = ["--track", "--count", "--count-line", APP_LINE, "--weights",
+                weights, "--imgsz", "640"]
+        _app_path(card, "app default (botsort.yaml as flow_tpu)", base,
+                  sources, [k[n] for n in ("letterbox_u8", "nms_keep",
+                                           "auction", "lk_pyramid")],
+                  os.path.join(tmp, "default"), files)
+        os.environ["SSYT_OSNET"] = "fused"
+        try:
+            _app_path(card, "app strongsort.yaml + trained OSNet, fused",
+                      base + ["--tracker", "strongsort.yaml",
+                              "--reid-weights", OSNET],
+                      sources, list(k.values()), os.path.join(tmp, "ss"),
+                      files, crops=True)
+        finally:
+            del os.environ["SSYT_OSNET"]
+
+        # the app on the card against the CPU (float32, TF32 off)
+        for tracker in ("bytetrack.yaml", "botsort.yaml"):
+            runs = {}
+            for device in ("cuda", "cpu"):
+                out = os.path.join(tmp, f"parity_{tracker}_{device}")
+                runs[device] = (out, _app_cpu_card(
+                    out, tracker, device, save, checkpoint_every=4))
+            (c_out, card_st), (p_out, cpu_st) = runs["cuda"], runs["cpu"]
+            rows = differ = 0
+            for a, b in zip(cpu_st, card_st):
+                if (a.frames, a.counts, a.line_counts) != (
+                        b.frames, b.counts, b.line_counts):
+                    raise AssertionError(
+                        f"app {tracker}: card {b.frames} {b.counts} "
+                        f"{b.line_counts} vs CPU {a.frames} {a.counts} "
+                        f"{a.line_counts}")
+                if save:
+                    r, d = _labels_close(a.labels_file, b.labels_file)
+                    rows, differ = rows + r, differ + d
+            if _event_kinds(os.path.join(c_out, "events.jsonl")) != \
+                    _event_kinds(os.path.join(p_out, "events.jsonl")):
+                raise AssertionError(f"app {tracker}: event kinds differ")
+            for name in ("synthetic", "synthetic_1"):
+                a, b = _ckpt(p_out, name), _ckpt(c_out, name)
+                for field in ("track_id", "status", "next_id", "last_frame"):
+                    if not torch.equal(a[field], b[field]):
+                        raise AssertionError(f"app {tracker}: checkpoint "
+                                             f"{name} {field} differs")
+                err = float((a["mean"] - b["mean"]).abs().max())
+                if err > 1e-3:
+                    raise AssertionError(f"app {tracker}: checkpoint mean "
+                                         f"off by {err}")
+            log(f"app card == CPU, {tracker}"
+                f"{' (run as flow_tpu)' if tracker == 'botsort.yaml' else ''}"
+                f" (synth160, imgsz 160, f32, 2 streams x {APP_FRAMES}): "
+                f"counts {card_st[0].counts} / {card_st[1].counts}, line "
+                f"counts, event kinds and the last checkpoints' ids, status "
+                f"and next_id equal, mean within 1e-3; "
+                + (f"labels {rows} rows, {differ} fields differ (conf 1e-3, "
+                   "coordinates 1 px)" if save else "no labels (save off)"))
+
+        # resume on the card: killed after frame 3, resumed
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            for mode in ("sequential", "batched"):
+                full_out = os.path.join(tmp, f"full_{mode}")
+                full = _app_cpu_card(full_out, "bytetrack.yaml", "cuda",
+                                     save, multi_mode=mode,
+                                     checkpoint_every=1)
+                out = os.path.join(tmp, f"resumed_{mode}")
+                first = _app_cpu_card(out, "bytetrack.yaml", "cuda", save,
+                                      multi_mode=mode, checkpoint_every=1,
+                                      max_frames=3)
+                if [st.frames for st in first] != [3, 3]:
+                    raise AssertionError(f"resume {mode}: first run "
+                                         f"{[st.frames for st in first]}")
+                resumed = _app_cpu_card(out, "bytetrack.yaml", "cuda",
+                                        save, multi_mode=mode,
+                                        resume=True, checkpoint_every=1)
+                for a, b in zip(full, resumed):
+                    if (a.frames, a.counts) != (b.frames, b.counts):
+                        raise AssertionError(f"resume {mode}: {b.frames} "
+                                             f"{b.counts} vs {a.frames} "
+                                             f"{a.counts}")
+                    if save:
+                        with open(a.labels_file) as fa, open(b.labels_file) as fb:
+                            if fa.read() != fb.read():
+                                raise AssertionError(f"resume {mode}: labels "
+                                                     "differ")
+                for name in ("synthetic", "synthetic_1"):
+                    a, b = _ckpt(full_out, name), _ckpt(out, name)
+                    for field, value in a.items():
+                        if not torch.equal(value, b[field]):
+                            raise AssertionError(f"resume {mode}: final "
+                                                 f"checkpoint {field} differs")
+                log(f"resume on the card, {mode}: killed after frame 3, "
+                    f"resumed to {APP_FRAMES}: final checkpoints equal field "
+                    f"for field" + (", label files identical" if save
+                                    else "") + " to the uninterrupted run")
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+
+
 def main() -> int:
     import torch
 
@@ -2844,6 +3210,9 @@ def main() -> int:
     phase_trained_checkpoint()
     phase_trained_tasks(conv_act)
     phase_fabricated_checkpoints()
+    mark("phase 5: the app and CLI")
+    phase_app(card, {k.__name__: k for k in (
+        letterbox_u8, nms_keep, auction, lk_pyramid, banded_crop, os_stage)})
     mark("done")
     log(json.dumps({"kernels": [
         {k: e[k] for k in ("name", "route", "source", "replaces", "launches",

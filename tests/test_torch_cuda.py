@@ -860,7 +860,7 @@ ASYNC_T = 5
 def _async_case(name, dev):
     """-> (BatchedPipeline of 2 streams on the card, frames (ASYNC_T, 2,
     H, W, 3), warps (ASYNC_T, 2, 2, 3) or None): BoT-SORT with host
-    warps, BoT-SORT with flow_tpu, StrongSORT + the trained OSNet, or the
+    warps, without GMC, or with flow_tpu, StrongSORT + the trained OSNet, or the
     trained pose / segment checkpoints with ByteTrack; float32."""
     rng = np.random.default_rng(11)
     bg = (rng.uniform(0, 0.3, (2, 320, 320, 3)) * 255).astype(np.uint8)
@@ -888,10 +888,11 @@ def _async_case(name, dev):
         kw.update(tracker=StrongSortConfig(gmc_method="none"),
                   reid_weights=OSNET)
     else:
-        gmc = "flow_tpu" if name == "flow_tpu" else "sparseOptFlow"
+        gmc = {"flow_tpu": "flow_tpu", "botsort_none": "none"}.get(
+            name, "sparseOptFlow")
         kw.update(tracker=ByteTrackConfig(tracker_type="botsort",
                                           gmc_method=gmc))
-        if gmc != "flow_tpu":
+        if gmc == "sparseOptFlow":
             warps = np.tile(np.eye(2, 3, dtype=np.float32),
                             (ASYNC_T, 2, 1, 1))
             warps[..., 2] = (3.0, -2.0)
@@ -981,6 +982,63 @@ def test_materialize_waits_for_its_own_tick_only(dev):
     assert sum(len(r.masks) for r in results) > 0
     bp.materialize(second)
     assert second.query()
+
+
+@pytest.mark.parametrize("name", ["botsort_none", "flow_tpu", "pose", "seg"])
+def test_step_async_returns_while_the_stream_is_held(dev, name):
+    """The no-sync claim checked without set_sync_debug_mode: after two
+    warm ticks the compute stream is held by torch.cuda._sleep (about a
+    second) and an event is recorded behind it; step_async of the next
+    tick returns while that event is still pending, so it waited for no
+    work on the stream (paths a, c, pose and e; a ReID path waits on its
+    detection counts by design). The tick's results come after."""
+    bp, frames, warps = _async_case(name, dev)
+    for t in range(2):
+        bp.step(frames[t], _warp(warps, t))
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000_000)
+    held = torch.cuda.Event()
+    held.record()
+    handle = bp.step_async(frames[2], _warp(warps, 2))
+    assert not held.query()
+    assert not handle.query()
+    rows = sum(map(len, bp.materialize(handle)))
+    assert held.query() and rows > 0
+
+
+def test_app_runs_on_the_card_by_default(dev, tmp_path):
+    """app.run without a device builds its pipeline on CUDA: the letterbox
+    kernel launches once per frame."""
+    from strongsort_yolo_tpu_torch.app import AppConfig, run
+    from strongsort_yolo_tpu_torch.media.video import SyntheticDetSource
+
+    letterbox_u8.launches = 0
+    stats = run(AppConfig(track=True, weights=CKPT, imgsz=160, max_det=16,
+                          half=False, tracker="bytetrack.yaml", save=False,
+                          output_dir=str(tmp_path)),
+                sources=[SyntheticDetSource(num_frames=4, size=(320, 320))])
+    assert stats[0].frames == 4 and stats[0].failed is None
+    assert letterbox_u8.launches == 4
+
+
+def test_checkpoint_moves_between_card_and_cpu(dev, tmp_path):
+    """A state saved from the card restores on the CPU and the other way
+    round, field for field."""
+    from strongsort_yolo_tpu_torch.track.state import TrackState, init_track_state
+    from strongsort_yolo_tpu_torch.utils.checkpoint import restore_state, save_state
+
+    gen = torch.Generator().manual_seed(0)
+    state = TrackState(*((torch.rand(f.shape, generator=gen) * 50).to(f.dtype)
+                         for f in init_track_state(1, 16, feat_dim=8)))
+    for src, dst in ((dev, "cpu"), ("cpu", dev)):
+        path = str(tmp_path / f"{src}_ckpt")
+        save_state(path, TrackState(*(f.to(src) for f in state)), 9)
+        got, frame = restore_state(path, init_track_state(1, 16, dst,
+                                                          feat_dim=8))
+        assert frame == 9
+        for a, b in zip(state, got):
+            assert b.device.type == torch.device(dst).type
+            assert torch.equal(b.cpu(), a)
 
 
 def test_reset_stream_and_sync_between_pending_ticks_on_the_card(dev):

@@ -149,9 +149,20 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     # the ReID slice included: models.osnet, ops.crops,
-    # ops.cuda.crop_kernel, track.strongsort
-    assert int(out.stdout.strip()) >= 24
-    assert {"strongsort_yolo_tpu_torch.models.osnet",
+    # ops.cuda.crop_kernel, track.strongsort; and the app layer: app,
+    # cli, media.*, utils.{checkpoint,counting,labels,...}
+    assert int(out.stdout.strip()) >= 58
+    assert {"strongsort_yolo_tpu_torch.app",
+            "strongsort_yolo_tpu_torch.cli",
+            "strongsort_yolo_tpu_torch.media.annotator",
+            "strongsort_yolo_tpu_torch.media.native",
+            "strongsort_yolo_tpu_torch.media.native_decoder",
+            "strongsort_yolo_tpu_torch.media.video",
+            "strongsort_yolo_tpu_torch.utils.checkpoint",
+            "strongsort_yolo_tpu_torch.utils.counting",
+            "strongsort_yolo_tpu_torch.utils.labels",
+            "strongsort_yolo_tpu_torch.utils.profiling",
+            "strongsort_yolo_tpu_torch.models.osnet",
             "strongsort_yolo_tpu_torch.models.porting",
             "strongsort_yolo_tpu_torch.models.yolov5",
             "strongsort_yolo_tpu_torch.models.yolov7",
