@@ -158,7 +158,30 @@ raises and the process exits nonzero:
    within 1 px); and a run killed after frame 3 and resumed on the card,
    sequential and batched (cuDNN deterministic), equal to the
    uninterrupted run: final checkpoints field for field and the label
-   files byte for byte.
+   files byte for byte;
+6. offline tracking, the repo's tracking-quality tools on the card:
+   (6a) ``tools/eval_mot --public`` on tests/fixtures/MOT-synth01 for
+   bytetrack.yaml, botsort.yaml, strongsort.yaml (motion-only) and
+   bytetrack.yaml with --strongsort-pp, without and with --aflink (K3),
+   each row equal to BASELINE.md:148-152 to four places and its JSON line
+   equal to the same run with --device cpu, one mid-sequence K3 call
+   bit-identical to auction_plain; (6b) ``eval_mot`` with the detector on
+   a MOT17-layout sequence of 60 rendered 1080p frames written as JPEG by
+   cv2 (yolov8n 640 bf16, class bias calibrated, botsort.yaml as flow_tpu:
+   K1-K3, K5), its row, launches and host ms per frame printed (random
+   weights: no bar); (6c) ``tools/eval_sequence`` with the trained
+   synth160 detector and OSNet-x0_25: --cycles 2 --cadence 1 2 (the
+   strongsort, lambda-0 and StrongSORT++ rows, vis and occ, and the
+   cadence rows, each printed beside BASELINE.md's), held to
+   tests/test_sequence_quality.py's bars, cadence 1 equal to the classic
+   arm; --cycles 1 --pan 10 --gmc flow_tpu held to the panning bar of
+   tests/test_torch_quality.py (K5 too); the lambda-0.98 arm and its
+   StrongSORT++ pass at cycles 1 on the card equal to the CPU's (metrics,
+   ids, boxes within 1e-3 px); K4 bit-identical on a relay tick's crop
+   batch; (6d) the shipped AFLink's logits on 800 fresh pairs within
+   1e-5 x max(1, |logit|) of the CPU's, the same decisions, accuracy >=
+   0.95, then ``tools/train_aflink`` for 200 steps on the card, the loss
+   falling.
 
 The JSON line before the card's name is one object with one entry per
 kernel: its launches (K1-K3 and K5 counted on the flow path, K4 on the
@@ -1464,10 +1487,11 @@ class capture_auction:
         self.module.auction = self.real
 
 
-def check_k3_tick(card: str, calls) -> None:
-    """K3 on the tracker's own problems: the three calls of one steady
-    BoT-SORT tick (S=8, 256 slots, 128 tracker dets), bit-identical to
-    auction_plain, each replayed as a CUDA graph and timed, with the
+def check_k3_tick(card: str, calls,
+                  label: str = "one steady BoT-SORT tick") -> None:
+    """K3 on the tracker's own problems (by default the three calls of one
+    steady BoT-SORT tick, S=8, 256 slots, 128 tracker dets), bit-identical
+    to auction_plain, each replayed as a CUDA graph and timed, with the
     valid rows and columns and the bidding rounds (counted by the plain
     version) of each problem."""
     import torch
@@ -1492,8 +1516,7 @@ def check_k3_tick(card: str, calls) -> None:
             f"{args[3].sum(1).tolist()}, rounds {rounds.tolist()}, matches "
             f"{(got[0] >= 0).sum(1).tolist()}; kernel {ms:.4f} ms (CUDA graph "
             f"replay) [{card}]")
-    log(f"K3 on one steady BoT-SORT tick, {len(calls)} calls: kernel "
-        f"{total:.4f} ms [{card}]")
+    log(f"K3 on {label}, {len(calls)} calls: kernel {total:.4f} ms [{card}]")
 
 
 def phase_main_path(card: str, kernels):
@@ -2441,11 +2464,11 @@ DETECTOR_PATHS = (
 
 
 def check_path_crops(label: str, pipe, frames, card: str) -> int:
-    """K4 and K6 on one tick's crop batch of a path with the fused OSNet,
-    at the G that tick gives them: K4's crops bit-identical to
-    banded_crop_plain, and each of the three K6 stages, on the inputs the
-    OSNet feeds it (captured in one forward), against os_stage_plain
-    under k6_error's bars. -> G."""
+    """K4 and K6 on one tick's crop batch of a ReID path, at the G that
+    tick gives them: K4's crops bit-identical to banded_crop_plain, and,
+    where the pipeline's OSNet is fused, each of the three K6 stages, on
+    the inputs the OSNet feeds it (captured in one forward), against
+    os_stage_plain under k6_error's bars. -> G."""
     import torch
 
     from strongsort_yolo_tpu_torch.models import osnet
@@ -2480,10 +2503,15 @@ def check_path_crops(label: str, pipe, frames, card: str) -> int:
             feats = pipe.reid(crops)
         finally:
             osnet.os_stage = real
-    if len(calls) != 3 or not torch.isfinite(feats).all():
+    fused = pipe.reid._stages is not None
+    if len(calls) != 3 * fused or not torch.isfinite(feats).all():
         raise AssertionError(f"path {label}: {len(calls)} K6 stages, or "
                              "non-finite embeddings")
     g, parts = crops.shape[0], []
+    if not fused:
+        log(f"path {label}: K4 on one tick's crop batch (G={g}) "
+            f"bit-identical to banded_crop_plain; OSNet unfused [{card}]")
+        return g
     for i, (x, w, spec, got) in enumerate(calls):
         form = stage_form(spec, x.dtype)
         name = (f"path {label} K6 stage {i + 2} {tuple(x.shape)} {x.dtype} "
@@ -3151,6 +3179,306 @@ def phase_app(card: str, kernels: dict) -> None:
             torch.backends.cudnn.deterministic = deterministic
 
 
+# -- phase 6: offline tracking ---------------------------------------------
+
+MOT_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "MOT-synth01")
+# BASELINE.md:148-152, the public protocol on MOT-synth01:
+# (MOTA, IDF1, FP, FN, IDsw) to four places
+PUBLIC_ROWS = {
+    "bytetrack.yaml": (0.9155, 0.9264, 0, 165, 1),
+    "botsort.yaml": (0.9155, 0.9264, 0, 165, 1),
+    "strongsort.yaml": (0.9089, 0.9233, 1, 177, 1),
+    "bytetrack.yaml --strongsort-pp": (0.9913, 0.9612, 2, 14, 1),
+    "bytetrack.yaml --strongsort-pp --aflink": (0.9913, 0.9612, 2, 14, 1),
+}
+# BASELINE.md:186-192 and 213-216, the JAX package's occlusion-relay rows
+# at cycles=2 (MOTA, IDF1, IDsw), printed beside the card's
+SEQUENCE_ROWS = {
+    ("strongsort", "vis"): (0.735, 0.796, 8),
+    ("strongsort_lambda0", "vis"): (0.720, 0.758, 16),
+    ("strongsort_pp_aflink_gsi", "vis"): (0.690, 0.828, 1),
+    ("strongsort_lambda0_pp_aflink_gsi", "vis"): (0.677, 0.779, 4),
+    ("strongsort", "occ"): (0.519, 0.649, 8),
+    ("strongsort_lambda0", "occ"): (0.509, 0.618, 16),
+    ("strongsort_pp_aflink_gsi", "occ"): (0.487, 0.680, 1),
+    ("strongsort_cadence1", "vis"): (0.735, 0.796, 8),
+    ("strongsort_cadence2", "vis"): (0.719, 0.780, 17),
+}
+DETECTOR_SEQ_FRAMES = 60  # 1080p frames of the detector protocol's sequence
+
+
+def _run_tool(main, argv: list[str]):
+    """Call a tool's ``main(argv)`` with its standard output captured ->
+    (its return value, the JSON objects it printed, seconds)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        ret = main(argv)
+    secs = time.perf_counter() - t0
+    rows = [json.loads(line) for line in buf.getvalue().splitlines()
+            if line.startswith("{")]
+    return ret, rows, secs
+
+
+def _zero(kernels) -> None:
+    for k in kernels:
+        k.launches = 0
+
+
+def _counts(kernels) -> dict:
+    return {k.__name__: k.launches for k in kernels}
+
+
+def phase_public_protocol(card: str, kernels) -> None:
+    """6a: ``eval_mot --public`` on MOT-synth01 for the five BASELINE.md
+    rows on the card (K3 only: the protocol takes no frames), each
+    equal to BASELINE.md to four places and its JSON line equal to the
+    same run with ``--device cpu``; one mid-sequence ByteTrack K3 call
+    held against auction_plain."""
+    from strongsort_yolo_tpu_torch.tools import eval_mot
+
+    for config, want in PUBLIC_ROWS.items():
+        tracker, *flags = config.split()
+        argv = [MOT_FIXTURE, "--public", "--tracker", tracker, *flags]
+        _zero(kernels)
+        with capture_auction() as calls:
+            _, card_rows, secs = _run_tool(eval_mot.main,
+                                           argv + ["--device", "cuda"])
+        counts = _counts(kernels)
+        _, cpu_rows, cpu_secs = _run_tool(eval_mot.main,
+                                          argv + ["--device", "cpu"])
+        m = card_rows[0]
+        got = (round(m["mota"], 4), round(m["idf1"], 4), m["fp"], m["fn"],
+               m["idsw"])
+        log(f"eval_mot --public {config}: {json.dumps(m)}; launches "
+            f"{counts}; host ms per frame {secs / 300 * 1e3:.2f} on the card "
+            f"[{card}], {cpu_secs / 300 * 1e3:.2f} with --device cpu")
+        if got != want:
+            raise AssertionError(f"eval_mot --public {config}: (MOTA, IDF1, "
+                                 f"FP, FN, IDsw) {got}, BASELINE.md {want}")
+        if json.dumps(card_rows) != json.dumps(cpu_rows):
+            raise AssertionError(f"eval_mot --public {config}: card "
+                                 f"{card_rows} != CPU {cpu_rows}")
+        if counts["auction"] != len(calls) or not calls:
+            raise AssertionError(f"eval_mot --public {config}: K3 launched "
+                                 f"{counts['auction']} times, {len(calls)} "
+                                 "calls")
+        if config == "bytetrack.yaml":
+            check_k3_tick(card, [calls[len(calls) // 2]],
+                          "MOT-synth01 frame 150 (ByteTrack, public protocol)")
+
+
+def write_mot_sequence(src, seq_dir: str) -> None:
+    """A MOT17-layout sequence of ``src``'s frames (img1/*.jpg, written by
+    cv2) with its truth as gt/gt.txt."""
+    from strongsort_yolo_tpu_torch.media.video import _cv2
+
+    cv2 = _cv2()
+    os.makedirs(os.path.join(seq_dir, "img1"))
+    os.makedirs(os.path.join(seq_dir, "gt"))
+    lines = []
+    for t, frame in enumerate(src):
+        if not cv2.imwrite(os.path.join(seq_dir, "img1", f"{t + 1:06d}.jpg"),
+                           frame):
+            raise AssertionError(f"cv2.imwrite failed on frame {t + 1}")
+        lines += [f"{t + 1},{tid},{x1:.2f},{y1:.2f},{x2 - x1:.2f},"
+                  f"{y2 - y1:.2f},1,1,1.0\n"
+                  for tid, x1, y1, x2, y2 in src.truth(t)]
+    with open(os.path.join(seq_dir, "gt", "gt.txt"), "w") as f:
+        f.writelines(lines)
+    with open(os.path.join(seq_dir, "seqinfo.ini"), "w") as f:
+        f.write(f"[Sequence]\nname={os.path.basename(seq_dir)}\nimDir=img1\n"
+                f"frameRate=30\nseqLength={src.num_frames}\nimWidth={src.w}\n"
+                f"imHeight={src.h}\nimExt=.jpg\n")
+
+
+def phase_detector_protocol(card: str, kernels) -> None:
+    """6b: ``eval_mot`` with the detector on a rendered 1080p sequence:
+    yolov8n at 640, bf16, the class bias calibrated (app_checkpoint),
+    botsort.yaml as flow_tpu (K1-K3, K5). Random weights: the metrics are
+    printed, not held to a bar."""
+    from strongsort_yolo_tpu_torch.media.video import SyntheticSource
+    from strongsort_yolo_tpu_torch.tools import eval_mot
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src = SyntheticSource(num_frames=DETECTOR_SEQ_FRAMES,
+                              size=(1080, 1920), num_objects=6, seed=0)
+        seq = os.path.join(tmp, "SYNTH-1080")
+        t0 = time.perf_counter()
+        write_mot_sequence(src, seq)
+        write_s = time.perf_counter() - t0
+        weights = app_checkpoint(next(iter(src)), tmp)
+        _zero(kernels)
+        _, rows, secs = _run_tool(eval_mot.main, [seq, "--weights", weights,
+                                                  "--device", "cuda"])
+        counts = _counts(kernels)
+    n = DETECTOR_SEQ_FRAMES
+    log(f"eval_mot detector protocol, {n} 1080p JPEG frames (written by cv2 "
+        f"in {write_s:.2f} s), yolov8n 640 bf16 calibrated, botsort.yaml as "
+        f"flow_tpu: {json.dumps(rows[0])}; launches {counts}; host ms per "
+        f"frame {secs / n * 1e3:.2f} (main's wall clock: pipeline build, "
+        f"JPEG decode, track, metrics) [{card}]")
+    for name, k in counts.items():
+        if k == 0:
+            raise AssertionError(f"detector protocol never launched {name}")
+    if rows[0]["gt"] != sum(len(src.truth(t)) for t in range(n)):
+        raise AssertionError(f"detector protocol: gt {rows[0]['gt']}")
+
+
+def _same_records(label: str, got, want) -> None:
+    if [r[:2] for r in got] != [r[:2] for r in want]:
+        raise AssertionError(f"{label}: records' frames or ids differ")
+    if got:
+        err = float(np.abs(np.array([r[2:] for r in got])
+                           - np.array([r[2:] for r in want])).max())
+        if err > 1e-3:
+            raise AssertionError(f"{label}: boxes differ by {err} px")
+
+
+def phase_sequence_rows(card: str, kernels) -> None:
+    """6c: ``eval_sequence`` on the card: the cycles=2 rows with the
+    cadence arms, held to tests/test_sequence_quality.py's bars, cadence 1
+    equal to the classic arm; the panning relay with flow_tpu held to
+    tests/test_torch_quality.py's bar; the λ=0.98 arm and its StrongSORT++
+    pass at cycles=1 equal to the CPU's; K4 on a relay tick's crop batch."""
+    import torch
+
+    from strongsort_yolo_tpu_torch.media.video import OcclusionRelayClip
+    from strongsort_yolo_tpu_torch.tools import eval_sequence
+
+    _zero(kernels)
+    rows, _, secs = _run_tool(eval_sequence.main, [
+        "--cycles", "2", "--json", "--cadence", "1", "2", "--device", "cuda"])
+    counts = _counts(kernels)
+    frames = 4 * OcclusionRelayClip(cycles=2).num_frames
+    log(f"eval_sequence --cycles 2 --cadence 1 2: {frames} frames in "
+        f"{secs:.2f} s, host ms per frame {secs / frames * 1e3:.2f}; launches "
+        f"{counts} [{card}]")
+    for name, row in rows.items():
+        for proto, m in row.items():
+            ref = SEQUENCE_ROWS.get((name, proto))
+            log(f"  {name:34s} {proto}: MOTA {m['mota']:.4f} IDF1 "
+                f"{m['idf1']:.4f} IDsw {m['idsw']}"
+                + (f"  (BASELINE.md {ref[0]:.3f} {ref[1]:.3f} {ref[2]})"
+                   if ref else ""))
+    reid, lam0 = rows["strongsort"]["vis"], rows["strongsort_lambda0"]["vis"]
+    pp = rows["strongsort_pp_aflink_gsi"]["vis"]
+    bars = {
+        "IDsw(reid) < IDsw(lambda0)": reid["idsw"] < lam0["idsw"],
+        "IDF1(reid) > IDF1(lambda0) + 0.01": reid["idf1"] > lam0["idf1"] + 0.01,
+        "MOTA(reid) > 0.6": reid["mota"] > 0.6,
+        "IDF1(reid) > 0.65": reid["idf1"] > 0.65,
+        "IDsw(reid_pp) <= IDsw(reid)": pp["idsw"] <= reid["idsw"],
+        "IDF1(reid_pp) >= IDF1(reid) - 0.02": pp["idf1"] >= reid["idf1"] - 0.02,
+        "cadence 1 == classic arm": rows["strongsort_cadence1"]
+        == rows["strongsort"],
+    }
+    failed = [k for k, ok in bars.items() if not ok]
+    if failed:
+        raise AssertionError(f"relay rows miss the bars {failed}")
+    for name in ("letterbox_u8", "nms_keep", "auction"):
+        if counts[name] < frames:
+            raise AssertionError(f"relay rows: {name} launched "
+                                 f"{counts[name]} times in {frames} frames")
+    if counts["banded_crop"] == 0:
+        raise AssertionError("relay rows never launched banded_crop")
+    log(f"relay rows hold {list(bars)}")
+
+    _zero(kernels)
+    pan_rows, _, secs = _run_tool(eval_sequence.main, [
+        "--cycles", "1", "--pan", "10", "--gmc", "flow_tpu", "--json",
+        "--device", "cuda"])
+    counts = _counts(kernels)
+    m = pan_rows["strongsort"]["vis"]
+    log(f"eval_sequence --cycles 1 --pan 10 --gmc flow_tpu: strongsort vis "
+        f"MOTA {m['mota']:.4f} IDF1 {m['idf1']:.4f} IDsw {m['idsw']} (the "
+        f"JAX package on the CPU: 0.7261 0.6328 7); {secs:.2f} s; launches "
+        f"{counts} [{card}]")
+    if not (m["mota"] >= 0.715 and m["idf1"] >= 0.62 and m["idsw"] <= 7):
+        raise AssertionError(f"panning relay misses its bar: {m}")
+    if min(counts.values()) == 0:
+        raise AssertionError(f"panning relay: a kernel never launched {counts}")
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        m, records, (gt_vis, gt_occ, _) = eval_sequence.run_arm(
+            OcclusionRelayClip(cycles=1), lam=0.98, device=dev)
+        out[dev] = (m, records, eval_sequence.eval_pp(
+            records, (gt_vis, gt_occ), device=dev),
+            time.perf_counter() - t0)
+    (cm, crec, cpp, csec), (pm, prec, ppp, psec) = out["cuda"], out["cpu"]
+    _same_records("relay cycles=1, card against CPU", crec, prec)
+    if cm != pm or cpp != ppp:
+        raise AssertionError(f"relay cycles=1: card {cm} {cpp} != CPU {pm} "
+                             f"{ppp}")
+    log(f"relay cycles=1, lambda 0.98 and its StrongSORT++ pass: card == CPU "
+        f"({len(crec)} records, boxes within 1e-3 px; vis MOTA "
+        f"{cm['vis']['mota']:.4f} IDF1 {cm['vis']['idf1']:.4f} IDsw "
+        f"{cm['vis']['idsw']}, pp IDsw {cpp['vis']['idsw']}); {csec:.2f} s "
+        f"card [{card}], {psec:.2f} s CPU")
+
+    pipe = eval_sequence.arm_pipeline(lam=0.98, device="cuda")
+    frame = next(f for t, f in enumerate(OcclusionRelayClip(cycles=1))
+                 if t == 10)
+    with torch.no_grad():
+        check_path_crops("relay", pipe, to_card(frame[None]), card)
+
+
+def phase_aflink(card: str) -> None:
+    """6d: the shipped AFLink's logits on the card against the CPU on 800
+    fresh pairs (tests/test_aflink.py's draw) within 1e-5 x max(1,
+    |logit|), the same decisions, pairwise accuracy >= 0.95; then 200
+    training steps on the card, the loss falling."""
+    from strongsort_yolo_tpu_torch.tools import train_aflink
+    from strongsort_yolo_tpu_torch.track import aflink
+
+    rng = np.random.default_rng(1234)
+    fa, ma, fb, mb, y = train_aflink.make_pairs(
+        rng, train_aflink.make_trajectories(rng, 30), 400, 400)
+    want = aflink.aflink_logits(aflink.load_aflink(aflink.default_checkpoint(),
+                                                   "cpu"), fa, ma, fb, mb)
+    model = aflink.load_aflink(aflink.default_checkpoint(), "cuda")
+    got = aflink.aflink_logits(model, fa, ma, fb, mb)
+    err = float(np.max(np.abs(got - want) / np.maximum(1.0, np.abs(want))))
+    acc = float(np.mean((got > 0) == (y > 0.5)))
+    ms = cuda_ms(lambda: aflink.aflink_logits(model, fa, ma, fb, mb))
+    log(f"AFLink on {len(y)} fresh pairs: card against CPU max |err| / "
+        f"max(1, |logit|) {err:.3g}, accuracy {acc:.4f}; one forward with its "
+        f"copies {ms:.3f} ms (CUDA events) [{card}]")
+    if err > 1e-5 or not np.array_equal(got > 0, want > 0) or acc < 0.95:
+        raise AssertionError(f"AFLink on the card: err {err}, accuracy {acc}")
+    with tempfile.TemporaryDirectory() as tmp:
+        res, _, _ = _run_tool(train_aflink.main, [
+            "--steps", "200", "--device", "cuda", "--out",
+            os.path.join(tmp, "aflink.npz")])
+    (s0, l0), (s1, l1) = res["losses"][0], res["losses"][-1]
+    log(f"train_aflink 200 steps on the card: loss {l0:.4f} at step {s0}, "
+        f"{l1:.4f} at step {s1}, val accuracy {res['val_acc']:.4f}, "
+        f"{res['seconds']:.2f} s [{card}]")
+    if not l1 < l0:
+        raise AssertionError(f"train_aflink: the loss did not fall ({l0} -> "
+                             f"{l1})")
+
+
+def phase_offline(card: str, kernels: dict) -> None:
+    """Phase 6: the offline tracking tools on the card."""
+    k = kernels
+    mark("phase 6a: eval_mot --public on MOT-synth01")
+    phase_public_protocol(card, [k["auction"]])
+    mark("phase 6b: eval_mot with the detector, 1080p")
+    phase_detector_protocol(card, [k[n] for n in (
+        "letterbox_u8", "nms_keep", "auction", "lk_pyramid")])
+    mark("phase 6c: eval_sequence, the occlusion-relay rows")
+    phase_sequence_rows(card, [k[n] for n in (
+        "letterbox_u8", "nms_keep", "auction", "banded_crop", "lk_pyramid")])
+    mark("phase 6d: AFLink inference and training")
+    phase_aflink(card)
+
+
 def main() -> int:
     import torch
 
@@ -3213,6 +3541,8 @@ def main() -> int:
     mark("phase 5: the app and CLI")
     phase_app(card, {k.__name__: k for k in (
         letterbox_u8, nms_keep, auction, lk_pyramid, banded_crop, os_stage)})
+    phase_offline(card, {k.__name__: k for k in (
+        letterbox_u8, nms_keep, auction, lk_pyramid, banded_crop)})
     mark("done")
     log(json.dumps({"kernels": [
         {k: e[k] for k in ("name", "route", "source", "replaces", "launches",

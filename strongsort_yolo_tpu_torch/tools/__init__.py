@@ -1,1 +1,3 @@
-"""Measurement tools of the port, run on a CUDA device."""
+"""Tools of the port: measurement on a CUDA device (prof_conv,
+prof_resample, sass, sync_count) and offline tracking (eval_mot,
+eval_sequence, train_aflink, make_mot_fixture)."""

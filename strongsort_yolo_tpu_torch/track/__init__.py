@@ -1,1 +1,3 @@
-"""ByteTrack / BoT-SORT over fixed-slot track state, batched over streams."""
+"""Trackers over fixed-slot track state, batched over streams (ByteTrack,
+BoT-SORT, StrongSORT, the flow_tpu camera-motion estimate), and the
+offline StrongSORT++ pass (GSI, tracklet linking, the AFLink net)."""

@@ -32,7 +32,10 @@ float32 within 2e-5 x max(1, |ref|), bfloat16 within one bf16 unit at
 (mma, the tensor-core form, in bfloat16 only) and both layouts, two
 launches bit-identical; the pipelines compare float32 runs with TF32
 off, boxes (and keypoints) within 1e-3 px, identical ids (and mask
-polygons).
+polygons); the offline tools: the AFLink net's logits within 1e-5 x
+max(1, |logit|) of the CPU's with the same decisions, its link costs
+within 1e-5 and the same merges, and ``eval_mot --public`` printing the
+CPU's JSON lines.
 """
 
 import os
@@ -1075,3 +1078,72 @@ def test_v5_v7_pipeline_runs_on_the_card_by_default(dev, name):
     r = pipe.track(frame)
     assert nms_keep.launches > 0
     assert np.isfinite(r.boxes.xyxy).all()
+
+
+def test_aflink_logits_card_equal_cpu(dev):
+    """The shipped AFLink on fresh pairs (tests/test_aflink.py's draw): the
+    card's logits within 1e-5 x max(1, |logit|) of the CPU's (float32,
+    TF32 off in the forward), the same link decisions."""
+    from strongsort_yolo_tpu_torch.tools.train_aflink import (
+        make_pairs, make_trajectories,
+    )
+    from strongsort_yolo_tpu_torch.track import aflink
+
+    rng = np.random.default_rng(1234)
+    fa, ma, fb, mb, y = make_pairs(rng, make_trajectories(rng, 30), 400, 400)
+    path = aflink.default_checkpoint()
+    torch.backends.cudnn.allow_tf32 = True  # the forward must turn it off
+    try:
+        got = aflink.aflink_logits(aflink.load_aflink(path, dev), fa, ma, fb, mb)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    want = aflink.aflink_logits(aflink.load_aflink(path, "cpu"), fa, ma, fb, mb)
+    assert np.max(np.abs(got - want) / np.maximum(1.0, np.abs(want))) <= 1e-5
+    assert np.array_equal(got > 0, want > 0)
+    assert np.mean((got > 0) == (y > 0.5)) >= 0.95
+
+
+@pytest.mark.parametrize("flags", [[], ["--strongsort-pp", "--aflink"]])
+@pytest.mark.parametrize("tracker", ["bytetrack.yaml", "strongsort.yaml"])
+def test_eval_mot_public_card_equals_cpu(dev, tracker, flags, capsys):
+    """eval_mot --public on tests/fixtures/MOT-synth01: the card's JSON line
+    equals the CPU's, K3 launched on every frame."""
+    from strongsort_yolo_tpu_torch.tools import eval_mot
+
+    fixture = os.path.join(os.path.dirname(__file__), "fixtures",
+                           "MOT-synth01")
+    argv = [fixture, "--public", "--tracker", tracker, *flags]
+    auction.launches = 0
+    assert eval_mot.main(argv + ["--device", "cuda"]) == 0
+    launches = auction.launches
+    card = capsys.readouterr().out
+    assert eval_mot.main(argv + ["--device", "cpu"]) == 0
+    assert card == capsys.readouterr().out
+    assert launches >= 2 * 300
+
+
+def test_link_tracklets_aflink_card_equals_cpu(dev):
+    """The learned linker's cost matrix on cut trajectories, card against
+    CPU within 1e-5, and link_tracklets makes the same merges."""
+    from strongsort_yolo_tpu_torch.tools.train_aflink import make_trajectories
+    from strongsort_yolo_tpu_torch.track import aflink
+    from strongsort_yolo_tpu_torch.track.postprocess import (
+        link_tracklets, records_to_tracks,
+    )
+
+    recs = []
+    for k, tr in enumerate(make_trajectories(np.random.default_rng(77), 8,
+                                             t_len=120)):
+        cut, gap = 50 + 3 * k, 4 + k
+        recs += [(int(r[0]), 2 * k + 1, *r[1:5]) for r in tr[:cut]]
+        recs += [(int(r[0]), 2 * k + 2, *r[1:5]) for r in tr[cut + gap:]]
+    tracks = records_to_tracks(recs)
+    path = aflink.default_checkpoint()
+    fns = {d: aflink.make_cost_fn(aflink.load_aflink(path, d))
+           for d in (dev, "cpu")}
+    ordered = [tracks[t] for t in sorted(tracks)]
+    assert np.max(np.abs(fns[dev](ordered) - fns["cpu"](ordered))) <= 1e-5
+    got, want = (link_tracklets(tracks, cost_fn=fns[d], link_thresh=0.5)
+                 for d in (dev, "cpu"))
+    assert list(got) == list(want) == [2 * k + 1 for k in range(8)]
+    assert all(np.array_equal(got[t], want[t]) for t in got)

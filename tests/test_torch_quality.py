@@ -3,10 +3,15 @@ itself to (BASELINE.md): the ByteTrack public-detection baseline on the
 committed MOT-synth01 fixture, the trained synth160 checkpoint end to
 end on rendered video, and StrongSORT with the trained OSNet through the
 occlusion bounce, and again through a panning camera with the device
-camera-motion compensation (``gmc_method="flow_tpu"``). Same bars as
-tests/test_mot_baseline.py, tests/test_trained_e2e.py and
-tests/test_reid_quality.py; the panning bar comes from the JAX package's
-``tools/eval_sequence.run_arm`` on the same clip.
+camera-motion compensation (``gmc_method="flow_tpu"``), and through the
+occlusion relay with and without appearance and with the StrongSORT++
+pass (the port's ``tools/eval_sequence.run_arm`` and ``eval_pp``). Same
+bars as tests/test_mot_baseline.py, tests/test_trained_e2e.py,
+tests/test_reid_quality.py and tests/test_sequence_quality.py; the
+panning bar comes from the JAX package's ``tools/eval_sequence.run_arm``
+on the same clip. The port's data, media and metrics modules used here
+are held to the JAX package's in tests/test_torch_mot.py and
+tests/test_torch_postprocess.py.
 """
 
 import os
@@ -15,14 +20,18 @@ import numpy as np
 import pytest
 import torch
 
-from strongsort_yolo_tpu.data.mot import MotSequence, evaluate_sequence
-from strongsort_yolo_tpu.media.video import OcclusionRelayClip, SyntheticDetSource
-from strongsort_yolo_tpu.utils.metrics import evaluate_mot
 from strongsort_yolo_tpu_torch.config import DetectorConfig, load_tracker_config
+from strongsort_yolo_tpu_torch.data.mot import MotSequence, evaluate_sequence
+from strongsort_yolo_tpu_torch.media.video import (
+    OcclusionRelayClip,
+    SyntheticDetSource,
+)
 from strongsort_yolo_tpu_torch.pipeline import Pipeline
+from strongsort_yolo_tpu_torch.tools.eval_sequence import eval_pp, run_arm
 from strongsort_yolo_tpu_torch.track.bytetrack import bytetrack_step
 from strongsort_yolo_tpu_torch.track.state import init_track_state
 from strongsort_yolo_tpu_torch.track.strongsort import StrongSortConfig
+from strongsort_yolo_tpu_torch.utils.metrics import evaluate_mot
 from test_reid_quality import BounceClip
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
@@ -147,32 +156,23 @@ def test_panning_relay_with_flow_gmc():
 @pytest.fixture(scope="module")
 def relay_arms():
     """StrongSORT + trained OSNet over one occlusion-relay cycle per pair,
-    through Pipeline.track, with appearance (lambda 0.98) and without
-    (lambda 0, the cosine gate open): the arms of the JAX package's
-    tests/test_sequence_quality.py (``tools/eval_sequence.run_arm``),
-    visible-only protocol."""
+    through the port's ``tools/eval_sequence.run_arm`` (Pipeline.track),
+    with appearance (lambda 0.98) and without (lambda 0, the cosine gate
+    open), and each arm's StrongSORT++ pass (``eval_pp``: the learned
+    AFLink linker and GSI) on its records: the arms of the JAX package's
+    tests/test_sequence_quality.py, visible-only protocol."""
     n_threads = torch.get_num_threads()
     torch.set_num_threads(1)
     out = {}
-    for name, lam in (("reid", 0.98), ("lambda0", 0.0)):
-        extra = {} if lam > 0 else dict(max_cosine_distance=1.0)
-        pipe = Pipeline(
-            DetectorConfig(weights=CKPT, imgsz=160, conf=0.3, iou=0.4,
-                           max_det=16, half=False),
-            tracker=StrongSortConfig(gmc_method="none", max_age=60,
-                                     lambda_appearance=lam, **extra),
-            track_slots=16, tracker_max_dets=16, reid_weights=OSNET,
-            device="cpu",
-        )
-        clip = OcclusionRelayClip(cycles=1)
-        gt, hyp = [], []
-        for t, frame in enumerate(clip):
-            r = pipe.track(frame)
-            gt.append([tuple(g) for g in clip.truth(t)])
-            hyp.append([(int(r.boxes.id[i]), *r.boxes.xyxy[i])
-                        for i in range(len(r.boxes))])
-        out[name] = evaluate_mot(gt, hyp)
-    torch.set_num_threads(n_threads)
+    try:
+        for name, lam in (("reid", 0.98), ("lambda0", 0.0)):
+            m, records, (gt_vis, gt_occ, _hyp) = run_arm(
+                OcclusionRelayClip(cycles=1), lam=lam, device="cpu")
+            out[name] = m["vis"]
+            out[name + "_pp"] = eval_pp(records, (gt_vis, gt_occ),
+                                        device="cpu")["vis"]
+    finally:
+        torch.set_num_threads(n_threads)
     return out
 
 
@@ -189,3 +189,12 @@ def test_absolute_quality_floor(relay_arms):
     m = relay_arms["reid"]
     assert m["mota"] > 0.6, m
     assert m["idf1"] > 0.65, m
+
+
+def test_strongsort_pp_cuts_switches(relay_arms):
+    """The AFLink + GSI row of tests/test_sequence_quality.py: the offline
+    pass on the appearance arm's records cuts id switches without costing
+    IDF1."""
+    assert relay_arms["reid_pp"]["idsw"] <= relay_arms["reid"]["idsw"], relay_arms
+    assert (relay_arms["reid_pp"]["idf1"]
+            >= relay_arms["reid"]["idf1"] - 0.02), relay_arms
