@@ -6,8 +6,10 @@ two OS blocks with 1x1 conv + 2x2 average-pool transitions, a final 1x1
 conv, global average pooling and an fc head (Linear -> BatchNorm1d ->
 ReLU), L2-normalised. A checkpoint's keys follow the JAX tree leaf for
 leaf, joined with dots (``b2a.streams.0.0.dw.w``), with conv weights
-OIHW; loading folds every BatchNorm into its conv, so the model itself
-holds a weight and a bias per conv.
+OIHW; loading folds every BatchNorm into its conv, so the served model
+holds a weight and a bias per conv. ``OSNet(fused=False)``, the form the
+trainer differentiates (the JAX ``osnet_apply`` on its tree), holds the
+checkpoint itself: its state_dict has the checkpoint's keys.
 
 Not the YOLO ``Conv``: OSNet's BatchNorm uses eps 1e-5 and ReLU (or no
 activation in the linear 1x1 convs). The input normalisation runs as a
@@ -67,49 +69,92 @@ class ConvBias(nn.Module):
     ``w``, ``b`` (the lite conv's pointwise, the gate's fcs)."""
 
     def __init__(self, c_in: int, c_out: int, k: int = 1, stride: int = 1, *,
-                 groups: int = 1, relu: bool = False):
+                 groups: int = 1, relu: bool = False, bias: bool = True):
         super().__init__()
         self.stride, self.pad, self.groups = stride, k // 2, groups
         self.relu = relu
         self.w = nn.Parameter(torch.empty(c_out, c_in // groups, k, k))
-        self.b = nn.Parameter(torch.zeros(c_out))
+        if bias:
+            self.b = nn.Parameter(torch.zeros(c_out))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.conv2d(x, self.w, self.b, self.stride, self.pad, 1, self.groups)
         return F.relu(y) if self.relu else y
 
 
+def _add_bn(mod: nn.Module, c: int) -> None:
+    """Give ``mod`` the BN tensors of the checkpoint: ``bn_scale`` and
+    ``bn_bias`` as parameters, ``bn_mean`` and ``bn_var`` as buffers (the
+    YOLO ``Conv``'s split; a trainer takes both, ``train.trained_tensors``)."""
+    mod.bn_scale = nn.Parameter(torch.ones(c))
+    mod.bn_bias = nn.Parameter(torch.zeros(c))
+    mod.register_buffer("bn_mean", torch.zeros(c))
+    mod.register_buffer("bn_var", torch.ones(c))
+
+
+def _bn(mod: nn.Module, y: torch.Tensor) -> torch.Tensor:
+    """Inference BN of ``mod``'s tensors (eps 1e-5) over dim 1 of ``y``,
+    as ``y * scale + (bn_bias - bn_mean * scale)``, the JAX ``bn_act``."""
+    scale = mod.bn_scale * torch.rsqrt(mod.bn_var + BN_EPS)
+    shape = (1, -1) + (1,) * (y.dim() - 2)
+    return y * scale.view(shape) + (mod.bn_bias - mod.bn_mean * scale).view(shape)
+
+
 class ConvBN(ConvBias):
     """Conv2d (no bias) -> BatchNorm (eps 1e-5, inference statistics) ->
     ReLU when ``relu`` (torchreid ConvLayer / Conv1x1 / Conv1x1Linear).
     Checkpoint keys: ``w`` and ``bn_scale``/``bn_bias``/``bn_mean``/
-    ``bn_var``; the model holds the BN folded into ``w`` and ``b``."""
+    ``bn_var``. ``fused`` (serving) holds the BN folded into ``w`` and
+    ``b``; unfused (training) holds the checkpoint's tensors and computes
+    the BN, as the JAX ``osnet_apply`` differentiates it."""
 
     def __init__(self, c_in: int, c_out: int, k: int = 1, stride: int = 1, *,
-                 groups: int = 1, relu: bool = True):
-        super().__init__(c_in, c_out, k, stride, groups=groups, relu=relu)
-
-
-class FcHead(ConvBias):
-    """Linear (a 1x1 conv weight, the JAX layout) -> BatchNorm1d.
-    Checkpoint keys: ``lin.w``, ``lin.b`` and ``bn.bn_*``; the model holds
-    the BN folded into ``w`` and ``b``."""
-
-    def __init__(self, c_in: int, feat_dim: int):
-        super().__init__(c_in, feat_dim)
+                 groups: int = 1, relu: bool = True, fused: bool = True):
+        super().__init__(c_in, c_out, k, stride, groups=groups, relu=relu,
+                         bias=fused)
+        self.fused = fused
+        if not fused:
+            _add_bn(self, c_out)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.w.flatten(1), self.b)
+        if self.fused:
+            return super().forward(x)
+        y = _bn(self, F.conv2d(x, self.w, None, self.stride, self.pad, 1,
+                               self.groups))
+        return F.relu(y) if self.relu else y
+
+
+class FcHead(nn.Module):
+    """Linear (a 1x1 conv weight, the JAX layout) -> BatchNorm1d.
+    Checkpoint keys: ``lin.w``, ``lin.b`` and ``bn.bn_*``. ``fused`` holds
+    the BN folded into ``w`` and ``b``; unfused holds the checkpoint's
+    ``lin`` and ``bn``."""
+
+    def __init__(self, c_in: int, feat_dim: int, *, fused: bool = True):
+        super().__init__()
+        self.fused = fused
+        if fused:
+            self.w = nn.Parameter(torch.empty(feat_dim, c_in, 1, 1))
+            self.b = nn.Parameter(torch.zeros(feat_dim))
+        else:
+            self.lin = ConvBias(c_in, feat_dim)
+            self.bn = nn.Module()
+            _add_bn(self.bn, feat_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fused:
+            return F.linear(x, self.w.flatten(1), self.b)
+        return _bn(self.bn, F.linear(x, self.lin.w.flatten(1), self.lin.b))
 
 
 class LiteConv(nn.Module):
     """LightConv3x3: linear 1x1 pointwise with a bias and no BN ->
     depthwise 3x3 -> BN -> ReLU."""
 
-    def __init__(self, c: int):
+    def __init__(self, c: int, *, fused: bool = True):
         super().__init__()
         self.pw = ConvBias(c, c)
-        self.dw = ConvBN(c, c, 3, groups=c)
+        self.dw = ConvBN(c, c, 3, groups=c, fused=fused)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.dw(self.pw(x))
@@ -131,17 +176,19 @@ class Gate(nn.Module):
 
 
 class OSBlock(nn.Module):
-    def __init__(self, c_in: int, c_out: int, streams: int = 4):
+    def __init__(self, c_in: int, c_out: int, streams: int = 4, *,
+                 fused: bool = True):
         super().__init__()
         mid = c_out // 4
-        self.conv1 = ConvBN(c_in, mid, 1)
+        self.conv1 = ConvBN(c_in, mid, 1, fused=fused)
         self.gate = Gate(mid)
-        self.conv3 = ConvBN(mid, c_out, 1, relu=False)
+        self.conv3 = ConvBN(mid, c_out, 1, relu=False, fused=fused)
         self.streams = nn.ModuleList(
-            nn.ModuleList(LiteConv(mid) for _ in range(t))
+            nn.ModuleList(LiteConv(mid, fused=fused) for _ in range(t))
             for t in range(1, streams + 1)
         )
-        self.down = ConvBN(c_in, c_out, 1, relu=False) if c_in != c_out else None
+        self.down = ConvBN(c_in, c_out, 1, relu=False, fused=fused) if (
+            c_in != c_out) else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.conv1(x)
@@ -158,10 +205,13 @@ class OSBlock(nn.Module):
 
 class OSNet(nn.Module):
     """(M, 3, 128, 64) crops in [0, 1] -> (M, feat_dim) float32
-    L2-normalised embeddings."""
+    L2-normalised embeddings. ``fused`` (serving) holds every BN folded
+    (:func:`osnet_from_state_dict`); unfused, the model's state_dict is a
+    checkpoint (:func:`checkpoint_keys`) and the BNs are computed, the
+    form a trainer differentiates (``tools/train_osnet``)."""
 
     def __init__(self, cfg: OsnetConfig = OsnetConfig(), *,
-                 channel_order: str = "rgb"):
+                 channel_order: str = "rgb", fused: bool = True):
         super().__init__()
         if channel_order not in ("rgb", "bgr"):
             raise ValueError(f"channel_order {channel_order!r}")
@@ -175,14 +225,16 @@ class OSNet(nn.Module):
             torch.tensor(v[order], dtype=torch.float32).reshape(1, 3, 1, 1)
             for v in (IMAGENET_MEAN, IMAGENET_STD)
         )
-        self.stem = ConvBN(3, c1, 7, 2)
-        self.b2a, self.b2b = OSBlock(c1, c2), OSBlock(c2, c2)
-        self.t2 = ConvBN(c2, c2, 1)
-        self.b3a, self.b3b = OSBlock(c2, c3), OSBlock(c3, c3)
-        self.t3 = ConvBN(c3, c3, 1)
-        self.b4a, self.b4b = OSBlock(c3, c4), OSBlock(c4, c4)
-        self.conv5 = ConvBN(c4, c4, 1)
-        self.fc = FcHead(c4, cfg.feat_dim)
+        f = {"fused": fused}
+        self.fused = fused
+        self.stem = ConvBN(3, c1, 7, 2, **f)
+        self.b2a, self.b2b = OSBlock(c1, c2, **f), OSBlock(c2, c2, **f)
+        self.t2 = ConvBN(c2, c2, 1, **f)
+        self.b3a, self.b3b = OSBlock(c2, c3, **f), OSBlock(c3, c3, **f)
+        self.t3 = ConvBN(c3, c3, 1, **f)
+        self.b4a, self.b4b = OSBlock(c3, c4, **f), OSBlock(c4, c4, **f)
+        self.conv5 = ConvBN(c4, c4, 1, **f)
+        self.fc = FcHead(c4, cfg.feat_dim, **f)
         self._specs = stage_specs(cfg.channels, cfg.crop_hw)
         self._stages = None  # packed K6 weights, once use_fused_stages ran
 
@@ -193,6 +245,8 @@ class OSNet(nn.Module):
         would round the biases and tap weights that K6 keeps in float32.
         The packed weights are kept out of the buffers, which ``.to(dtype)``
         would round, and follow the crops' device."""
+        if not self.fused:
+            raise ValueError("the stage kernel takes the fused OSNet")
         self._stages = tuple(stage_weights(self, i, dtype)
                              for i in range(len(self._specs)))
 
@@ -240,12 +294,8 @@ def _checkpoint_layout(model: OSNet):
 def checkpoint_keys(cfg: OsnetConfig = OsnetConfig()) -> set[str]:
     """The keys of an OSNet checkpoint (the JAX tree's paths joined with
     dots, BN statistics beside each conv) that
-    :func:`osnet_from_state_dict` takes."""
-    keys = set()
-    for _, _, w, b, bn in _checkpoint_layout(OSNet(cfg)):
-        keys |= {w} | ({b} if b else set()) | (
-            {bn + k for k in _BN} if bn else set())
-    return keys
+    :func:`osnet_from_state_dict` takes: the unfused model's."""
+    return set(OSNet(cfg, fused=False).state_dict())
 
 
 def osnet_from_state_dict(
@@ -285,7 +335,7 @@ def init_osnet(cfg: OsnetConfig, g: torch.Generator) -> dict[str, torch.Tensor]:
     pointwise N(0, 2/c_in) with zero bias) -> a checkpoint state_dict."""
     model = OSNet(cfg)
     for mod in model.modules():
-        if isinstance(mod, ConvBias):
+        if isinstance(mod, (ConvBias, FcHead)):
             c_out, c_in_g, k, _ = mod.w.shape
             gain = 2.0 if isinstance(mod, ConvBN) else 1.0
             mod.w.data = (torch.randn(mod.w.shape, generator=g)

@@ -171,6 +171,64 @@ def load_osnet_npz(path: str):
     return _listify(tree), cfg
 
 
+def _flat_jax_arrays(sd: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """A state_dict -> {JAX tree path joined by '/': float32 numpy array},
+    conv weights HWIO: the inverse of :func:`_state_dict_from_tree`."""
+    flat = {}
+    for key, value in sd.items():
+        arr = value.detach().float().cpu().numpy()
+        if key.endswith(".w") and arr.ndim == 4:
+            arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+        flat[key.replace(".", "/")] = np.ascontiguousarray(arr)
+    return flat
+
+
+def jax_params(sd: dict[str, torch.Tensor]):
+    """The port's state_dict (a detector's or an OSNet checkpoint) -> the
+    JAX parameter tree with numpy leaves: the inverse of
+    :func:`params_from_jax` and :func:`osnet_params_from_jax`."""
+    tree: dict[str, Any] = {}
+    for key, arr in _flat_jax_arrays(sd).items():
+        parts = key.split("/")
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = arr
+    return _listify(tree)
+
+
+def save_npz_checkpoint(path: str, sd: dict[str, torch.Tensor],
+                        cfg: YoloConfig, names: dict | None = None) -> None:
+    """A v8/v11 detector's state_dict (detect, segment or pose; BN fused or
+    not) in the JAX package's ``.npz`` format, which both packages'
+    ``load_npz_checkpoint`` read: each tensor under its tree path, conv
+    weights HWIO, ``__cfg__`` = (family, scale, task, nc, keypoints,
+    values per keypoint) and ``__names__`` ("id:name") when ``names`` is
+    given."""
+    flat = _flat_jax_arrays(sd)
+    flat["__cfg__"] = np.asarray(
+        [cfg.family, cfg.scale, cfg.task, str(cfg.nc),
+         str(cfg.kpt[0]), str(cfg.kpt[1])], dtype=object
+    )
+    if names:
+        flat["__names__"] = np.asarray(
+            [f"{k}:{v}" for k, v in names.items()], dtype=object
+        )
+    np.savez(path, **flat)
+
+
+def save_osnet_npz(path: str, sd: dict[str, torch.Tensor],
+                   cfg: OsnetConfig) -> None:
+    """An OSNet checkpoint (``OSNet(fused=False).state_dict()``, or
+    :func:`checkpoint_keys`) in the JAX package's OSNet ``.npz`` format,
+    which both packages' ``load_osnet_npz`` read, with ``__variant__``."""
+    if set(sd) != checkpoint_keys(cfg):
+        raise ValueError(f"not an OSNet checkpoint of {cfg}")
+    flat = _flat_jax_arrays(sd)
+    flat["__variant__"] = np.asarray(cfg.variant)
+    np.savez(path, **flat)
+
+
 def model_from_state_dict(sd: dict[str, torch.Tensor],
                           cfg: ModelConfig) -> nn.Module:
     """A model of ``cfg``'s family holding ``sd``, fused or not (and v7's

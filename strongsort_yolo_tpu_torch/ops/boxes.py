@@ -9,6 +9,8 @@ round the same operations.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -64,6 +66,45 @@ def box_iou(a: torch.Tensor, b: torch.Tensor, eps: float = 1e-7) -> torch.Tensor
     wh = torch.clamp(rb - lt, min=0.0)
     inter = wh[..., 0] * wh[..., 1]
     return inter / (box_area(a) + box_area(b) - inter + eps)
+
+
+def ciou(a: torch.Tensor, b: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """Elementwise Complete-IoU between aligned xyxy boxes (..., 4) ->
+    (...,), the regression term of ``train/loss.detection_loss``: ``eps``
+    in the union and the diagonal, widths and heights clamped to ``eps``,
+    and ``alpha`` differentiable, as in the JAX ``ciou``. Every clamp is a
+    ``torch.maximum``, which splits the gradient of a tie in halves as
+    ``jnp.maximum`` does (``torch.clamp`` passes all of it)."""
+
+    def at_least(x, v):
+        return torch.maximum(x, x.new_tensor(v))
+
+    def area(x):
+        return at_least(x[..., 2] - x[..., 0], 0.0) * at_least(
+            x[..., 3] - x[..., 1], 0.0)
+
+    lt = torch.maximum(a[..., :2], b[..., :2])
+    rb = torch.minimum(a[..., 2:], b[..., 2:])
+    wh = at_least(rb - lt, 0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = area(a) + area(b) - inter + eps
+    iou = inter / union
+
+    # enclosing box diagonal
+    elt = torch.minimum(a[..., :2], b[..., :2])
+    erb = torch.maximum(a[..., 2:], b[..., 2:])
+    diag2 = torch.sum((erb - elt) ** 2, dim=-1) + eps
+    ac = (a[..., :2] + a[..., 2:]) * 0.5
+    bc = (b[..., :2] + b[..., 2:]) * 0.5
+    center_d2 = torch.sum((ac - bc) ** 2, dim=-1)
+
+    wa = at_least(a[..., 2] - a[..., 0], eps)
+    ha = at_least(a[..., 3] - a[..., 1], eps)
+    wb = at_least(b[..., 2] - b[..., 0], eps)
+    hb = at_least(b[..., 3] - b[..., 1], eps)
+    v = (4.0 / math.pi**2) * (torch.atan(wb / hb) - torch.atan(wa / ha)) ** 2
+    alpha = v / (1.0 - iou + v + eps)
+    return iou - center_d2 / diag2 - alpha * v
 
 
 def scale_boxes(

@@ -35,7 +35,12 @@ off, boxes (and keypoints) within 1e-3 px, identical ids (and mask
 polygons); the offline tools: the AFLink net's logits within 1e-5 x
 max(1, |logit|) of the CPU's with the same decisions, its link costs
 within 1e-5 and the same merges, and ``eval_mot --public`` printing the
-CPU's JSON lines.
+CPU's JSON lines; training: a train step from the synth160 asset within
+1e-4 relative of the CPU's loss and each gradient within 1e-4 of the
+CPU's norm of it (float32, TF32 off: the convolutions sum in another
+order), three steps run twice equal bit for bit, K7's gradients within 1e-5 x max(1, |g|) of the plain version's
+autograd, and the unfused OSNet within 1e-5 of the folded one and of the
+CPU's.
 """
 
 import os
@@ -1147,3 +1152,113 @@ def test_link_tracklets_aflink_card_equals_cpu(dev):
                  for d in (dev, "cpu"))
     assert list(got) == list(want) == [2 * k + 1 for k in range(8)]
     assert all(np.array_equal(got[t], want[t]) for t in got)
+
+
+def test_train_step_card_equals_cpu(dev):
+    """One make_train_step step from the trained asset (imgsz 64, batch 2)
+    on the card and on the CPU: loss within 1e-4 relative, num_fg equal
+    and above 0, every tensor's gradient (the BN statistics included)
+    within 1e-4 of the CPU's norm of it, and the next loss within 1e-4."""
+    from strongsort_yolo_tpu_torch.models import porting
+    from strongsort_yolo_tpu_torch.tools.train import synthetic_batch
+    from strongsort_yolo_tpu_torch.train.trainer import (
+        make_optimizer, make_train_step, train_state,
+    )
+
+    rng = np.random.default_rng(0)
+    batches = [synthetic_batch(rng, 2, 64) for _ in range(2)]
+    tree, cfg, _ = porting.load_npz_checkpoint(CKPT)
+    tx = make_optimizer(1e-3)
+    step = make_train_step(cfg, 64, tx)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        model = porting.model_from_state_dict(porting.params_from_jax(tree, cfg),
+                                              cfg).to(d)
+        state = train_state(model, tx)
+        state, m0 = step(state, *batches[0])
+        grads = {k: t.grad.cpu() for k, t in [*model.named_parameters(),
+                                             *model.named_buffers()]}
+        _, m1 = step(state, *batches[1])
+        out[d.type] = (float(m0["loss"]), float(m0["num_fg"]), grads,
+                       float(m1["loss"]))
+    (lc, fc, gc, nc), (l0, f0, g0, n0) = out["cuda"], out["cpu"]
+    assert fc == f0 > 0
+    assert abs(lc - l0) <= 1e-4 * l0 and abs(nc - n0) <= 1e-4 * n0
+    assert any(k.endswith("bn_var") for k in g0)
+    for k, g in g0.items():
+        assert float((gc[k] - g).norm()) <= 1e-4 * float(g.norm()), k
+
+
+def test_train_steps_on_the_card_repeat_bit_for_bit(dev):
+    """Three steps from a seeded init, twice: equal weights and BN
+    statistics bit for bit (cuDNN's deterministic algorithms,
+    train.trainer.exact_step)."""
+    from strongsort_yolo_tpu_torch.models.yolo import YoloConfig
+    from strongsort_yolo_tpu_torch.tools.train import synthetic_batch
+    from strongsort_yolo_tpu_torch.train.trainer import (
+        init_train_state, make_optimizer, make_train_step,
+    )
+
+    cfg = YoloConfig(nc=3)
+    tx = make_optimizer(1e-3)
+    step = make_train_step(cfg, 96, tx)
+    finals = []
+    for _ in range(2):
+        state = init_train_state(0, cfg, tx, dev)
+        rng = np.random.default_rng(0)
+        for _ in range(3):
+            state, _ = step(state, *synthetic_batch(rng, 4, 96))
+        finals.append({k: v.detach().clone() for k, v in
+                       state.model.state_dict().items()})
+    assert all(torch.equal(finals[0][k], finals[1][k]) for k in finals[0])
+
+
+@pytest.mark.parametrize("shape", sorted([(40, 40, 192, 128, 1),
+                                          (80, 80, 32, 32, 3)]))
+def test_conv_act_gradients_on_the_card_equal_plain(dev, shape):
+    """K7's autograd Function on the card (forward K7, backward the plain
+    formulation): dx, dw, db within 1e-5 x max(1, |g|) of the plain
+    version's autograd on the same card."""
+    from strongsort_yolo_tpu_torch.ops.cuda.conv_kernel import conv_act_nchw
+
+    h, w, c_in, c_out, k = shape
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.normal(0, 1, (2, c_in, h, w)).astype(np.float32))
+    wt = torch.from_numpy((rng.normal(0, 1, (k * k * c_in, c_out))
+                           * (2.0 / (k * k * c_in)) ** 0.5).astype(np.float32))
+    b = torch.from_numpy(rng.normal(0, 0.3, c_out).astype(np.float32))
+    r = torch.from_numpy(rng.normal(0, 1, (2, c_out, h, w)).astype(np.float32))
+    grads = []
+    before = conv_act.launches
+    for fn in (conv_act_nchw, lambda *a, **kw: conv_act_plain(
+            *a, layout="nchw", **kw)):
+        leaves = [t.to(dev).requires_grad_() for t in (x, wt, b)]
+        (fn(*leaves, k=k, act=True) * r.to(dev)).sum().backward()
+        grads.append([t.grad for t in leaves])
+    assert conv_act.launches == before + 1
+    for g, p in zip(*grads):
+        assert float(((g - p).abs() / p.abs().clamp(min=1.0)).max()) <= 1e-5
+
+
+def test_unfused_osnet_on_the_card_equals_the_folded_one(dev):
+    """The trainer's unfused OSNet (the shipped checkpoint) on the card
+    against the folded model on the card and the unfused one on the CPU,
+    float32 with TF32 off, within 1e-5."""
+    from strongsort_yolo_tpu_torch.models.porting import (
+        load_osnet_npz, osnet_params_from_jax,
+    )
+    from strongsort_yolo_tpu_torch.models.osnet import OSNet
+
+    tree, cfg = load_osnet_npz(OSNET)
+    sd = osnet_params_from_jax(tree, cfg)
+    unfused = OSNet(cfg, fused=False)
+    unfused.load_state_dict(sd)
+    folded = osnet_from_state_dict(sd, cfg).to(dev)
+    x = torch.from_numpy(np.random.default_rng(2).uniform(
+        0, 1, (16, 3, 128, 64)).astype(np.float32))
+    with torch.no_grad():
+        want = unfused(x)
+        got = unfused.to(dev)(x.to(dev))
+        ref = folded(x.to(dev))
+    assert float((got.cpu() - want).abs().max()) <= 1e-5
+    assert float((got - ref).abs().max()) <= 1e-5
