@@ -140,9 +140,10 @@ raises and the process exits nonzero:
    cli.main runs it (parse_config, app.run, cli.report) on mp4 files
    (written by the native encoder, else cv2, and read back through the
    app's open_source), else on the in-memory sources with save off (the
-   line says which); the default botsort.yaml, run as flow_tpu (K1-K3
-   and K5 launched), then strongsort.yaml with the trained OSNet and
-   SSYT_OSNET=fused (K4 and K6 too, bf16; G per tick printed, and K4
+   line says which); a BoT-SORT YAML with gmc_method flow_tpu (K1-K3
+   and K5 launched), then a StrongSORT YAML with gmc_method flow_tpu
+   (the host ECC of strongsort.yaml is timed in phase 8f) with the
+   trained OSNet and SSYT_OSNET=fused (K1-K6, bf16; G per tick printed, and K4
    and K6 held against their plain versions on tick 1's crop batch, the
    trained weights in K6's tensor-core form: check_path_crops, its G
    equal to the app's); each on one pipeline built by
@@ -151,7 +152,8 @@ raises and the process exits nonzero:
    over all the measured run's ticks), every stream at
    APP_FRAMES frames without an error, the event log's kinds; the app
    on the card against the CPU (synth160, imgsz 160, float32, two
-   SyntheticDetSource streams, bytetrack.yaml and botsort.yaml): equal
+   SyntheticDetSource streams, bytetrack.yaml and botsort.yaml, the
+   latter's sparseOptFlow on the host): equal
    counts, line counts and event kinds, the last checkpoints' track_id,
    status and next_id equal and their means within 1e-3, label files
    parsed (frame, class and id exact, conf within 1e-3, coordinates
@@ -167,8 +169,8 @@ raises and the process exits nonzero:
    equal to the same run with --device cpu, one mid-sequence K3 call
    bit-identical to auction_plain; (6b) ``eval_mot`` with the detector on
    a MOT17-layout sequence of 60 rendered 1080p frames written as JPEG by
-   cv2 (yolov8n 640 bf16, class bias calibrated, botsort.yaml as flow_tpu:
-   K1-K3, K5), its row, launches and host ms per frame printed (random
+   cv2 (yolov8n 640 bf16, class bias calibrated, botsort.yaml with its
+   host sparseOptFlow, as the JAX tool runs it: K1-K3), its row, launches and host ms per frame printed (random
    weights: no bar); (6c) ``tools/eval_sequence`` with the trained
    synth160 detector and OSNet-x0_25: --cycles 2 --cadence 1 2 (the
    strongsort, lambda-0 and StrongSORT++ rows, vis and occ, and the
@@ -208,25 +210,67 @@ raises and the process exits nonzero:
    loss falling, the unseen-id rank-1 at least 0.9, the file served by
    the StrongSORT Pipeline; then K7's gradient on the card
    (``conv_act_nchw``, float32, two of phase 2's shapes) against the
-   plain version's autograd within 1e-5 x max(1, |g|).
+   plain version's autograd within 1e-5 x max(1, |g|);
+8. int8 post-training quantization (``quant="int8"``, K8): (8b) yolov8n
+   int8 at 640, bf16, BoT-SORT gmc none, S=8 1080p: 3 overlapped ticks
+   with the dynamic scales under set_sync_debug_mode("error"), then
+   calibrate_int8 on tick 0's first two frames (32 convs, the JAX count)
+   and refresh_steps, as the batched app loop does, INT8_TICKS ticks with
+   K1 1, K2 1, K3 3 and K8 32 launches a tick, 3 more overlapped ticks
+   under the sync check, and ms per tick against the bf16 pipeline in
+   turns (printed only); (8d) yolov5s int8 + StrongSORT + OSNet-x0_25
+   fused (K1-K4, K6, K8; 42 convs) and yolo11n-pose int8 (52, K8's
+   depthwise form), 3 ticks each, then card against CPU at imgsz 160,
+   f32, the card's calibrated scales shared: a fabricated yolov5s .pt
+   by its detections (random weights whose head puts many scores near
+   the threshold among overlapping boxes: rows matched within 1 px and
+   0.03, at least 90% of them, each unmatched row half of a class flip
+   or of an NMS swap, or near the threshold) and the trained yolo11n-pose asset by its
+   tracks; every card run of these int8 comparisons (8c too) is made
+   twice, with K8 and with conv_s8_plain on the same CUDA tensors, and
+   the two must be equal bit for bit; (8a) IMMA instructions in K8's tensor-core kernel and
+   no 64-bit division in either form, then K8 against conv_s8_plain on
+   8b's 32 convs, 8d's stride-2, depthwise and act=False convs and a
+   yolov7 3x3 stride-2 conv, in bf16 and f32, dynamic and calibrated
+   scales: int32 sums and act=False outputs bit-identical, SiLU outputs
+   within 4 float32 ulps (one bf16 unit at 1.0) x max(1, |ref|); K8's
+   device time over the 32 convs by graph replay beside the plain
+   version's, cuDNN's bf16 conv + SiLU of the dequantized weights (a
+   different function) and the bound; (8c) tests/test_quant.py's guard
+   on the card (synth160, 30 frames: int8 MOTA and IDF1 within 0.01 of
+   float) and the int8 rows card against CPU, dynamic and calibrated;
+   card against CPU on an int8 path means equal rows and ids and boxes
+   within 1 px (a last-bit difference of a float layer moves a code on a
+   rounding boundary, and the tracker's filter carries it on);
+   (8e) cli.main --quant int8 on two 1080p mp4 files, sequential and
+   batched, one calibration line per loop; (8f) the host GMC:
+   botsort.yaml on two panned 1080p streams and strongsort.yaml on two
+   panned 320 x 320 ones, the warps card == CPU bit for bit and the
+   tracks equal, and the host ms of sparseOptFlow and ecc per 1080p
+   frame; then the default tracker at full width (yolov8n 640 bf16, S=8
+   panned 1080p streams): botsort.yaml's host sparseOptFlow and BoT-SORT
+   with flow_tpu a tick each in turns, ms per tick of each and of
+   compute_warps alone.
 
 The JSON line before the card's name is one object with one entry per
 kernel: its launches (K1-K3 and K5 counted on the flow path, K4 on the
 StrongSORT path, K6 on the fused one, K7 on yolo11n-pose with the
-route), its largest difference from its
+route, K8 on 8b's int8 path), its largest difference from its
 plain version, its time (K1, K2, K4, K5, K6, K7: device time by
 CUDA-graph replay; K3 CUDA events) and its plain version's, its
 bound (the larger of its bytes, each input read once and each output
 written once, over 3.35 TB/s, where K1 and K4 read only the 32-byte
 sectors of their input that hold a pixel their taps weigh above zero,
 and its operations over the peak for their type: 989 TFLOP/s in bf16,
-67 TFLOP/s in float32 outside the tensor cores, the H100 SXM's
-published rates) with what sets it, and
+67 TFLOP/s in float32 outside the tensor cores, 1,979 TOP/s in int8,
+the H100 SXM's published rates) with what sets it, and
 library_ms, the time of one PyTorch call computing the same function
 (null where none does; K7's is cuDNN's conv with bias, then SiLU). K7's
 times (its mma form, the route's in bfloat16, and cuDNN's, both device
 times from CUDA graph replay) and bound are summed over the convs it
-takes in one S=8 yolo11n-pose forward. The last line is {"ok": true,
+takes in one S=8 yolo11n-pose forward; K8's over the 32 int8 convs of
+one yolov8n tick (its library_ms is cuDNN's bf16 conv + SiLU of the
+dequantized weights, a different function). The last line is {"ok": true,
 "device": {...}}.
 Without a CUDA device the script exits nonzero before printing any
 result.
@@ -255,7 +299,8 @@ S_MAIN, TICKS = 8, 10
 CROWD_TICKS, WIDE_TICKS = 6, 4  # ticks of the paths added for K3's and K6's
 # large forms
 HBM_BYTES_PER_MS = 3.35e9  # H100 SXM, 3.35 TB/s
-PEAK_OPS_PER_MS = {"bf16": 989e9, "f32": 67e9}  # tensor cores; CUDA cores
+PEAK_OPS_PER_MS = {"bf16": 989e9, "f32": 67e9,  # tensor cores; CUDA cores
+                   "int8": 1979e9}  # tensor cores, dense
 
 
 T0 = time.perf_counter()
@@ -1479,12 +1524,14 @@ def _ms_line(times: list[float]) -> str:
 
 def _main_pipeline(tracker, pool, *, fused: bool = False, cadence: int = 1,
                    model: str = "yolov8n", conv_kernel: bool = False,
-                   max_dets: int = 128, reid: str | None = None):
+                   max_dets: int = 128, reid: str | None = None,
+                   quant: str | None = None):
     from strongsort_yolo_tpu_torch.config import DetectorConfig
     from strongsort_yolo_tpu_torch.pipeline import Pipeline
 
     pipe = Pipeline(
-        DetectorConfig(weights=model, imgsz=640, half=True, max_det=1000),
+        DetectorConfig(weights=model, imgsz=640, half=True, max_det=1000,
+                       quant=quant),
         tracker=tracker, track_slots=256, tracker_max_dets=max_dets,
         reid_weights=reid, reid_topk=128, reid_cadence=cadence,
         reid_fused=fused, conv_kernel=conv_kernel, seed=0, device="cuda",
@@ -2994,10 +3041,10 @@ def _app_path(card: str, label: str, argv: list[str], sources, kernels,
     return stats
 
 
-def _write_sources(srcs, out_dir: str):
-    """The app's sources as mp4 files, written by the native encoder where
-    it loads, else by cv2, and read back through ``app.open_source`` ->
-    (paths, how), or (None, why not)."""
+def _write_sources(srcs, out_dir: str, num_frames: int = APP_FRAMES):
+    """The app's sources (``num_frames`` each) as mp4 files, written by the
+    native encoder where it loads, else by cv2, and read back through
+    ``app.open_source`` -> (paths, how), or (None, why not)."""
     from strongsort_yolo_tpu_torch.app import open_source
     from strongsort_yolo_tpu_torch.media.native_decoder import (
         NativeVideoWriter,
@@ -3020,7 +3067,7 @@ def _write_sources(srcs, out_dir: str):
         n = 0 if reader is None else sum(1 for _ in reader)
     except (ImportError, OSError, RuntimeError) as e:
         return None, f"no video files ({type(e).__name__}: {e})"
-    if (n, w, h) != (APP_FRAMES, srcs[0].w, srcs[0].h):
+    if (n, w, h) != (num_frames, srcs[0].w, srcs[0].h):
         return None, f"no video files (read back {n} frames of {w}x{h})"
     return paths, (f"{len(paths)} mp4 files written by "
                    f"{writer.__name__} in {write_s:.2f} s, read back by "
@@ -3068,9 +3115,10 @@ def _ckpt(out_dir: str, name: str):
 
 
 def phase_app(card: str, kernels: dict) -> None:
-    """Phase 5: the media probe, the app and CLI at full width (the default
-    botsort.yaml run as flow_tpu, and StrongSORT + the trained OSNet,
-    fused), the app on the card against the CPU, and resume on the card."""
+    """Phase 5: the media probe, the app and CLI at full width (BoT-SORT
+    with flow_tpu, and StrongSORT with flow_tpu + the trained OSNet,
+    fused), the app on the card against the CPU, and resume on the
+    card."""
     import torch
 
     from strongsort_yolo_tpu_torch.media import media_status
@@ -3093,17 +3141,29 @@ def phase_app(card: str, kernels: dict) -> None:
         sources = paths if files else srcs
         base = ["--track", "--count", "--count-line", APP_LINE, "--weights",
                 weights, "--imgsz", "640"]
-        _app_path(card, "app default (botsort.yaml as flow_tpu)", base,
+        # K5's coverage: a BoT-SORT YAML whose gmc_method is flow_tpu
+        flow_yaml = os.path.join(tmp, "botsort_flow_tpu.yaml")
+        with open(flow_yaml, "w") as f:
+            f.write("tracker_type: botsort\ngmc_method: flow_tpu\n")
+        _app_path(card, "app botsort + flow_tpu (a YAML config)",
+                  base + ["--tracker", flow_yaml],
                   sources, [k[n] for n in ("letterbox_u8", "nms_keep",
                                            "auction", "lk_pyramid")],
                   os.path.join(tmp, "default"), files)
+        # StrongSORT with the fused OSNet and K5 together: a StrongSORT
+        # YAML whose gmc_method is flow_tpu (strongsort.yaml's host ECC
+        # takes most of a second per 1080p frame, 8 streams in series;
+        # phase 8f times it)
+        ss_yaml = os.path.join(tmp, "strongsort_flow_tpu.yaml")
+        with open(ss_yaml, "w") as f:
+            f.write("tracker_type: strongsort\ngmc_method: flow_tpu\n")
         os.environ["SSYT_OSNET"] = "fused"
         try:
-            _app_path(card, "app strongsort.yaml + trained OSNet, fused",
-                      base + ["--tracker", "strongsort.yaml",
-                              "--reid-weights", OSNET],
-                      sources, list(k.values()), os.path.join(tmp, "ss"),
-                      files, crops=True)
+            _app_path(card, "app StrongSORT + flow_tpu (a YAML config) + "
+                      "trained OSNet, fused",
+                      base + ["--tracker", ss_yaml, "--reid-weights", OSNET],
+                      sources, list(k.values()),
+                      os.path.join(tmp, "ss"), files, crops=True)
         finally:
             del os.environ["SSYT_OSNET"]
 
@@ -3140,7 +3200,7 @@ def phase_app(card: str, kernels: dict) -> None:
                     raise AssertionError(f"app {tracker}: checkpoint mean "
                                          f"off by {err}")
             log(f"app card == CPU, {tracker}"
-                f"{' (run as flow_tpu)' if tracker == 'botsort.yaml' else ''}"
+                f"{' (host sparseOptFlow)' if tracker == 'botsort.yaml' else ''}"
                 f" (synth160, imgsz 160, f32, 2 streams x {APP_FRAMES}): "
                 f"counts {card_st[0].counts} / {card_st[1].counts}, line "
                 f"counts, event kinds and the last checkpoints' ids, status "
@@ -3310,8 +3370,8 @@ def write_mot_sequence(src, seq_dir: str) -> None:
 def phase_detector_protocol(card: str, kernels) -> None:
     """6b: ``eval_mot`` with the detector on a rendered 1080p sequence:
     yolov8n at 640, bf16, the class bias calibrated (app_checkpoint),
-    botsort.yaml as flow_tpu (K1-K3, K5). Random weights: the metrics are
-    printed, not held to a bar."""
+    botsort.yaml, its sparseOptFlow on the host as the JAX tool runs it
+    (K1-K3). Random weights: the metrics are printed, not held to a bar."""
     from strongsort_yolo_tpu_torch.media.video import SyntheticSource
     from strongsort_yolo_tpu_torch.tools import eval_mot
 
@@ -3329,8 +3389,8 @@ def phase_detector_protocol(card: str, kernels) -> None:
         counts = _counts(kernels)
     n = DETECTOR_SEQ_FRAMES
     log(f"eval_mot detector protocol, {n} 1080p JPEG frames (written by cv2 "
-        f"in {write_s:.2f} s), yolov8n 640 bf16 calibrated, botsort.yaml as "
-        f"flow_tpu: {json.dumps(rows[0])}; launches {counts}; host ms per "
+        f"in {write_s:.2f} s), yolov8n 640 bf16 calibrated, botsort.yaml "
+        f"(host sparseOptFlow): {json.dumps(rows[0])}; launches {counts}; host ms per "
         f"frame {secs / n * 1e3:.2f} (main's wall clock: pipeline build, "
         f"JPEG decode, track, metrics) [{card}]")
     for name, k in counts.items():
@@ -3483,12 +3543,777 @@ def phase_offline(card: str, kernels: dict) -> None:
     phase_public_protocol(card, [k["auction"]])
     mark("phase 6b: eval_mot with the detector, 1080p")
     phase_detector_protocol(card, [k[n] for n in (
-        "letterbox_u8", "nms_keep", "auction", "lk_pyramid")])
+        "letterbox_u8", "nms_keep", "auction")])
     mark("phase 6c: eval_sequence, the occlusion-relay rows")
     phase_sequence_rows(card, [k[n] for n in (
         "letterbox_u8", "nms_keep", "auction", "banded_crop", "lk_pyramid")])
     mark("phase 6d: AFLink inference and training")
     phase_aflink(card)
+
+
+# -- phase 8: int8 post-training quantization --------------------------------
+
+INT8_TICKS = 20  # ticks of the int8 main path after calibration
+
+
+class capture_int8:
+    """Within the block, every K8 call of the int8 convs (through
+    ops.quant.conv_int8) keeps a copy of its input and its conv's
+    arguments: a list of (x, conv) in call order, each conv a namespace
+    with the attributes of an int8 ``Conv`` (wq, wscale, b, xscale,
+    stride, pad, groups, act)."""
+
+    def __enter__(self):
+        from types import SimpleNamespace
+
+        from strongsort_yolo_tpu_torch.ops import quant
+
+        self.module, self.real, calls = quant, quant.conv_int8, []
+
+        def recording(x, wq, wscale, b, xscale, *, packed=None, **kw):
+            calls.append((x.detach().clone(), SimpleNamespace(
+                wq=wq, wscale=wscale, b=b, xscale=xscale, **kw)))
+            return self.real(x, wq, wscale, b, xscale, packed=packed, **kw)
+
+        quant.conv_int8 = recording
+        return calls
+
+    def __exit__(self, *exc):
+        self.module.conv_int8 = self.real
+
+
+class plain_int8:
+    """Within the block, the int8 convs compute with K8's plain version
+    on their CUDA tensors in place of K8 (the witness of
+    :func:`_witness_plain`; no launch counted)."""
+
+    def __enter__(self):
+        from strongsort_yolo_tpu_torch.ops import quant
+        from strongsort_yolo_tpu_torch.ops.cuda.quant_kernel import (
+            conv_s8_plain,
+        )
+
+        self.module, self.real = quant, quant.conv_s8
+        quant.conv_s8 = lambda *a, packed=None, **kw: conv_s8_plain(*a, **kw)
+
+    def __exit__(self, *exc):
+        self.module.conv_s8 = self.real
+
+
+def _conv_label(x, conv) -> str:
+    c_out, _, k, _ = conv.wq.shape
+    return (f"{tuple(x.shape[1:])}->{c_out} k{k} s{conv.stride} g{conv.groups}"
+            f" act={conv.act}")
+
+
+def check_k8_calls(calls, label: str) -> tuple[int, float]:
+    """K8 against conv_s8_plain on each captured call, in bfloat16 and
+    float32, with the dynamic scale and with the conv's calibrated one
+    (where it has one): the int32 sums and every act=False output
+    bit-identical; act=True outputs within 4 float32 ulps (one bf16 unit
+    at 1.0) x max(1, |ref|), counted where not identical. -> (max |err|,
+    worst scaled act=True error)."""
+    import torch
+
+    from strongsort_yolo_tpu_torch.ops.cuda.quant_kernel import (
+        conv_s8, conv_s8_plain,
+    )
+    from strongsort_yolo_tpu_torch.ops.quant import dynamic_scale
+
+    worst, max_abs, compared, differ = 0.0, 0.0, 0, 0
+    for x, conv in calls:
+        kw = dict(stride=conv.stride, pad=conv.pad, groups=conv.groups,
+                  act=conv.act)
+        for dt in (torch.bfloat16, torch.float32):
+            xx = x.to(dt)
+            for xs in [dynamic_scale(xx)] + (
+                    [conv.xscale] if conv.xscale is not None else []):
+                args = (xx, conv.wq, conv.wscale, conv.b, xs)
+                name = f"K8 {label} {_conv_label(x, conv)} {dt}"
+                # float32 of a bf16 x gives the same codes, so the same sums
+                if dt == torch.bfloat16 and not torch.equal(
+                        conv_s8(*args, **kw, sums=True),
+                        conv_s8_plain(*args, **kw, sums=True)):
+                    raise AssertionError(f"{name}: int32 sums differ")
+                got, want = conv_s8(*args, **kw), conv_s8_plain(*args, **kw)
+                compared += got.numel()
+                max_abs = max(max_abs, float((got.float() - want.float())
+                                             .abs().max()))
+                if conv.act:
+                    unit = 4 * 2.0 ** -23 if dt == torch.float32 else 2.0 ** -7
+                    err = float(((got.float() - want.float()).abs() / want.float()
+                                 .abs().clamp(min=1.0)).max())
+                    differ += int((got != want).sum())
+                    worst = max(worst, err)
+                    if err > unit:
+                        raise AssertionError(f"{name}: scaled |err| {err} > {unit}")
+                elif not torch.equal(got, want):
+                    raise AssertionError(f"{name}: act=False output differs")
+    log(f"K8 {label}: {len(calls)} convs x (bf16, f32) x (dynamic, static) "
+        f"scales: int32 sums and act=False outputs bit-identical to "
+        f"conv_s8_plain; act=True {differ} of {compared} outputs not "
+        f"identical, worst {worst:.3g} x max(1, |ref|), max |err| {max_abs:.3g}")
+    return max_abs, worst
+
+
+def time_k8(card: str, calls) -> dict:
+    """K8 over one tick's convs in bfloat16 with their calibrated scales, as
+    the path runs them: device time by CUDA-graph replay, the plain
+    version's by events, cuDNN's bf16 conv + SiLU of the dequantized
+    weights (a different function: bf16 products, no quantization) by
+    graph replay, and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from strongsort_yolo_tpu_torch.ops.cuda.quant_kernel import (
+        conv_s8, conv_s8_plain, pack_s8,
+    )
+    from strongsort_yolo_tpu_torch.tools.prof_conv import graph_ms
+
+    total = {"ms": 0.0, "plain": 0.0, "library": 0.0, "bound": 0.0,
+             "by_ops": 0.0}
+    for x, conv in calls:
+        x = x.to(torch.bfloat16)
+        kw = dict(stride=conv.stride, pad=conv.pad, groups=conv.groups,
+                  act=conv.act)
+        args = (x, conv.wq, conv.wscale, conv.b, conv.xscale)
+        packed = pack_s8(conv.wq, conv.groups)
+        ms = graph_ms(lambda: conv_s8(*args, **kw, packed=packed))
+        plain = cuda_ms(lambda: conv_s8_plain(*args, **kw), iters=1, warmup=1)
+        w16 = (conv.wq.float() * conv.wscale[:, None, None, None]).to(
+            torch.bfloat16)
+        b16 = conv.b.to(torch.bfloat16)
+
+        def lib():
+            y = F.conv2d(x, w16, b16, conv.stride, conv.pad, 1, conv.groups)
+            return F.silu(y) if conv.act else y
+
+        library = graph_ms(lib)
+        out = conv_s8(*args, **kw, packed=packed)
+        macs = out.numel() * conv.wq[0].numel()
+        t, by = bound(nbytes(x, conv.wq, conv.wscale, conv.b, out), 2 * macs,
+                      "int8")
+        total["ms"] += ms
+        total["plain"] += plain
+        total["library"] += library
+        total["bound"] += t
+        total["by_ops"] += t if by == "operations" else 0.0
+        log(f"K8 {_conv_label(x, conv)} S={x.shape[0]} bf16: kernel {ms:.4f} "
+            f"ms, plain {plain:.4f} ms, cuDNN bf16 conv{' + SiLU' * conv.act} "
+            f"{library:.4f} ms, bound {t:.6f} ms ({by}, {2 * macs / 1e9:.3f} "
+            f"GOP) [{card}]")
+    return total
+
+
+def _int8_parity(label: str, cpu, card) -> int:
+    """Card against CPU rows of an int8 path (lists of ticks of S
+    Results): equal rows and ids, boxes within 1 px. An int8 path rounds
+    every activation to a code step, so the last-bit differences of the
+    float layers (cuDNN against the CPU) move a code where an activation
+    lies on a rounding boundary (tests/test_torch_quant.py), and the
+    tracker's filter carries a detection's difference into the later
+    frames' boxes; the frames within 1e-3 px are counted. -> track
+    rows."""
+    rows, close, frames, worst = 0, 0, 0, 0.0
+    for t, (a_tick, b_tick) in enumerate(zip(cpu, card)):
+        for s, (a, b) in enumerate(zip(a_tick, b_tick)):
+            a, b = a.boxes, b.boxes
+            if len(a) != len(b) or not np.array_equal(a.id, b.id):
+                raise AssertionError(f"{label} t={t} s={s}: rows/ids {b.id} "
+                                     f"on the card, {a.id} on the CPU")
+            err = float(np.abs(a.xyxy - b.xyxy).max(initial=0.0))
+            worst = max(worst, err)
+            close += err <= 1e-3
+            frames += 1
+            rows += len(a)
+    if worst > 1.0:
+        raise AssertionError(f"{label}: boxes {worst} px apart")
+    log(f"{label}: card == CPU on {frames} frames, {rows} track rows, same "
+        f"ids, boxes within {worst:.3g} px ({close} frames within 1e-3)")
+    return rows
+
+
+def _arrays(out) -> list[np.ndarray]:
+    """Every array of a path's output (Boxes, Results, and lists, tuples
+    and dicts of them or of numbers), in order."""
+    if isinstance(out, (list, tuple)):
+        return [a for o in out for a in _arrays(o)]
+    if isinstance(out, dict):
+        return [a for o in out.values() for a in _arrays(o)]
+    if hasattr(out, "boxes"):
+        kpts = getattr(out, "keypoints", None)
+        return _arrays(out.boxes) + ([] if kpts is None else [kpts.data])
+    if hasattr(out, "xyxy"):
+        return [out.xyxy, out.conf, out.cls] + (
+            [] if out.id is None else [out.id])
+    return [np.asarray(out)]
+
+
+def _witness_plain(label: str, run):
+    """``run()`` on the card twice under cuDNN's deterministic mode: with
+    K8, then with K8's plain version on the same CUDA tensors
+    (plain_int8). The outputs must be equal array for array, bit for bit:
+    then a gap between the card and the CPU comes from the float layers
+    (cuDNN against the CPU's), not from K8. -> K8's output."""
+    import torch
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        got = run()
+        with plain_int8():
+            want = run()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    a, b = _arrays(got), _arrays(want)
+    if len(a) != len(b) or not all(
+            x.shape == y.shape and np.array_equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError(f"{label}: the card's rows with K8 differ from "
+                             f"its rows with conv_s8_plain")
+    log(f"{label}: witness on the card, K8 swapped for conv_s8_plain: "
+        f"{len(a)} arrays ({sum(x.size for x in a)} values) equal bit for bit")
+    return got
+
+
+def _box_iou(a: np.ndarray, b: np.ndarray) -> float:
+    w = max(0.0, float(min(a[2], b[2]) - max(a[0], b[0])))
+    h = max(0.0, float(min(a[3], b[3]) - max(a[1], b[1])))
+    areas = float((a[2] - a[0]) * (a[3] - a[1]) + (b[2] - b[0]) * (b[3] - b[1]))
+    return w * h / max(areas - w * h, 1e-9)
+
+
+def _int8_det_parity(label: str, pipes, frames) -> None:
+    """Card against CPU detections (``predict``) of an int8 model with
+    random weights, whose head is set so that many scores sit near the
+    confidence threshold among heavily overlapping boxes: a code moved by
+    a float layer's last bit (see _int8_parity; _witness_plain shows that
+    K8 is not where the card departs) moves a score by up to a few
+    hundredths, across the threshold or across a neighbour in NMS, and a
+    tracker then numbers every later track otherwise. So detections, not
+    ids: each row matched by a row of the other side of its class with
+    the box within 1 px and the confidence within 0.03, at least 90% of
+    the rows of both sides matched, and every row left unmatched
+    explained by an unmatched row of the other side with its score
+    within 0.03: of another class with the box within 1 px (a class
+    flip: the argmax of two class scores a code step apart), or of its
+    class overlapping it above NMS's IoU (an NMS swap: the two kept each
+    other's place); or else its own score within 0.03 of the threshold
+    (it crossed it)."""
+    conf, iou = pipes["cpu"].det_cfg.conf, pipes["cpu"].det_cfg.iou
+    card = _witness_plain(label, lambda: [pipes["cuda"].predict(f).boxes
+                                          for f in frames])
+    rows, alone, worst, unexplained = 0, [], 0.0, []
+    for t, frame in enumerate(frames):
+        a, b = pipes["cpu"].predict(frame).boxes, card[t]
+        free = list(range(len(b)))
+        left = []
+        for i in range(len(a)):
+            near = [j for j in free if b.cls[j] == a.cls[i]
+                    and np.abs(b.xyxy[j] - a.xyxy[i]).max() <= 1.0
+                    and abs(b.conf[j] - a.conf[i]) <= 0.03]
+            if near:
+                j = min(near, key=lambda j: np.abs(b.xyxy[j] - a.xyxy[i]).max())
+                worst = max(worst, float(np.abs(b.xyxy[j] - a.xyxy[i]).max()))
+                free.remove(j)
+            else:
+                left.append(("cpu", a, i))
+        left += [("card", b, j) for j in free]
+        for side, boxes, i in left:
+            score, cls = float(boxes.conf[i]), boxes.cls[i]
+            flips, swaps = [], []
+            for s, o, j in left:
+                if s == side or abs(float(o.conf[j]) - score) > 0.03:
+                    continue
+                other = (int(o.cls[j]), round(float(o.conf[j]), 4))
+                if o.cls[j] != cls and np.abs(
+                        o.xyxy[j] - boxes.xyxy[i]).max() <= 1.0:
+                    flips.append(other)
+                elif o.cls[j] == cls and _box_iou(
+                        boxes.xyxy[i], o.xyxy[j]) > iou:
+                    swaps.append(other)
+            why = (f"class flip with {flips[0]} (class, score)" if flips else
+                   f"NMS swap with {swaps[0]} (class, score)" if swaps else
+                   "threshold" if score - conf <= 0.03 else None)
+            alone.append(f"t={t} {side} {score:.4f} cls {int(cls)}: {why}")
+            if why is None:
+                unexplained.append(alone[-1])
+        rows += len(a) + len(b)
+    if rows == 0 or len(alone) > 0.1 * rows or unexplained:
+        raise AssertionError(f"{label}: {len(alone)} of {rows} rows "
+                             f"unmatched: {alone}; unexplained {unexplained}")
+    log(f"{label}: card == CPU detections on {len(frames)} frames, {rows} "
+        f"rows on both sides, {len(alone)} unmatched, each explained "
+        f"({alone}), the matched boxes within {worst:.3g} px")
+
+
+def _share_scales(src, dst) -> None:
+    """The calibrated xscale of each int8 conv of pipeline ``src`` onto
+    ``dst``'s (the same model on another device)."""
+    from strongsort_yolo_tpu_torch.models.common import int8_convs
+
+    for a, b in zip(int8_convs(src.model), int8_convs(dst.model)):
+        b.xscale = a.xscale.to(b.wq.device)
+
+
+def _no_sync_ticks(bp, ticks) -> None:
+    """The overlapped loop (step_async t, materialize t - 1) over ``ticks``
+    under set_sync_debug_mode("error"): any synchronizing op raises."""
+    import torch
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = None
+        for frames in ticks:
+            handle = bp.step_async(frames)
+            if pending is not None:
+                bp.materialize(pending)
+            pending = handle
+        bp.materialize(pending)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def phase_int8_path(card: str, kernels) -> tuple[dict, list]:
+    """8b: yolov8n int8, imgsz 640, bf16, BoT-SORT gmc none, S=8 1080p (cell
+    a's configuration): 3 ticks with the dynamic scales under the sync
+    check, calibration on tick 0's first two frames as the batched app
+    loop does, refresh_steps, then INT8_TICKS ticks with launches counted,
+    3 more under the sync check, one tick's K8 calls captured, and ms per
+    tick against the bf16 pipeline in turns. -> (counts, captured calls)."""
+    import torch
+
+    from strongsort_yolo_tpu_torch.models.common import int8_convs
+    from strongsort_yolo_tpu_torch.pipeline import BatchedPipeline
+    from strongsort_yolo_tpu_torch.track.bytetrack import ByteTrackConfig
+
+    h, w = 1080, 1920
+    pool = make_frames(h, w)
+    tracker = ByteTrackConfig(tracker_type="botsort", gmc_method="none")
+    pipe = _main_pipeline(tracker, pool, quant="int8")
+    n_q = len(int8_convs(pipe.model))
+    ticks = [np.stack([pool[(s + t) % len(pool)] for s in range(S_MAIN)])
+             for t in range(INT8_TICKS)]
+    bp = BatchedPipeline(pipe, S_MAIN, (h, w))
+    bp.step(ticks[0])
+    bp.step(ticks[1])
+    _no_sync_ticks(bp, ticks[2:5])
+    bp = BatchedPipeline(pipe, S_MAIN, (h, w))
+    t0 = time.perf_counter()
+    n = pipe.calibrate_int8(list(ticks[0][:2]))
+    bp.refresh_steps()
+    cal_s = time.perf_counter() - t0
+    log(f"8b int8: calibrated {n} convs on tick 0's first two frames in "
+        f"{cal_s:.3f} s; int8 convs in the model {n_q} (the JAX "
+        f"quantize_model's count for yolov8n: 32)")
+    if n != 32 or n_q != 32:
+        raise AssertionError(f"8b: {n} calibrated, {n_q} int8 convs, not 32")
+    counts, times, results = _drive(bp, ticks, kernels)
+    want = {"letterbox_u8": 1, "nms_keep": 1, "auction": 3, "conv_s8": 32}
+    per_tick = {k: v / INT8_TICKS for k, v in counts.items()}
+    log(f"8b int8 path launches over {INT8_TICKS} ticks: {counts}; per tick "
+        f"{per_tick}")
+    if per_tick != want:
+        raise AssertionError(f"8b: launches per tick {per_tick}, not {want}")
+    tracks = _check_results("8b int8 path", results)
+    log(f"8b int8 path active tracks per stream: {tracks}; ms/tick (host "
+        f"clock, synchronized) {_ms_line(times)} [{card}]")
+    _no_sync_ticks(bp, ticks[5:8])
+    log("8b int8 path: 0 synchronizing ops in 3 + 3 overlapped ticks under "
+        "set_sync_debug_mode('error'), dynamic scales and calibrated ones")
+    with capture_int8() as calls:
+        bp.step(ticks[0])
+    if len(calls) != 32:
+        raise AssertionError(f"8b: {len(calls)} K8 calls captured in a tick")
+    ref = _main_pipeline(tracker, pool)
+    rbp = BatchedPipeline(ref, S_MAIN, (h, w))
+    rbp.step(ticks[0])
+    mine, theirs = [], []
+    for t in range(8):
+        for b, out in ((bp, mine), (rbp, theirs)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            b.step(ticks[t])
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+    log(f"8b ms/tick in turns (host clock, synchronized, 8 ticks each): int8 "
+        f"median {np.median(mine):.2f} ({[round(x, 2) for x in mine]}), bf16 "
+        f"median {np.median(theirs):.2f} ({[round(x, 2) for x in theirs]}); "
+        f"printed only [{card}]")
+    return counts, calls
+
+
+def phase_int8_guard(card: str) -> None:
+    """8c: tests/test_quant.py's guard on the card (synth160, imgsz 160, f32,
+    30 frames, ByteTrack, dynamic scales): int8 MOTA and IDF1 within 0.01
+    of float; then the int8 rows card against CPU, with the dynamic scales
+    and with scales calibrated on the card and shared."""
+    from strongsort_yolo_tpu_torch.config import DetectorConfig
+    from strongsort_yolo_tpu_torch.media.video import SyntheticDetSource
+    from strongsort_yolo_tpu_torch.pipeline import Pipeline
+    from strongsort_yolo_tpu_torch.utils.metrics import evaluate_mot
+
+    src = SyntheticDetSource(num_frames=30, size=(320, 320), num_objects=3,
+                             seed=1)
+    frames = list(src)
+
+    def pipe(quant, device):
+        return Pipeline(DetectorConfig(weights=CKPT, imgsz=160, conf=0.3,
+                                       iou=0.4, max_det=16, half=False,
+                                       quant=quant),
+                        tracker="bytetrack.yaml", track_slots=16,
+                        tracker_max_dets=16, device=device)
+
+    def mot(p):
+        gt, hyp, res = [], [], []
+        for t, frame in enumerate(frames):
+            r = p.track(frame)
+            res.append([r])
+            gt.append([tuple(g) for g in src.truth(t)])
+            hyp.append([(int(r.boxes.id[i]), *r.boxes.xyxy[i])
+                        for i in range(len(r.boxes))])
+        return evaluate_mot(gt, hyp), res
+
+    mf, _ = mot(pipe(None, "cuda"))
+    mq, card_rows = _witness_plain("8c int8 dynamic scales",
+                                   lambda: mot(pipe("int8", "cuda")))
+    log(f"8c guard on the card, 30 frames: float MOTA {mf['mota']:.4f} IDF1 "
+        f"{mf['idf1']:.4f}, int8 MOTA {mq['mota']:.4f} IDF1 {mq['idf1']:.4f} "
+        f"[{card}]")
+    if mq["mota"] < mf["mota"] - 0.01 or mq["idf1"] < mf["idf1"] - 0.01:
+        raise AssertionError(f"8c: int8 {mq} against float {mf}")
+    _, cpu_rows = mot(pipe("int8", "cpu"))
+    _int8_parity("8c int8 dynamic scales", cpu_rows, card_rows)
+    card, cpu = pipe("int8", "cuda"), pipe("int8", "cpu")
+    card.calibrate_int8(frames[:1])
+    _share_scales(card, cpu)
+
+    def card_rows():
+        card.reset()
+        return [[card.track(f)] for f in frames]
+
+    _int8_parity("8c int8 calibrated scales", [[cpu.track(f)] for f in frames],
+                 _witness_plain("8c int8 calibrated scales", card_rows))
+
+
+def phase_int8_families(card: str, kernels) -> tuple[int, list]:
+    """8d: yolov5s int8 + StrongSORT + OSNet-x0_25 fused (K1-K4, K6, K8) and
+    yolo11n-pose int8 (K8's depthwise form) at full width, 3 ticks each,
+    with their int8 counts; card against CPU, imgsz 160, f32, scales
+    calibrated on the card and shared: the detections of a fabricated
+    yolov5s .pt (_int8_det_parity) and the tracks of the trained
+    yolo11n-pose asset. ->
+    (K8 launches, the captured K8 calls to check)."""
+    from strongsort_yolo_tpu_torch.config import DetectorConfig
+    from strongsort_yolo_tpu_torch.models.common import int8_convs
+    from strongsort_yolo_tpu_torch.pipeline import BatchedPipeline, Pipeline
+    from strongsort_yolo_tpu_torch.track.bytetrack import ByteTrackConfig
+    from strongsort_yolo_tpu_torch.track.strongsort import StrongSortConfig
+
+    h, w = 1080, 1920
+    pool = make_frames(h, w)
+    ticks = [np.stack([pool[(s + t) % len(pool)] for s in range(S_MAIN)])
+             for t in range(3)]
+    k8, checks = 0, []
+    for model, tracker, reid, want_n, want in (
+        ("yolov5s", StrongSortConfig(gmc_method="none"), "osnet_x0_25", 42,
+         ("letterbox_u8", "nms_keep", "auction", "banded_crop", "os_stage",
+          "conv_s8")),
+        ("yolo11n-pose", ByteTrackConfig(tracker_type="botsort",
+                                         gmc_method="none"), None, 52,
+         ("letterbox_u8", "nms_keep", "auction", "conv_s8")),
+    ):
+        pipe = _main_pipeline(tracker, pool, model=model, reid=reid,
+                              fused=reid is not None, quant="int8")
+        bp = BatchedPipeline(pipe, S_MAIN, (h, w))
+        n = pipe.calibrate_int8(list(ticks[0][:2]))
+        bp.refresh_steps()
+        counts, times, results = _drive(
+            bp, ticks, [k for k in kernels if k.__name__ in want])
+        log(f"8d {model} int8 + {type(tracker).__name__}"
+            f"{' + fused ' + reid if reid else ''}, S={S_MAIN} 1080p bf16: "
+            f"{n} convs calibrated (JAX: {want_n}), launches over 3 ticks "
+            f"{counts}, ms/tick {[round(x, 2) for x in times]} [{card}]")
+        if n != want_n or len(int8_convs(pipe.model)) != want_n:
+            raise AssertionError(f"8d {model}: {n} int8 convs, not {want_n}")
+        if counts["conv_s8"] != 3 * want_n or min(counts.values()) == 0:
+            raise AssertionError(f"8d {model}: launches {counts}")
+        _check_results(f"8d {model}", results)
+        k8 += counts["conv_s8"]
+        with capture_int8() as calls:
+            bp.step(ticks[0])
+        # the shape classes the main path lacks: v5's stride 2 at its
+        # widths, v11's depthwise conv and its act=False convs
+        if model == "yolov5s":
+            checks += [c for c in calls if c[1].stride == 2][:1]
+        else:
+            checks += [c for c in calls if c[1].groups > 1 or not c[1].act]
+        del pipe, bp, calls
+    S, T = 2, 6
+    frames = np.stack([np.stack(render_synthetic(T, seed=s + 1))
+                       for s in range(S)], axis=1)
+    with tempfile.TemporaryDirectory() as tmp:
+        v5 = fabricated_checkpoint("yolov5s", frames[0, 0], tmp)
+        for label, weights, tracker, reid, clip in (
+            ("8d fabricated yolov5s.pt int8 (detections)", v5, None, None,
+             frames),
+            ("8d trained yolo11n-pose int8, ByteTrack",
+             TASK_CKPTS["yolo11n_pose_synth160"], "bytetrack.yaml", None,
+             render_task("pose", T, S, seed=3)),
+        ):
+            pipes = {d: Pipeline(DetectorConfig(weights=weights, imgsz=160,
+                                                half=False,
+                                                max_det=16 if tracker else 300,
+                                                quant="int8"),
+                                 tracker=tracker or "bytetrack.yaml",
+                                 track_slots=16, tracker_max_dets=16,
+                                 reid_weights=reid, device=d)
+                     for d in ("cuda", "cpu")}
+            pipes["cuda"].calibrate_int8([clip[0, 0]])
+            _share_scales(pipes["cuda"], pipes["cpu"])
+            if tracker is None:
+                _int8_det_parity(label, pipes, list(clip.reshape(
+                    -1, *clip.shape[2:])))
+                continue
+            def steps(p):
+                bp = BatchedPipeline(p, S, clip.shape[2:4])
+                return [bp.step(clip[t]) for t in range(T)]
+
+            _int8_parity(label, steps(pipes["cpu"]), _witness_plain(
+                label, lambda: steps(pipes["cuda"])))
+    return k8, checks
+
+
+def phase_int8_app(card: str, kernels) -> None:
+    """8e: cli.main --quant int8 on two 1080p mp4 files (in memory where no
+    encoder works), the sequential and the batched loop: the JAX app's
+    calibration line once per stream's loop and once per batched group,
+    K8 launched, every stream's frames processed."""
+    import contextlib
+    import io
+
+    from strongsort_yolo_tpu_torch import cli
+    from strongsort_yolo_tpu_torch.media.video import SyntheticSource
+
+    n_frames = 4
+    with tempfile.TemporaryDirectory() as tmp:
+        srcs = [SyntheticSource(num_frames=n_frames, size=(1080, 1920),
+                                num_objects=6, seed=s) for s in range(2)]
+        weights = app_checkpoint(next(iter(srcs[0])), tmp)
+        paths, how = _write_sources(srcs, tmp, n_frames)
+        if paths is None:
+            raise AssertionError(f"8e: {how}")
+        for mode, lines in (("sequential", 2), ("batched", 1)):
+            for k in kernels:
+                k.launches = 0
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(["--source", *paths, "--track", "--weights",
+                               weights, "--imgsz", "640", "--quant", "int8",
+                               "--multi-mode", mode, "--output",
+                               os.path.join(tmp, mode)])
+            secs = time.perf_counter() - t0
+            text = out.getvalue()
+            counts = {k.__name__: k.launches for k in kernels}
+            n_cal = text.count("[INFO] int8: calibrated 32 convs")
+            log(f"8e cli.main --quant int8, {mode}, 2 x {n_frames} 1080p "
+                f"frames ({how}): rc {rc}, calibration lines {n_cal}, "
+                f"launches {counts}, {secs:.2f} s [{card}]")
+            if rc != 0 or n_cal != lines or min(counts.values()) == 0:
+                raise AssertionError(f"8e {mode}: rc {rc}, {n_cal} calibration "
+                                     f"lines, launches {counts}:\n{text}")
+            if text.count(f"frames={n_frames}") != 2:
+                raise AssertionError(f"8e {mode}: streams did not finish:\n{text}")
+
+
+def phase_host_gmc(card: str) -> None:
+    """8f, the host GMC: BoT-SORT (botsort.yaml, sparseOptFlow) on two panned
+    1080p streams and StrongSORT (strongsort.yaml, ecc, the trained OSNet)
+    on two panned 320 x 320 ones, the trained synth160 detector (imgsz
+    160, f32), card against CPU: the warps equal bit for bit (both come
+    from OpenCV on this host) and the tracks equal; then the host ms per
+    1080p frame of each estimator."""
+    from strongsort_yolo_tpu_torch.config import DetectorConfig
+    from strongsort_yolo_tpu_torch.pipeline import BatchedPipeline, Pipeline
+    from strongsort_yolo_tpu_torch.track.gmc import SparseOptFlowGMC
+
+    T = 6
+    scene = panned_scene(1080, 1920)
+    big = np.stack([np.stack([np.roll(scene, (t * dy, t * dx), axis=(0, 1))
+                              for dx, dy in ((12, -6), (-6, 12))])
+                    for t in range(T)])
+    small = np.stack([np.stack([np.roll(f, (t * 3, -t * 2), axis=(0, 1))
+                                for t, f in enumerate(
+                                    render_synthetic(T, seed=s + 1))])
+                      for s in range(2)], axis=1)
+    for tracker, reid, frames in (("botsort.yaml", None, big),
+                                  ("strongsort.yaml", OSNET, small)):
+        outs, warps = {}, {}
+        for device in ("cuda", "cpu"):
+            pipe = Pipeline(DetectorConfig(weights=CKPT, imgsz=160, half=False,
+                                           max_det=16),
+                            tracker=tracker, track_slots=16,
+                            tracker_max_dets=16, reid_weights=reid,
+                            device=device)
+            bp = BatchedPipeline(pipe, 2, frames.shape[2:4])
+            outs[device], warps[device] = [], []
+            for t in range(T):
+                outs[device].append(bp.step(frames[t]))
+                warps[device].append(bp.last_warps.cpu().numpy())
+        if not np.array_equal(np.stack(warps["cuda"]), np.stack(warps["cpu"])):
+            raise AssertionError(f"host GMC {tracker}: the warps differ")
+        rows = 0
+        for t in range(T):
+            for s in range(2):
+                a, b = outs["cpu"][t][s].boxes, outs["cuda"][t][s].boxes
+                if len(a) != len(b) or not np.array_equal(a.id, b.id):
+                    raise AssertionError(f"host GMC {tracker} t={t} s={s}")
+                np.testing.assert_allclose(b.xyxy, a.xyxy, atol=1e-3)
+                rows += len(a)
+        shift = float(np.abs(np.stack(warps["cuda"])[..., 2]).max())
+        if shift < 1.0:
+            raise AssertionError(f"host GMC {tracker}: no pan estimated")
+        log(f"host GMC {tracker}: 2 panned {frames.shape[2]}x"
+            f"{frames.shape[3]} streams x {T} ticks, warps card == CPU bit "
+            f"for bit (largest shift {shift:.2f} px), {rows} track rows, "
+            f"same ids, boxes within 1e-3")
+    for method, n in (("sparseOptFlow", T), ("ecc", 3)):
+        gmc, times = SparseOptFlowGMC(method), []
+        for t in range(n):
+            t0 = time.perf_counter()
+            gmc.apply(big[t, 0])
+            times.append((time.perf_counter() - t0) * 1e3)
+        log(f"host GMC {method} at 1080p on this host: "
+            f"{[round(x, 2) for x in times]} ms per frame (the first has no "
+            f"previous frame), median after it {np.median(times[1:]):.2f} "
+            f"(host clock) [{card}]")
+
+
+def host_gmc_full_width(card: str) -> None:
+    """8f, the default tracker at full width: yolov8n 640 bf16, S=8 1080p,
+    botsort.yaml (its sparseOptFlow on the host: compute_warps runs the S
+    estimates one after another before each dispatch) and BoT-SORT with
+    flow_tpu (K5) on the same panned ticks (PANS), a tick of each in
+    turns: ms per tick (host clock, synchronized), K5 launched on the
+    flow_tpu ticks only, and compute_warps alone on the same ticks."""
+    import torch
+
+    from strongsort_yolo_tpu_torch.ops.cuda.lk_kernel import lk_pyramid
+    from strongsort_yolo_tpu_torch.pipeline import BatchedPipeline
+    from strongsort_yolo_tpu_torch.track.bytetrack import ByteTrackConfig
+
+    h, w = 1080, 1920
+    scene = panned_scene(h, w)
+    ticks = [np.stack([np.roll(scene, (t * dy, t * dx), axis=(0, 1))
+                       for dx, dy in PANS]) for t in range(TICKS)]
+    bps = {name: BatchedPipeline(_main_pipeline(tracker, [scene]), S_MAIN,
+                                 (h, w))
+           for name, tracker in (
+               ("botsort.yaml (host sparseOptFlow)", "botsort.yaml"),
+               ("botsort gmc flow_tpu", ByteTrackConfig(
+                   tracker_type="botsort", gmc_method="flow_tpu")))}
+    name_host, name_flow = bps
+    times = {name: [] for name in bps}
+    k5 = {name: 0 for name in bps}
+    warps = []
+    for frames in ticks:
+        for name, bp in bps.items():
+            lk_pyramid.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results = bp.step(frames)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            k5[name] += lk_pyramid.launches
+            _check_results(f"8f {name}", results)
+            if name == name_host:
+                warps.append(bp.last_warps.cpu().numpy())
+    est = BatchedPipeline(bps[name_host].pipeline, S_MAIN, (h, w))
+    alone = []
+    for frames in ticks:
+        t0 = time.perf_counter()
+        est.compute_warps(frames)
+        alone.append((time.perf_counter() - t0) * 1e3)
+    err = np.abs(np.stack(warps[1:])[:, :, :, 2]
+                 - np.array(PANS, np.float32)).max()
+    log(f"8f default tracker at full width, yolov8n 640 bf16, S={S_MAIN} "
+        f"1080p, pans {PANS}, {TICKS} ticks of each in turns; ms/tick (host "
+        f"clock, synchronized): " + "; ".join(
+            f"{name} {_ms_line(t)}" for name, t in times.items())
+        + f"; compute_warps alone (S={S_MAIN} host estimates) {_ms_line(alone)}"
+        f"; K5 launches {k5}; host warps' max |translation - pan| ticks "
+        f"1-{TICKS - 1} {err:.4f} px [{card}]")
+    if k5[name_host] != 0 or k5[name_flow] != TICKS:
+        raise AssertionError(f"8f: K5 launches {k5}")
+
+
+def v7_s2_call():
+    """The first 3x3 stride-2 int8 conv of a fused yolov7, quantized from
+    seeded weights, on seeded bf16 input (S=8, 160 x 160): [(x, conv)]."""
+    import torch
+
+    from strongsort_yolo_tpu_torch.models.common import quantizable
+    from strongsort_yolo_tpu_torch.models.yolov7 import Yolov7Model
+
+    model = Yolov7Model(fused=True)
+    conv = next(m for _, m in quantizable(model) if m.stride == 2)
+    torch.manual_seed(0)
+    with torch.no_grad():
+        conv.w.normal_(0, 0.05)
+        conv.b.normal_(0, 0.2)
+    conv.quantize_int8()
+    conv.to("cuda")
+    c_in = conv.wq.shape[1]
+    x = torch.randn((S_MAIN, c_in, 160, 160), generator=torch.Generator()
+                    .manual_seed(1)).to("cuda", torch.bfloat16)
+    return [(x, conv)]
+
+
+def phase_int8(card: str, kernels: dict) -> dict:
+    """Phase 8: the int8 slice (8b, 8a, 8c, 8d, 8e) and the host GMC.
+    -> K8's entry of the kernels line."""
+    from strongsort_yolo_tpu_torch.ops.cuda.quant_kernel import conv_s8
+
+    k = kernels
+    mark("phase 8b: the int8 main path")
+    counts, calls = phase_int8_path(card, [k[n] for n in (
+        "letterbox_u8", "nms_keep", "auction")] + [conv_s8])
+    mark("phase 8d: the other families in int8")
+    _, more = phase_int8_families(card, list(k.values()) + [conv_s8])
+    mark("phase 8a: K8 against its plain version")
+    check_tensor_core_sass("conv_s8_mma_kernel", "IMMA", "K8 mma")
+    check_no_div64(["conv_s8_mma_kernel", "conv_s8_dw_kernel"])
+    err, _ = check_k8_calls(calls, "yolov8n 640 S=8 (8b's tick)")
+    err2, _ = check_k8_calls(more, "yolov5s s2, yolo11n-pose depthwise "
+                             "and act=False (8d's ticks)")
+    v7 = v7_s2_call()
+    err3, _ = check_k8_calls(v7, "a yolov7 3x3 stride-2 conv")
+    total = time_k8(card, calls)
+    log(f"K8 over the 32 int8 convs of one yolov8n S={S_MAIN} 640 tick, bf16, "
+        f"calibrated scales, device time (CUDA graph replay): kernel "
+        f"{total['ms']:.4f} ms, plain {total['plain']:.4f} ms (events), "
+        f"cuDNN bf16 conv + SiLU of the dequantized weights {total['library']:.4f} "
+        f"ms (another function), bound {total['bound']:.6f} ms "
+        f"({total['by_ops']:.6f} of it from convs bound by operations); "
+        f"kernel / bound {total['ms'] / total['bound']:.1f}x [{card}]")
+    mark("phase 8c: the int8 quality guard, card against CPU")
+    phase_int8_guard(card)
+    mark("phase 8e: the int8 app")
+    phase_int8_app(card, [k["letterbox_u8"], conv_s8])
+    mark("phase 8f: the host GMC")
+    phase_host_gmc(card)
+    host_gmc_full_width(card)
+    return dict(
+        name="conv_s8", route="cuda",
+        source="strongsort_yolo_tpu_torch/csrc/conv_s8.cu",
+        replaces="strongsort_yolo_tpu/ops/quant.py:41 conv_int8_apply (an "
+                 "XLA int8 conv, not a Pallas kernel)",
+        launches=counts["conv_s8"], max_abs_err=max(err, err2, err3),
+        ms=total["ms"], plain_ms=total["plain"], bound_ms=total["bound"],
+        bound_by="operations" if total["by_ops"] >= total["bound"] / 2
+        else "bytes",
+        library_ms=total["library"],
+    )
 
 
 # -- phase 7: training ------------------------------------------------------
@@ -3870,6 +4695,8 @@ def main() -> int:
         letterbox_u8, nms_keep, auction, lk_pyramid, banded_crop)})
     phase_training(card, {k.__name__: k for k in (
         letterbox_u8, nms_keep, auction)})
+    report.append(phase_int8(card, {k.__name__: k for k in (
+        letterbox_u8, nms_keep, auction, banded_crop, os_stage)}))
     mark("done")
     log(json.dumps({"kernels": [
         {k: e[k] for k in ("name", "route", "source", "replaces", "launches",

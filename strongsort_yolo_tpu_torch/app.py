@@ -23,11 +23,6 @@ Where the port differs from the JAX app:
 - ``AppConfig.device``: the pipeline runs on the CUDA device unless the
   caller asks for the CPU (``device="cpu"``); without a card and without
   that, :func:`run` raises.
-- Camera motion: the host estimators ``sparseOptFlow`` (``botsort.yaml``)
-  and ``ecc`` (``strongsort.yaml``) are OpenCV code the port does not
-  carry; :func:`resolve_tracker` runs such a config as ``flow_tpu``, the
-  estimate on the card (K5), and says so in one ``[INFO]`` line.
-- ``quant="int8"`` is refused (ROADMAP A15) before any stream opens.
 - Media: files decode through the native libav shim, else cv2; videos
   are written by the native encoder, else cv2; frames are drawn by cv2,
   else the native C++ shim. :func:`run` fails before the first frame
@@ -56,7 +51,6 @@ import numpy as np
 from strongsort_yolo_tpu_torch.config import (
     DetectorConfig,
     TrackerConfig,
-    load_tracker_config,
 )
 from strongsort_yolo_tpu_torch.media.annotator import make_annotator
 from strongsort_yolo_tpu_torch.media.native_decoder import (
@@ -67,9 +61,7 @@ from strongsort_yolo_tpu_torch.media.native_decoder import (
 )
 from strongsort_yolo_tpu_torch.media.video import VideoReader, VideoWriter
 from strongsort_yolo_tpu_torch.pipeline import Pipeline
-from strongsort_yolo_tpu_torch.track.bytetrack import ByteTrackConfig
 from strongsort_yolo_tpu_torch.track.state import TrackState
-from strongsort_yolo_tpu_torch.track.strongsort import StrongSortConfig
 from strongsort_yolo_tpu_torch.utils.checkpoint import restore_state, save_state
 from strongsort_yolo_tpu_torch.utils.counting import LineCrossCounter, StreamingCounter
 from strongsort_yolo_tpu_torch.utils.fps import FpsMeter
@@ -77,8 +69,6 @@ from strongsort_yolo_tpu_torch.utils.labels import LabelWriter
 from strongsort_yolo_tpu_torch.utils.logging import EventLogger
 from strongsort_yolo_tpu_torch.utils.profiling import StageTimers
 from strongsort_yolo_tpu_torch.utils.trajectories import TrajectoryMemory
-
-HOST_GMC = ("sparseOptFlow", "ecc")  # OpenCV estimators: run as flow_tpu
 
 
 @dataclasses.dataclass
@@ -88,7 +78,7 @@ class AppConfig:
     count: bool = False
     weights: str = "yolov8n"
     tracker: str | TrackerConfig = "botsort.yaml"  # name, YAML path or
-    # config object; a host GMC method runs as flow_tpu (resolve_tracker)
+    # config object
     reid_weights: str | None = None  # OSNet variant name, .npz or .pt path
     conf: float = 0.3
     iou: float = 0.4
@@ -113,7 +103,8 @@ class AppConfig:
     # crop batch is sized from each tick's real detection counts
     reid_cadence: int = 1  # StrongSORT, batched: stream s embeds on ticks
     # where (s + tick) % cadence == 0
-    quant: str | None = None  # "int8" is refused (ROADMAP A15)
+    quant: str | None = None  # "int8": PTQ of the detector conv stack
+    # (ops/quant.py); activation scales calibrate on the first frame
     checkpoint_every: int = 0  # save the tracker state every N frames
     # (0: only with resume, which defaults the cadence to 25)
     count_line: tuple[float, float, float, float] | None = None
@@ -137,32 +128,6 @@ class StreamStats:
     stage_times: dict | None = None  # StageTimers.summary()
     dropped_births: int = 0  # births lost to track-slot overflow
     truncated_dets: int = 0  # valid dets that never reached association
-
-
-def check_quant(quant: str | None) -> None:
-    if quant is not None:
-        raise ValueError(
-            f"quant={quant!r}: the port has no int8 detector yet "
-            "(ROADMAP A15, ops/quant.py and calibrate_int8); run without it")
-
-
-def resolve_tracker(tracker: str | TrackerConfig) -> TrackerConfig:
-    """The tracker config the app runs: a name or YAML path loaded, a
-    config object as it is, except that a host GMC method (``HOST_GMC``)
-    of a tracker that compensates camera motion (BoT-SORT, StrongSORT)
-    becomes ``"flow_tpu"``, announced by one ``[INFO]`` line."""
-    cfg = (tracker if isinstance(tracker, (ByteTrackConfig, StrongSortConfig))
-           else load_tracker_config(tracker))
-    uses_gmc = (isinstance(cfg, StrongSortConfig)
-                or cfg.tracker_type == "botsort")
-    if uses_gmc and cfg.gmc_method in HOST_GMC:
-        label = tracker if isinstance(tracker, str) else type(tracker).__name__
-        print(f"[INFO] tracker {label}: "
-              f"gmc_method {cfg.gmc_method!r} is a host OpenCV estimator; "
-              "the port runs it as 'flow_tpu' (camera motion estimated "
-              "on the card)")
-        cfg = dataclasses.replace(cfg, gmc_method="flow_tpu")
-    return cfg
 
 
 def _has_cv2() -> bool:
@@ -419,6 +384,7 @@ def process_video(
     ckpt_every = _ckpt_every(cfg) if cfg.track else 0
     frame_id = 0
     pending = None  # (frame, frame_id, handle)
+    calibrated = cfg.quant != "int8"
 
     def flush(p):
         pframe, pid, phandle = p
@@ -443,6 +409,11 @@ def process_video(
             if cfg.max_frames and frame_id > cfg.max_frames:
                 frame_id -= 1
                 break
+            if not calibrated:
+                # static int8 activation scales from the first real frame
+                n_cal = pipeline.calibrate_int8([frame])
+                print(f"[INFO] int8: calibrated {n_cal} convs")
+                calibrated = True
             try:
                 if cfg.track:
                     with ctx.timers.stage("dispatch"):
@@ -578,6 +549,12 @@ def _run_group_batched(
                     f = last[s]
                 frames.append(f)
         if mask.any():
+            if tick == 0 and cfg.quant == "int8":
+                # static activation scales from the first real frames
+                n_cal = pipeline.calibrate_int8(
+                    [frames[s] for s in range(S) if mask[s]][:2])
+                bp.refresh_steps()
+                print(f"[INFO] int8: calibrated {n_cal} convs")
             # dispatch tick t, then materialize + draw tick t - 1 while
             # the card computes
             with timers.stage("stack"):
@@ -614,9 +591,7 @@ def _run_group_batched(
 
 def make_pipeline(cfg: AppConfig) -> Pipeline:
     """The Pipeline that :func:`run` builds for ``cfg`` and shares among
-    its streams: ``cfg``'s detector, and its tracker as
-    :func:`resolve_tracker` gives it."""
-    check_quant(cfg.quant)
+    its streams: ``cfg``'s detector and tracker."""
     det_cfg = DetectorConfig(
         weights=cfg.weights,
         imgsz=cfg.imgsz,
@@ -625,9 +600,10 @@ def make_pipeline(cfg: AppConfig) -> Pipeline:
         max_det=cfg.max_det,
         classes=cfg.classes,
         half=cfg.half,
+        quant=cfg.quant,
     )
     return Pipeline(
-        det_cfg, tracker=resolve_tracker(cfg.tracker), seed=cfg.seed,
+        det_cfg, tracker=cfg.tracker, seed=cfg.seed,
         reid_weights=cfg.reid_weights,
         tracker_max_dets=cfg.tracker_max_dets,
         reid_topk=cfg.reid_topk,
@@ -650,7 +626,6 @@ def run(cfg: AppConfig, sources=None,
     :func:`make_pipeline` of a config with the same detector and
     tracker, replaces the one ``run`` would build, so that runs share its
     weights and its warm caches."""
-    check_quant(cfg.quant)
     check_media(cfg)
     base = pipeline if pipeline is not None else make_pipeline(cfg)
     sources = sources if sources is not None else list(cfg.sources)

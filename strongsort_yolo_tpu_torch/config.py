@@ -30,6 +30,10 @@ class DetectorConfig:
     classes: tuple[int, ...] | None = None  # optional class filter
     half: bool = True  # bfloat16 compute
     fuse: bool = True  # fold BN into convs
+    quant: str | None = None  # "int8": post-training quantization of the
+    # fused conv stack (ops/quant.py: per-channel int8 weights, per-tensor
+    # int8 activations, int32 sums on the tensor cores, K8); the head
+    # output layers stay in the compute dtype
 
 
 _BUILTIN_TRACKERS = {

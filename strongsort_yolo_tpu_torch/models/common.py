@@ -1,10 +1,10 @@
 """Shared YOLOv5 / v7 / v8 / YOLO11 blocks as PyTorch modules, NCHW.
 
 Counterpart of ``strongsort_yolo_tpu/models/common.py`` (Conv+BN+SiLU
-with groups and an explicit padding, Bottleneck, C2f, C3 with 1x1 or 3x3
-first bottleneck convs, C3k2, SPPF, the v11 position-sensitive attention
-Attention / PSABlock / C2PSA, nearest 2x upsample; not the int8 path)
-and of ``models/yolov7.py``'s max-pools. Parameter names follow the JAX parameter tree leaf for leaf
+with groups and an explicit padding, and its int8 mode, Bottleneck, C2f,
+C3 with 1x1 or 3x3 first bottleneck convs, C3k2, SPPF, the v11
+position-sensitive attention Attention / PSABlock / C2PSA, nearest 2x
+upsample) and of ``models/yolov7.py``'s max-pools. Parameter names follow the JAX parameter tree leaf for leaf
 (``w``, ``b``, ``bn_scale``, ``bn_bias``, ``bn_mean``, ``bn_var``; lists
 become ``ModuleList``s), so a state_dict key is the JAX path joined with
 dots. Weights are OIHW where the JAX package keeps HWIO.
@@ -13,19 +13,30 @@ A fused :class:`Conv` on which :meth:`Conv.use_conv_kernel` ran computes
 the convs that the K7 rule (``ops/cuda/conv_kernel.eligible``) picks with
 K7 (``conv_act_nchw``): the counterpart of the JAX package's
 ``tools/prof/conv_kernel.conv_act`` entry point and its rule.
+
+A fused :class:`Conv` on which :meth:`Conv.quantize_int8` ran
+(:func:`quantize_model`) holds ``wq`` (int8, OIHW), ``wscale`` and ``b``
+(float32) and, once calibrated (:func:`calibrating`,
+:func:`inject_scales`), ``xscale`` (a float32 scalar) in place of its
+float weight, as the JAX package's int8 parameter dicts do, and computes
+with K8 (``ops/quant.conv_int8``). Those float32 buffers keep their dtype
+when the model is cast.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from strongsort_yolo_tpu_torch.ops import quant
 from strongsort_yolo_tpu_torch.ops.cuda.conv_kernel import (
     conv_act_nchw, default_form, eligible, pack_mma,
 )
+from strongsort_yolo_tpu_torch.ops.cuda.quant_kernel import pack_s8
 
 BN_EPS = 1e-3
 
@@ -53,8 +64,11 @@ class Conv(nn.Module):
     (:func:`fuse_conv_bn`); with ``act=False`` that is also the plain
     conv-with-bias of the head output layers. ``groups`` as in
     ``F.conv2d`` (the v11 depthwise convs: groups = channels). ``pad``
-    overrides the 'same' padding (v5's 6x6/2 stem takes 2).
+    overrides the 'same' padding (v5's 6x6/2 stem takes 2). ``int8``:
+    the int8 mode of :meth:`quantize_int8`, which takes precedence.
     """
+
+    _F32 = ("wscale", "xscale", "b")  # int8 mode: kept float32 by casts
 
     def __init__(
         self, c_in: int, c_out: int, k: int = 1, stride: int = 1, *,
@@ -75,6 +89,44 @@ class Conv(nn.Module):
             self.register_buffer("bn_var", torch.ones(c_out))
         self._k7_src = None  # float32 (w, b) for K7, once use_conv_kernel ran
         self._k7 = None  # (w, b, mma blob or None) on the activations' device
+        self.int8 = False
+        self._k8 = None  # K8's packed weights (pack_s8) on the card
+        self.calib = None  # while calibrating: the dict of input amaxes
+
+    def quantize_int8(self) -> None:
+        """Int8 mode: the float weight becomes ``wq`` and ``wscale``
+        (``ops/quant.quantize_conv``, from the float32 weight: call it
+        before the model is cast), ``b`` a float32 buffer, and ``xscale``
+        an empty buffer until calibration fills it."""
+        if not self.fused:
+            raise ValueError("int8 mode takes fused convs (BN folded)")
+        if self._k7_src is not None:
+            raise ValueError("int8 mode and the K7 route exclude each other")
+        wq, wscale = quant.quantize_conv(self.w.float())
+        b = self.b.detach().float().clone()
+        del self.w, self.b
+        self.register_buffer("wq", wq)
+        self.register_buffer("wscale", wscale)
+        self.register_buffer("b", b)
+        self.register_buffer("xscale", None)
+        self.int8 = True
+        self._k8 = None
+
+    def drop_caches(self) -> None:
+        """Forget what was derived from the weights (K7's and K8's
+        packed copies); the next forward makes them anew."""
+        self._k7 = self._k8 = None
+
+    def _apply(self, fn, recurse=True):
+        if not self.int8:
+            return super()._apply(fn, recurse)
+        keep = {n: t for n in self._F32
+                if (t := self._buffers.get(n)) is not None}
+        out = super()._apply(fn, recurse)
+        for n, t in keep.items():  # the device of the cast, not its dtype
+            self._buffers[n] = t.to(self._buffers[n].device)
+        self._k8 = None
+        return out
 
     def use_conv_kernel(self) -> None:
         """Compute this conv with K7 wherever its input is ``eligible``.
@@ -97,6 +149,17 @@ class Conv(nn.Module):
             (n, h, w, c), self.w.shape[-1], self.stride, self.groups, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.int8:
+            if self.calib is not None:
+                a, prev = quant.amax(x), self.calib.get(self)
+                self.calib[self] = a if prev is None else torch.maximum(prev, a)
+            if x.device.type == "cuda" and (
+                    self._k8 is None or self._k8.device != x.device):
+                self._k8 = pack_s8(self.wq.to(x.device), self.groups)
+            return quant.conv_int8(
+                x, self.wq, self.wscale, self.b, self.xscale,
+                stride=self.stride, pad=self.pad, groups=self.groups,
+                act=self.act, packed=self._k8)
         if self._takes_kernel(x):
             if self._k7 is None or self._k7[0].device != x.device or (
                     self._k7[0].dtype != x.dtype):
@@ -144,6 +207,68 @@ def fuse_conv_bn(conv: Conv) -> Conv:
         out.w.copy_(conv.w * scale[:, None, None, None])
         out.b.copy_(conv.bn_bias - conv.bn_mean * scale)
     return out.to(conv.w.device)
+
+
+# the JAX quantize_model's skip markers: the detect / segment / pose heads,
+# and the narrow stages the TPU package packs
+SKIP_PATHS = ("detect", "head", "proto", "seg", "kpt",
+              "/stem", "/down1", "/stage1", "/down2", "/stage2")
+
+
+def jax_path(name: str) -> str:
+    """A module's name -> its path in the JAX parameter tree ("/" + the
+    state_dict prefix with "/" for ".")."""
+    return "/" + name.replace(".", "/")
+
+
+def quantizable(model: nn.Module) -> list[tuple[str, Conv]]:
+    """(name, Conv) of every fused float conv of ``model`` whose JAX path
+    holds none of :data:`SKIP_PATHS`: the convs the JAX ``quantize_model``
+    quantizes in the same model's tree."""
+    return [(name, m) for name, m in model.named_modules()
+            if isinstance(m, Conv) and m.fused and not m.int8
+            and not any(s in jax_path(name) for s in SKIP_PATHS)]
+
+
+def quantize_model(model: nn.Module) -> int:
+    """Put every conv :func:`quantizable` picks into int8 mode (in place,
+    on the fused float32 model) -> how many."""
+    picks = quantizable(model)
+    for _, conv in picks:
+        conv.quantize_int8()
+    return len(picks)
+
+
+def int8_convs(model: nn.Module) -> list[Conv]:
+    return [m for m in model.modules() if isinstance(m, Conv) and m.int8]
+
+
+@contextlib.contextmanager
+def calibrating(model: nn.Module):
+    """Record the input amax of every int8 conv of ``model`` that runs
+    inside the block, whatever its scale -> the dict it fills (Conv ->
+    0-d float32 device tensor), for :func:`inject_scales`."""
+    stats, convs = {}, int8_convs(model)
+    for conv in convs:
+        conv.calib = stats
+    try:
+        yield stats
+    finally:
+        for conv in convs:
+            conv.calib = None
+
+
+def inject_scales(stats: dict) -> int:
+    """Give each conv of ``stats`` its static scale (``ops/quant.
+    static_scale`` of its amax) -> how many. One read of all the
+    maxima."""
+    convs = list(stats)
+    if not convs:
+        return 0
+    amaxes = torch.stack([stats[c] for c in convs]).cpu().tolist()
+    for conv, a in zip(convs, amaxes):
+        conv.xscale = torch.tensor(quant.static_scale(a), device=conv.wq.device)
+    return len(convs)
 
 
 class Bottleneck(nn.Module):

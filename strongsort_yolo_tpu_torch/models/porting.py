@@ -104,16 +104,17 @@ def _flatten(node, prefix: str, out: dict[str, np.ndarray]) -> None:
 def _state_dict_from_tree(tree, want: set[str], what) -> dict[str, torch.Tensor]:
     """Flatten a JAX parameter tree into a state_dict: keys are the tree
     paths joined with dots, HWIO conv weights become OIHW (a depthwise
-    (3, 3, 1, C) becomes (C, 1, 3, 3)). Raises unless the keys are
-    exactly ``want``."""
+    (3, 3, 1, C) becomes (C, 1, 3, 3)), int8 ``wq`` weights too and stay
+    int8. Raises unless the keys are exactly ``want``."""
     flat: dict[str, np.ndarray] = {}
     _flatten(tree, "", flat)
     sd = {}
     for key, arr in flat.items():
-        arr = np.array(arr, np.float32)  # a writable copy
-        if key.endswith(".w") and arr.ndim == 4:
+        int8 = key.endswith(".wq")
+        arr = np.array(arr, np.int8 if int8 else np.float32)  # a writable copy
+        if (key.endswith(".w") or int8) and arr.ndim == 4:
             arr = arr.transpose(3, 2, 0, 1)
-        sd[key] = torch.from_numpy(np.ascontiguousarray(arr))
+        sd[key] = torch.from_numpy(arr.copy())  # C order, 0-d kept
     if set(sd) != want:
         missing, extra = sorted(want - set(sd)), sorted(set(sd) - want)
         raise ValueError(
@@ -127,12 +128,23 @@ def _model_for_keys(keys, cfg: ModelConfig) -> nn.Module:
     """The empty model of ``cfg``'s family (YoloConfig: v8/v11,
     Yolov5Config, Yolov7Config) whose state_dict has ``keys``: BN folded
     where no key holds BN statistics, v7's RepConvs deployed where they
-    hold one ``fused`` conv."""
+    hold one ``fused`` conv, a conv in int8 mode where its keys hold
+    ``wq`` (with an ``xscale`` where they hold one)."""
+    from strongsort_yolo_tpu_torch.models.common import Conv
+
     fused = not any(k.endswith("bn_scale") for k in keys)
     cls = detector_family(cfg)[0]
     if cls is Yolov7Model:
-        return cls(cfg, fused=fused, rep_deploy="rep3.fused.w" in keys)
-    return cls(cfg, fused=fused)
+        model = cls(cfg, fused=fused,
+                    rep_deploy=any(k.startswith("rep3.fused.w") for k in keys))
+    else:
+        model = cls(cfg, fused=fused)
+    for name, m in model.named_modules():
+        if isinstance(m, Conv) and f"{name}.wq" in keys:
+            m.quantize_int8()
+            if f"{name}.xscale" in keys:
+                m.xscale = torch.zeros(())
+    return model
 
 
 def params_from_jax(tree, cfg: ModelConfig) -> dict[str, torch.Tensor]:
@@ -172,14 +184,17 @@ def load_osnet_npz(path: str):
 
 
 def _flat_jax_arrays(sd: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
-    """A state_dict -> {JAX tree path joined by '/': float32 numpy array},
-    conv weights HWIO: the inverse of :func:`_state_dict_from_tree`."""
+    """A state_dict -> {JAX tree path joined by '/': float32 numpy array,
+    int8 for ``wq``}, conv weights HWIO: the inverse of
+    :func:`_state_dict_from_tree`."""
     flat = {}
     for key, value in sd.items():
-        arr = value.detach().float().cpu().numpy()
-        if key.endswith(".w") and arr.ndim == 4:
+        int8 = key.endswith(".wq")
+        arr = value.detach().cpu()
+        arr = (arr if int8 else arr.float()).numpy()
+        if (key.endswith(".w") or int8) and arr.ndim == 4:
             arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
-        flat[key.replace(".", "/")] = np.ascontiguousarray(arr)
+        flat[key.replace(".", "/")] = arr.copy()  # C order, 0-d kept
     return flat
 
 

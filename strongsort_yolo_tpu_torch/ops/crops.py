@@ -19,6 +19,7 @@ the JAX functions keep (..., H, W, C).
 from __future__ import annotations
 
 import functools
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -33,11 +34,22 @@ DOWNSCALE = 2  # level 0 is the frame at half size (the JAX default)
 
 def fma32(a: torch.Tensor, b, c) -> torch.Tensor:
     """float32 ``a * b + c`` rounded once, as XLA's CPU backend contracts a
-    multiply-add (the JAX reference computes the crop positions so). The
-    product of two float32 values is exact in float64."""
+    multiply-add (the JAX reference computes the crop positions so) and
+    as CUDA's ``fmaf`` computes it. The product of two float32 values is
+    exact in float64; the sum is rounded to float64, and where that
+    rounding lands exactly halfway between two float32 values, rounding
+    again would not give the fused result: there the float64 sum is moved
+    one step towards the exact one (its TwoSum residual) first."""
     def f64(v):
         return v.double() if isinstance(v, torch.Tensor) else float(v)
-    return (f64(a) * f64(b) + f64(c)).float()
+    p, c64 = f64(a) * f64(b), f64(c)
+    s = p + c64
+    t = s - p
+    err = (p - (s - t)) + (c64 - t)  # exact: a * b + c == s + err
+    halfway = (s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000
+    toward = torch.where(err > 0, math.inf, -math.inf).double()
+    return torch.where(halfway & (err != 0), torch.nextafter(s, toward),
+                       s).float()
 
 
 def pyramid_dims(h: int, w: int) -> list[tuple[int, int]]:

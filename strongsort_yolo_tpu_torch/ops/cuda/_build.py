@@ -14,7 +14,7 @@ round every product and sum on its own to stay bit-identical to their
 plain PyTorch versions (the tensor-core forms, K7's ``mma`` and K6's
 bfloat16 form, sum in the tensor cores' order and are held to bars of
 their own; K7's SiLU calls the fast exp and division intrinsics by
-name).
+name; K8 calls ``fmaf`` by name where XLA fuses a multiply-add).
 """
 
 from __future__ import annotations
@@ -68,6 +68,7 @@ _SIGNATURES = {
                       _I, _I, _I, _I, _P),
     "ssyt_conv_mma": (_P, _P, _P, _P, _I, _I, _I, _I, _I, *(_L,) * 8,
                       _I, _I, _I, _I, _I, _P),
+    "ssyt_conv_s8": (*(_P,) * 6, *(_I,) * 7, *(_L,) * 8, *(_I,) * 9, _P),
 }
 
 # byte counts; the other entry points return a CUDA error code

@@ -22,10 +22,12 @@ launches per embed; the CPU runs its plain version). With ``reid_cadence`` k > 1
 Camera-motion compensation on the device is ``gmc_method="flow_tpu"``
 (``track/gmc_flow.py``): each tick takes the gray of every uploaded frame
 and estimates all S warps against the stream's previous gray with one K5
-launch, identity for a stream without a previous frame. Any other method
-but ``"none"`` (BoT-SORT's default ``"sparseOptFlow"``, StrongSORT's
-``"ecc"``, host OpenCV estimators in the JAX package) needs its (2, 3)
-warps from the caller, and a step without them raises ``ValueError``.
+launch, identity for a stream without a previous frame. BoT-SORT's
+default ``"sparseOptFlow"`` and StrongSORT's ``"ecc"`` are the JAX
+package's host OpenCV estimators (``track/gmc.py``, one per stream): a
+step that is given no warps estimates them on the host from its frames
+before it dispatches, as the JAX package does; warps passed by the
+caller are taken as they are.
 :meth:`Pipeline.track_chunk` runs T frames of one stream with the
 semantics of T ``track`` calls: one detect batch, one embed batch, one
 K5 launch over the T frame pairs, then the tracker frame by frame.
@@ -63,6 +65,7 @@ from strongsort_yolo_tpu_torch.config import (
     TrackerConfig,
     load_tracker_config,
 )
+from strongsort_yolo_tpu_torch.models import common
 from strongsort_yolo_tpu_torch.models.osnet import (
     VARIANTS,
     OsnetConfig,
@@ -108,6 +111,7 @@ from strongsort_yolo_tpu_torch.ops.nms import (
     non_max_suppression,
 )
 from strongsort_yolo_tpu_torch.track.bytetrack import ByteTrackConfig, bytetrack_step
+from strongsort_yolo_tpu_torch.track.gmc import HOST_METHODS, make_gmc
 from strongsort_yolo_tpu_torch.track.gmc_flow import (
     BASE_H,
     BASE_W,
@@ -310,6 +314,11 @@ class Pipeline:
     and v7). Off by default, as in the JAX package,
     whose product path leaves every conv to XLA; in bfloat16 its rounding
     differs from the default convs', so detections move slightly.
+    ``det_cfg.quant="int8"``: the fused model's convs outside the heads
+    and the first stages (the JAX package's set) in int8 mode, computed by
+    K8 with a dynamic activation scale until :meth:`calibrate_int8` sets
+    static ones; it needs ``fuse``, excludes ``conv_kernel`` and refuses
+    a segment model, as the JAX package fails on one.
     ``tracker``: a built-in name or YAML path, or a config object;
     StrongSORT and BoT-SORT with ``with_reid`` embed detections with
     OSNet, whose weights come from ``reid_params`` (an OSNet checkpoint
@@ -331,7 +340,9 @@ class Pipeline:
     A BoT-SORT or StrongSORT tracker with ``gmc_method="flow_tpu"``
     estimates camera motion on the device from the stream's previous
     gray frame, which ``gmc`` (a :class:`FlowGMC`, else None) keeps; it
-    takes no warps from the caller.
+    takes no warps from the caller. With ``"sparseOptFlow"`` or ``"ecc"``
+    the host estimator ``host_gmc`` (``track/gmc.SparseOptFlowGMC``, else
+    None) gives each frame's warp where the caller passes none.
     """
 
     def __init__(
@@ -382,6 +393,10 @@ class Pipeline:
             model = model_from_state_dict(params, self.model_cfg)
         if det_cfg.fuse:
             model = fuse_model(model)
+        if det_cfg.quant == "int8":
+            self._quantize(model, conv_kernel)
+        elif det_cfg.quant is not None:
+            raise ValueError(f"unknown quant mode {det_cfg.quant!r}")
         if conv_kernel:
             # K7 keeps its biases in float32: taken before the cast
             model.use_conv_kernel()
@@ -400,6 +415,8 @@ class Pipeline:
         )
         self.gmc = (FlowGMC(self.device) if self.gmc_method == "flow_tpu"
                     else None)
+        self.host_gmc = (make_gmc(self.gmc_method)
+                         if self.gmc_method in HOST_METHODS else None)
         self.reid = None
         self.feat_dim = 0
         if self.is_strongsort or self.tracker_cfg.with_reid:
@@ -431,6 +448,25 @@ class Pipeline:
         self.count_waits = 0
         self.count_wait_ms = 0.0
         self.track_state = self.init_states(1)
+
+    def _quantize(self, model, conv_kernel: bool) -> None:
+        """``quant="int8"``: the JAX package's checks, then
+        ``models/common.quantize_model`` on the fused float32 model."""
+        if not self.det_cfg.fuse:
+            raise ValueError("quant='int8' requires fuse=True")
+        if conv_kernel:
+            raise ValueError(
+                "quant='int8' and conv_kernel=True exclude each other: the "
+                "JAX package has no int8 route through its conv kernel")
+        if getattr(self.model_cfg, "task", "detect") == "segment":
+            raise ValueError(
+                "quant='int8' does not take a segment model: the JAX "
+                "package's quantize_model quantizes its mask coefficient "
+                "branches ('/mask/*', which no skip marker names), out "
+                "layers included, and conv2d_bias_apply then fails on "
+                "them with KeyError('w') at the first step")
+        if common.quantize_model(model) == 0:
+            raise ValueError("quant='int8' found no fused convs to quantize")
 
     def init_states(self, num_streams: int) -> TrackState:
         """Fresh tracker state of ``num_streams`` streams."""
@@ -601,11 +637,8 @@ class Pipeline:
         valid rows below that cut recorded. ``has_app`` (S,) bool, for
         StrongSORT: False where a stream's features were not computed."""
         if self.gmc_method != "none" and warps is None:
-            raise ValueError(
-                f"gmc_method={self.gmc_method!r} needs (S, 2, 3) warps from "
-                "the caller; on the device this port estimates camera "
-                "motion only with gmc_method='flow_tpu'"
-            )
+            raise ValueError(f"gmc_method={self.gmc_method!r} needs (S, 2, 3) "
+                             "warps")
         t = self.tracker_max_dets
         warp = warps if self.gmc_method != "none" else None
         rows = (det.boxes[:, :t], det.scores[:, :t], det.classes[:, :t],
@@ -705,11 +738,26 @@ class Pipeline:
 
     # -- host-facing API ------------------------------------------------
 
+    @torch.no_grad()
+    def calibrate_int8(self, frames) -> int:
+        """Static activation scales for the int8 convs: the detect step
+        over each of the given (H, W, 3) uint8 BGR frames, on this
+        pipeline's device, records each int8 conv's input amax (with the
+        scales the convs hold: dynamic until calibrated), then every such
+        conv takes ``xscale = float32(max(amax, 1e-6) / 127)``, as the JAX
+        ``calibrate_int8`` gives it. -> the number of calibrated convs."""
+        with common.calibrating(self.model) as stats:
+            for frame in frames:
+                with self._copies.frames(np.asarray(frame)[None]) as dev:
+                    self.detect(dev)
+        return common.inject_scales(stats)
+
     def reset(self) -> None:
-        """New stream: clear the tracker state and the kept gray frame."""
+        """New stream: clear the tracker state and the GMC's kept frame."""
         self.track_state = self.init_states(1)
-        if self.gmc is not None:
-            self.gmc.reset()
+        for gmc in (self.gmc, self.host_gmc):
+            if gmc is not None:
+                gmc.reset()
 
     def predict(self, frame_bgr: np.ndarray) -> Results:
         """Detect without tracking; pose and segment extras for every row."""
@@ -727,10 +775,12 @@ class Pipeline:
     def track_async(self, frame_bgr: np.ndarray, warp=None) -> TickHandle:
         """Dispatch one detect + track step of this pipeline's stream and
         return its handle without waiting for the device; ``warp`` (2, 3)
-        for a tracker whose camera motion comes from the caller (refused
-        with ``flow_tpu``). :meth:`materialize` turns the handle into
+        in place of the host estimator's (``sparseOptFlow``, ``ecc``;
+        refused with ``flow_tpu``). :meth:`materialize` turns the handle into
         Results. Handles may be materialized in any order, and more than
         once."""
+        if warp is None and self.host_gmc is not None:
+            warp = self.host_gmc.apply(frame_bgr)
         w = None if warp is None else self._warps(np.asarray(warp)[None], 1)
         with self._copies.frames(frame_bgr[None]) as frames:
             if self.gmc is not None:
@@ -749,7 +799,7 @@ class Pipeline:
 
     def track(self, frame_bgr: np.ndarray, warp=None) -> Results:
         """Detect + track one frame of this pipeline's stream; ``warp``
-        (2, 3) for a tracker whose camera motion comes from the caller."""
+        (2, 3) in place of the host estimator's."""
         return self.materialize(self.track_async(frame_bgr, warp))
 
     def __call__(self, frame_bgr: np.ndarray, track: bool = True) -> Results:
@@ -760,9 +810,12 @@ class Pipeline:
         T Results, the same as T :meth:`track` calls: the T frames are
         detected (and, for a ReID tracker, embedded) as one batch, the
         ``flow_tpu`` warps of all T frame pairs come from one K5 launch
-        (otherwise ``warps`` (T, 2, 3) from the caller), and the tracker
-        steps frame by frame."""
+        (otherwise ``warps`` (T, 2, 3) from the caller, else the host
+        estimator's, frame by frame), and the tracker steps frame by
+        frame."""
         t = len(frames_bgr)
+        if warps is None and self.host_gmc is not None:
+            warps = np.stack([self.host_gmc.apply(f) for f in frames_bgr])
         w = self._warps(warps, t)
         with self._copies.frames(frames_bgr) as frames:
             if self.gmc is not None:
@@ -847,6 +900,9 @@ class BatchedPipeline:
         self.ring = pipeline._copies.ring((num_streams, *self.src_hw, 3))
         self.states = pipeline.init_states(num_streams)
         self.flow = pipeline.gmc is not None
+        # the host estimators, one per stream (sparseOptFlow, ecc)
+        self.gmcs = (None if pipeline.host_gmc is None else
+                     [make_gmc(pipeline.gmc_method) for _ in range(num_streams)])
         self.prev_grays = None
         if self.flow:
             self.prev_grays = torch.zeros(
@@ -876,19 +932,34 @@ class BatchedPipeline:
         for batched, f in zip(self.states, fresh):
             batched[i] = f[0]
         self.has_prev[i] = False
+        if self.gmcs is not None:
+            self.gmcs[i].reset()
+
+    def compute_warps(self, frames: np.ndarray) -> np.ndarray:
+        """(S, 2, 3) float32 warps of the S streams' host estimators
+        (``sparseOptFlow``, ``ecc``) on their next frames; what
+        :meth:`step_async` computes when it is given no warps."""
+        if self.gmcs is None:
+            raise ValueError(
+                f"compute_warps: gmc_method={self.pipeline.gmc_method!r} "
+                "has no host estimator")
+        return np.stack([g.apply(f) for g, f in zip(self.gmcs, frames)]
+                        ).astype(np.float32)
 
     def step_async(self, frames: np.ndarray,
                    warps: np.ndarray | None = None) -> TickHandle:
         """Dispatch one tick of the S streams -> its handle, without
         waiting for the device. frames (S, H, W, 3) uint8 BGR, copied
-        before this returns; warps (S, 2, 3) when the tracker takes
-        camera motion from the caller."""
+        before this returns; warps (S, 2, 3) in place of the host
+        estimators' (:meth:`compute_warps`; refused with ``flow_tpu``)."""
         p = self.pipeline
         if tuple(frames.shape[:3]) != (self.num_streams, *self.src_hw):
             raise ValueError(
                 f"frames must be ({self.num_streams}, {self.src_hw[0]}, "
                 f"{self.src_hw[1]}, 3), got {tuple(frames.shape)}"
             )
+        if warps is None and self.gmcs is not None:
+            warps = self.compute_warps(frames)
         w = p._warps(warps, self.num_streams)
         mask = has_app = None
         if self.cadence > 1:
@@ -917,9 +988,19 @@ class BatchedPipeline:
         return self.pipeline._materialize(handle)
 
     def step(self, frames: np.ndarray, warps: np.ndarray | None = None):
-        """frames (S, H, W, 3) uint8 BGR; warps (S, 2, 3) when the
-        tracker takes camera motion from the caller -> list of S Results."""
+        """frames (S, H, W, 3) uint8 BGR; warps (S, 2, 3) in place of the
+        host estimators' -> list of S Results."""
         return self.materialize(self.step_async(frames, warps))
+
+    def refresh_steps(self) -> None:
+        """After the pipeline's weights changed out of band (for instance
+        by ``Pipeline.calibrate_int8``): wait for the ticks dispatched so
+        far, then drop what the convs derived from the weights (K7's and
+        K8's packed copies)."""
+        self.sync()
+        for m in self.pipeline.model.modules():
+            if isinstance(m, common.Conv):
+                m.drop_caches()
 
     def sync(self) -> None:
         """Wait for every tick dispatched so far (and every

@@ -7,10 +7,9 @@ output, plus ``--device`` (default ``cuda``; ``cpu`` runs the kernels'
 plain versions). Two protocols:
 - ``--public``: feed the sequence's det/det.txt through the tracker step
   (detector-independent comparison, the standard MOTChallenge custom);
-- default: run the full detect+track ``Pipeline`` on the frames. A host
-  camera-motion method of the tracker (BoT-SORT's default
-  ``sparseOptFlow``) runs as ``flow_tpu``, as the port's app runs it
-  (``app.resolve_tracker``).
+- default: run the full detect+track ``Pipeline`` on the frames, the
+  tracker's camera-motion method as it is (BoT-SORT's default
+  ``sparseOptFlow`` on the host, as the JAX tool runs it).
 
 Usage:
     python -m strongsort_yolo_tpu_torch.tools.eval_mot SEQ_DIR [SEQ_DIR...]
@@ -95,13 +94,12 @@ def main(argv=None) -> int:
                 seq, step, state0, conf_thresh=args.conf
             )
         else:
-            from strongsort_yolo_tpu_torch.app import resolve_tracker
             from strongsort_yolo_tpu_torch.config import DetectorConfig
             from strongsort_yolo_tpu_torch.pipeline import Pipeline
 
             pipe = Pipeline(
                 DetectorConfig(weights=args.weights, conf=args.conf),
-                tracker=resolve_tracker(args.tracker), device=device,
+                tracker=args.tracker, device=device,
             )
             hyp = []
             for frame in seq.frames():

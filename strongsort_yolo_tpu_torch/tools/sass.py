@@ -14,6 +14,7 @@ cuobjdump (beside nvcc).
 
 from __future__ import annotations
 
+import functools
 import os
 import re
 import subprocess
@@ -25,16 +26,22 @@ _LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 _CALL = re.compile(r"CALL\.\S+\s+0x([0-9a-f]+)")
 
 
-def functions(library: str, kernel: str) -> dict[str, list[tuple[int, str]]]:
-    """Per instance of ``kernel`` in ``library``, its (offset, instruction)
-    lines, subroutines included."""
+@functools.lru_cache(maxsize=4)
+def _sass(library: str) -> str:
+    """`cuobjdump -sass` of ``library``, read once per process (a built
+    library's name carries the hash of its sources)."""
     from strongsort_yolo_tpu_torch.ops.cuda import _build
 
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", library], capture_output=True,
+    return subprocess.run([tool, "-sass", library], capture_output=True,
                           text=True, timeout=300, check=True).stdout
+
+
+def functions(library: str, kernel: str) -> dict[str, list[tuple[int, str]]]:
+    """Per instance of ``kernel`` in ``library``, its (offset, instruction)
+    lines, subroutines included."""
     funcs, fn = {}, None
-    for line in sass.splitlines():
+    for line in _sass(library).splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
             if kernel in fn:

@@ -10,8 +10,8 @@ float32 difference of 1e-5 can move one field by a pixel); equal
 Also the port against itself: batched label files byte-identical to a
 sequential run, kill and resume equal to the uninterrupted run (within
 a loop and across the two loops), the count hint, stream-failure
-isolation, the host GMC of ``botsort.yaml`` run as ``flow_tpu``, int8
-refused, no silent CPU, the CLI writing the files ``run`` writes, and
+isolation, ``botsort.yaml``'s host GMC equal to the JAX app's, the int8
+app's calibration in both loops, no silent CPU, the CLI writing the files ``run`` writes, and
 runs that share one pipeline (``make_pipeline``).
 
 One JAX app run per configuration, shared through module-scoped
@@ -350,41 +350,65 @@ def test_predict_mode_draws_and_writes_no_labels(tmp_path):
     assert os.path.getsize(stats[0].output_video) > 0
 
 
-def test_botsort_yaml_runs_as_flow_tpu(tmp_path, capsys):
-    """The app's default tracker, botsort.yaml (host sparseOptFlow), runs
-    as flow_tpu: one [INFO] line, and the labels of the flow_tpu config
-    object byte for byte; bytetrack.yaml and explicit none / flow_tpu
-    configs pass through unchanged."""
-    frames = panned_clip(5, seed=3)
-    kw = dict(BASE, count=True)
-    kw.pop("tracker")
-    got = run(AppConfig(device="cpu", output_dir=str(tmp_path / "yaml"),
-                        tracker="botsort.yaml", **kw),
-              sources=[ArraySource(frames)])
-    out = capsys.readouterr().out
-    assert out.count("[INFO]") == 1 and "'flow_tpu'" in out
+def test_botsort_yaml_runs_as_flow_tpu(tmp_path_factory, capsys):
+    """Before the host estimators were ported, the app ran botsort.yaml's
+    sparseOptFlow as flow_tpu. Now botsort.yaml runs sparseOptFlow on the
+    host, as the JAX app does: on a panned clip the label files equal the
+    JAX app's byte for byte, with no [INFO] line; a flow_tpu config object
+    still runs flow_tpu (other labels on the same clip)."""
+    frames = panned_clip(6, seed=3, pan=(12, -6))
+    kw = dict(BASE, count=True, tracker="botsort.yaml")
+    jst, tst = _both(tmp_path_factory, "botsort_host", [ArraySource(frames)],
+                     [ArraySource(frames)], **kw)
+    assert "[INFO]" not in capsys.readouterr().out
+    assert _text(tst[0].labels_file) == _text(jst[0].labels_file)
+    assert len(_parse(tst[0].labels_file)) > 0
     flow = ByteTrackConfig(tracker_type="botsort", gmc_method="flow_tpu")
-    want = run(AppConfig(device="cpu", output_dir=str(tmp_path / "obj"),
-                         tracker=flow, **kw), sources=[ArraySource(frames)])
-    assert "[INFO]" not in capsys.readouterr().out
-    assert _text(got[0].labels_file) == _text(want[0].labels_file)
-    assert len(_parse(got[0].labels_file)) > 0
-    none = ByteTrackConfig(tracker_type="botsort", gmc_method="none")
-    assert tapp.resolve_tracker(none) is none
-    assert tapp.resolve_tracker(flow) is flow
-    assert tapp.resolve_tracker("bytetrack.yaml").gmc_method == "none"
-    assert "[INFO]" not in capsys.readouterr().out
-    assert tapp.resolve_tracker("strongsort.yaml").gmc_method == "flow_tpu"
-    assert "'ecc'" in capsys.readouterr().out
+    out = tmp_path_factory.mktemp("botsort_flow")
+    fst = run(AppConfig(device="cpu", output_dir=str(out),
+                        **dict(kw, tracker=flow)), sources=[ArraySource(frames)])
+    assert _text(fst[0].labels_file) != _text(tst[0].labels_file)
 
 
 def test_int8_is_refused_before_any_stream(tmp_path, monkeypatch):
+    """int8 where the pipeline cannot take it (a segment model, an unknown
+    mode) is refused before any stream opens, by the pipeline's checks;
+    the int8 app itself is test_int8_app_calibrates_once_per_loop."""
     opened = []
     monkeypatch.setattr(tapp, "open_source", lambda s: opened.append(s))
-    with pytest.raises(ValueError, match="A15"):
-        run(AppConfig(device="cpu", quant="int8", **BASE), sources=_srcs([2]))
+    with pytest.raises(ValueError, match="segment"):
+        run(AppConfig(device="cpu", quant="int8",
+                      **dict(BASE, weights="yolov8n-seg")), sources=_srcs([2]))
+    with pytest.raises(ValueError, match="unknown quant mode"):
+        run(AppConfig(device="cpu", quant="int4", **BASE), sources=_srcs([2]))
     assert opened == []
-    assert tcli.main(["--quant", "int8", "--device", "cpu"]) != 0
+
+
+@pytest.mark.parametrize("mode", ["sequential", "batched"])
+def test_int8_app_calibrates_once_per_loop(tmp_path, monkeypatch, capsys,
+                                           mode):
+    """quant="int8": the per-stream loop calibrates on its stream's first
+    frame, the batched loop on tick 0's first two live frames and then
+    refreshes its steps, each printing the JAX app's calibration line;
+    afterwards every int8 conv holds its static scale."""
+    from strongsort_yolo_tpu_torch.models.common import int8_convs
+    from strongsort_yolo_tpu_torch.pipeline import BatchedPipeline
+
+    refreshed = []
+    orig = BatchedPipeline.refresh_steps
+    monkeypatch.setattr(BatchedPipeline, "refresh_steps",
+                        lambda self: (refreshed.append(1), orig(self)))
+    cfg = AppConfig(device="cpu", quant="int8", multi_mode=mode,
+                    output_dir=str(tmp_path), **BASE)
+    pipe = tapp.make_pipeline(cfg)
+    n = 1 if mode == "batched" else 2
+    stats = run(cfg, sources=_srcs([4, 4]), pipeline=pipe)
+    out = capsys.readouterr().out
+    assert out.count("[INFO] int8: calibrated 32 convs") == n
+    assert len(refreshed) == (mode == "batched")
+    assert [st.frames for st in stats] == [4, 4]
+    assert all(len(_parse(st.labels_file)) > 0 for st in stats)
+    assert all(c.xscale is not None for c in int8_convs(pipe.model))
 
 
 def test_app_without_device_raises_on_a_cpu_only_machine(monkeypatch):

@@ -30,8 +30,11 @@ order than its plain version (cuDNN's float32 conv with TF32 off):
 float32 within 2e-5 x max(1, |ref|), bfloat16 within one bf16 unit at
 1.0 of the output scaled by max(1, |ref|), in every form of the dtype
 (mma, the tensor-core form, in bfloat16 only) and both layouts, two
-launches bit-identical; the pipelines compare float32 runs with TF32
-off, boxes (and keypoints) within 1e-3 px, identical ids (and mask
+launches bit-identical; K8 (the int8 conv) sums exactly, so its int32
+sums and its act=False outputs equal its plain version's bit for bit,
+and its SiLU outputs within 4 float32 ulps x max(1, |ref|) (one bf16
+unit at 1.0 in bfloat16): its expf and division against PyTorch's
+sigmoid; the pipelines compare float32 runs with TF32 off, boxes (and keypoints) within 1e-3 px, identical ids (and mask
 polygons); the offline tools: the AFLink net's logits within 1e-5 x
 max(1, |logit|) of the CPU's with the same decisions, its link costs
 within 1e-5 and the same merges, and ``eval_mot --public`` printing the
@@ -81,6 +84,11 @@ from strongsort_yolo_tpu_torch.ops.cuda.osnet_kernel import (
     stage_form,
     stage_specs,
     stage_weights,
+)
+from strongsort_yolo_tpu_torch.ops.cuda.quant_kernel import (
+    conv_s8,
+    conv_s8_plain,
+    pack_s8,
 )
 from strongsort_yolo_tpu_torch.ops.cuda.resize_kernel import letterbox_u8
 from strongsort_yolo_tpu_torch.ops.letterbox import letterbox, letterbox_params
@@ -895,12 +903,17 @@ def _async_case(name, dev):
     elif name == "strongsort":
         kw.update(tracker=StrongSortConfig(gmc_method="none"),
                   reid_weights=OSNET)
+    elif name.startswith("int8"):
+        det = DetectorConfig(weights=CKPT, imgsz=160, half=False, max_det=16,
+                             quant="int8")
+        kw.update(tracker=ByteTrackConfig(tracker_type="botsort",
+                                          gmc_method="none"))
     else:
         gmc = {"flow_tpu": "flow_tpu", "botsort_none": "none"}.get(
             name, "sparseOptFlow")
         kw.update(tracker=ByteTrackConfig(tracker_type="botsort",
                                           gmc_method=gmc))
-        if gmc == "sparseOptFlow":
+        if name == "botsort_warps":
             warps = np.tile(np.eye(2, 3, dtype=np.float32),
                             (ASYNC_T, 2, 1, 1))
             warps[..., 2] = (3.0, -2.0)
@@ -923,17 +936,24 @@ def _assert_bitwise(want, got, what):
             np.testing.assert_array_equal(b.data, a.data, err_msg=what)
 
 
-@pytest.mark.parametrize("name", ["botsort_warps", "flow_tpu", "strongsort",
-                                  "pose", "seg"])
+@pytest.mark.parametrize("name", ["botsort_warps", "botsort_host",
+                                  "flow_tpu", "strongsort", "pose", "seg",
+                                  "int8_dynamic", "int8_static"])
 def test_step_async_issues_no_stream_sync(dev, name):
     """After two ticks (kernels built, per-shape constants uploaded), the
     overlapped loop (step_async t, materialize t - 1) runs under
     torch.cuda.set_sync_debug_mode("error") without raising: no
     synchronizing op, no pageable copy. The host waits only on events:
     each handle's own, and on StrongSORT once per tick in
-    Pipeline._wait_counts, the ReID count read, counted here."""
+    Pipeline._wait_counts, the ReID count read, counted here. Also the
+    host sparseOptFlow warps (uploaded through pinned memory) and the
+    int8 detector with its dynamic scales (device reductions) and with
+    calibrated ones."""
     bp, frames, warps = _async_case(name, dev)
     pipe = bp.pipeline
+    if name == "int8_static":
+        assert pipe.calibrate_int8(list(frames[0])) == 32
+        bp.refresh_steps()
     for t in range(2):
         bp.step(frames[t], _warp(warps, t))
     waits, rows = pipe.count_waits, 0
@@ -1262,3 +1282,66 @@ def test_unfused_osnet_on_the_card_equals_the_folded_one(dev):
         ref = folded(x.to(dev))
     assert float((got.cpu() - want).abs().max()) <= 1e-5
     assert float((got - ref).abs().max()) <= 1e-5
+
+
+# -- K8: the int8 conv ------------------------------------------------------
+
+# (n, c_in, h, w, c_out, k, stride, groups, act): yolov8n's classes at 640
+# (1x1 and 3x3 stride 1, 3x3 stride 2, C_in 16 padded to 32), yolo11n-pose's
+# depthwise pe conv and its act=False 1x1s, and a ragged C_out
+S8_CASES = [
+    (2, 16, 160, 160, 32, 1, 1, 1, True),
+    (2, 64, 80, 80, 64, 3, 1, 1, True),
+    (2, 64, 80, 80, 128, 3, 2, 1, True),
+    (2, 128, 20, 20, 128, 3, 1, 128, False),
+    (2, 128, 20, 20, 256, 1, 1, 1, False),
+    (1, 48, 33, 17, 51, 3, 1, 1, True),
+]
+
+
+def _s8_case(dev, case, dtype, scale, seed=0):
+    n, c_in, h, w, c_out, k, stride, groups, act = case
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(0, 1.5, (n, c_in, h, w)).astype(
+        np.float32)).to(dev, dtype)
+    wq = torch.from_numpy(rng.integers(-127, 128, (c_out, c_in // groups, k, k),
+                                       dtype=np.int8)).to(dev)
+    ws = torch.from_numpy(rng.uniform(1e-4, 2e-3, c_out).astype(np.float32)).to(dev)
+    b = torch.from_numpy(rng.normal(0, 0.5, c_out).astype(np.float32)).to(dev)
+    amax = x.float().abs().amax()
+    xs = (torch.clamp_min(amax, 1e-6) / torch.full_like(amax, 127.0)
+          if scale == "dynamic" else torch.tensor(np.float32(0.03), device=dev))
+    return (x, wq, ws, b, xs), dict(stride=stride, pad=(k - 1) // 2,
+                                    groups=groups, act=act)
+
+
+@pytest.mark.parametrize("scale", ["dynamic", "static"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", S8_CASES)
+def test_conv_s8_kernel_equals_plain(dev, case, dtype, scale):
+    args, kw = _s8_case(dev, case, dtype, scale)
+    packed = pack_s8(args[1], kw["groups"])
+    sums = conv_s8(*args, **kw, packed=packed, sums=True)
+    assert torch.equal(sums, conv_s8_plain(*args, **kw, sums=True))
+    got = conv_s8(*args, **kw, packed=packed)
+    again = conv_s8(*args, **kw)
+    want = conv_s8_plain(*args, **kw)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert torch.equal(got, again)
+    if not kw["act"]:
+        assert torch.equal(got, want)
+    else:
+        unit = 4 * 2.0 ** -23 if dtype == torch.float32 else 2.0 ** -7
+        err = ((got.float() - want.float()).abs()
+               / want.float().abs().clamp(min=1.0)).max()
+        assert float(err) <= unit
+
+
+def test_conv_s8_reads_strided_input(dev):
+    """A channel slice of a wider tensor (C2f's chunk) through its strides."""
+    args, kw = _s8_case(dev, S8_CASES[1], torch.bfloat16, "dynamic")
+    x, rest = args[0], args[1:]
+    wide = torch.cat([x, x.flip(1)], 1)[:, :x.shape[1]]
+    assert not wide.is_contiguous()
+    assert torch.equal(conv_s8(wide, *rest, **kw),
+                       conv_s8_plain(x, *rest, **kw))

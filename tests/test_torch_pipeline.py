@@ -104,6 +104,9 @@ def test_synth160_checkpoint_vs_jax(tracker):
 
 
 def test_step_requires_warps_when_gmc_is_on():
+    """BoT-SORT's sparseOptFlow needs a warp per stream: a step given none
+    estimates them on the host (compute_warps, the JAX package's), one
+    given some takes them; only a direct associate without them raises."""
     pipe = Pipeline(
         DetectorConfig(weights=CKPT, imgsz=160, half=False, max_det=16),
         tracker="botsort.yaml", track_slots=16, tracker_max_dets=16,
@@ -111,12 +114,16 @@ def test_step_requires_warps_when_gmc_is_on():
     )
     frames = np.zeros((2, 320, 320, 3), np.uint8)
     bp = BatchedPipeline(pipe, 2, (320, 320))
-    with pytest.raises(ValueError, match="warps"):
-        bp.step(frames)
+    assert len(bp.step(frames)) == 2
+    np.testing.assert_array_equal(bp.last_warps.numpy(),
+                                  np.tile(np.eye(2, 3), (2, 1, 1)))
     eye = np.tile(np.eye(2, 3, dtype=np.float32), (2, 1, 1))
     assert len(bp.step(frames, eye)) == 2
     bp.reset_stream(1)
-    assert int(bp.states.frame_id[1]) == 0 and int(bp.states.frame_id[0]) == 1
+    assert int(bp.states.frame_id[1]) == 0 and int(bp.states.frame_id[0]) == 2
+    det = pipe.detect(torch.from_numpy(frames))
+    with pytest.raises(ValueError, match="warps"):
+        pipe.associate(bp.states, det)
 
 
 def test_default_device_is_cuda_and_never_the_cpu(monkeypatch):
