@@ -228,15 +228,23 @@ raises and the process exits nonzero:
    or of an NMS swap, or near the threshold) and the trained yolo11n-pose asset by its
    tracks; every card run of these int8 comparisons (8c too) is made
    twice, with K8 and with conv_s8_plain on the same CUDA tensors, and
-   the two must be equal bit for bit; (8a) IMMA instructions in K8's tensor-core kernel and
-   no 64-bit division in either form, then K8 against conv_s8_plain on
+   the two must be equal bit for bit; (8a) IGMMA instructions (wgmma
+   s8) in every instance of K8's tensor-core kernel and no 64-bit
+   division in any of its kernels (the quantize pass, the implicit GEMM,
+   the depthwise form), then K8 against conv_s8_plain on
    8b's 32 convs, 8d's stride-2, depthwise and act=False convs and a
    yolov7 3x3 stride-2 conv, in bf16 and f32, dynamic and calibrated
    scales: int32 sums and act=False outputs bit-identical, SiLU outputs
    within 4 float32 ulps (one bf16 unit at 1.0) x max(1, |ref|); K8's
-   device time over the 32 convs by graph replay beside the plain
+   device time per conv by graph replay (its quantize pass and its conv)
+   beside its first form's time (tools/prof_s8.YOLOV8N_INT8), the plain
    version's, cuDNN's bf16 conv + SiLU of the dequantized weights (a
-   different function) and the bound; (8c) tests/test_quant.py's guard
+   different function) and the bound, and the sums per conv class; K8's
+   bars there: the 32 convs no longer than cuDNN over them in the same
+   run, each 3x3 conv on a 20 x 20 plane within 0.04 ms, no class slower
+   than the first form; then K8's times over the 52 convs of one
+   yolo11n-pose tick (8d's,
+   the depthwise one included); (8c) tests/test_quant.py's guard
    on the card (synth160, 30 frames: int8 MOTA and IDF1 within 0.01 of
    float) and the int8 rows card against CPU, dynamic and calibrated;
    card against CPU on an int8 path means equal rows and ids and boxes
@@ -3656,12 +3664,16 @@ def check_k8_calls(calls, label: str) -> tuple[int, float]:
     return max_abs, worst
 
 
-def time_k8(card: str, calls) -> dict:
+def time_k8(card: str, calls, label: str, first=None) -> dict:
     """K8 over one tick's convs in bfloat16 with their calibrated scales, as
-    the path runs them: device time by CUDA-graph replay, the plain
-    version's by events, cuDNN's bf16 conv + SiLU of the dequantized
-    weights (a different function: bf16 products, no quantization) by
-    graph replay, and the bound."""
+    the path runs them: device time by CUDA-graph replay (the quantize
+    pass and the conv, one wrapper call), the plain version's by events,
+    cuDNN's bf16 conv + SiLU of the dequantized weights (a different
+    function: bf16 products, no quantization) by graph replay, and the
+    bound; each conv beside its time in K8's first form where
+    ``first`` (tools/prof_s8.YOLOV8N_INT8, the same convs in the same
+    order) is given, then the sums over each conv class. -> the sums over
+    all, and per class."""
     import torch
     import torch.nn.functional as F
 
@@ -3669,11 +3681,18 @@ def time_k8(card: str, calls) -> dict:
         conv_s8, conv_s8_plain, pack_s8,
     )
     from strongsort_yolo_tpu_torch.tools.prof_conv import graph_ms
+    from strongsort_yolo_tpu_torch.tools.prof_s8 import conv_class
 
-    total = {"ms": 0.0, "plain": 0.0, "library": 0.0, "bound": 0.0,
-             "by_ops": 0.0}
-    for x, conv in calls:
+    keys = ("ms", "plain", "library", "bound", "by_ops", "first")
+    total = dict.fromkeys(keys, 0.0)
+    classes = {}
+    if first is not None and len(first) != len(calls):
+        raise AssertionError(f"K8 {label}: {len(calls)} convs, the first "
+                             f"form timed {len(first)}")
+    for i, (x, conv) in enumerate(calls):
         x = x.to(torch.bfloat16)
+        c_out, c_in, k, _ = conv.wq.shape
+        shape = (x.shape[1], x.shape[2], x.shape[3], c_out, k, conv.stride)
         kw = dict(stride=conv.stride, pad=conv.pad, groups=conv.groups,
                   act=conv.act)
         args = (x, conv.wq, conv.wscale, conv.b, conv.xscale)
@@ -3693,16 +3712,61 @@ def time_k8(card: str, calls) -> dict:
         macs = out.numel() * conv.wq[0].numel()
         t, by = bound(nbytes(x, conv.wq, conv.wscale, conv.b, out), 2 * macs,
                       "int8")
-        total["ms"] += ms
-        total["plain"] += plain
-        total["library"] += library
-        total["bound"] += t
-        total["by_ops"] += t if by == "operations" else 0.0
+        then = ""
+        row = dict(ms=ms, plain=plain, library=library, bound=t,
+                   by_ops=t if by == "operations" else 0.0, first=0.0)
+        if first is not None:
+            if tuple(first[i][:6]) != shape:
+                raise AssertionError(f"K8 {label}: conv {i} is {shape}, the "
+                                     f"first form timed {first[i][:6]}")
+            row["first"] = first[i][6]
+            then = f" (first form: {first[i][6]:.4f} ms)"
+        for key in keys:
+            total[key] += row[key]
+        name = (conv_class(*shape) if conv.groups == 1
+                else f"depthwise {k}x{k}")
+        c = classes.setdefault(name, dict.fromkeys(("n", "max", *keys), 0.0))
+        c["n"] += 1
+        c["max"] = max(c["max"], ms)
+        for key in keys:
+            c[key] += row[key]
         log(f"K8 {_conv_label(x, conv)} S={x.shape[0]} bf16: kernel {ms:.4f} "
-            f"ms, plain {plain:.4f} ms, cuDNN bf16 conv{' + SiLU' * conv.act} "
-            f"{library:.4f} ms, bound {t:.6f} ms ({by}, {2 * macs / 1e9:.3f} "
-            f"GOP) [{card}]")
+            f"ms{then}, plain {plain:.4f} ms, cuDNN bf16 conv"
+            f"{' + SiLU' * conv.act} {library:.4f} ms, bound {t:.6f} ms "
+            f"({by}, {2 * macs / 1e9:.3f} GOP) [{card}]")
+    for name, c in classes.items():
+        then = (f" (first form: {c['first']:.4f} ms)" if first is not None
+                else "")
+        log(f"K8 {label}, class {name}: {int(c['n'])} convs, kernel "
+            f"{c['ms']:.4f} ms{then}, cuDNN bf16 {c['library']:.4f} ms, "
+            f"bound {c['bound']:.6f} ms [{card}]")
+    total["classes"] = classes
     return total
+
+
+K8_20X20_MS = 0.04  # the bar of each 3x3 conv on a 20 x 20 plane
+
+
+def check_k8_bars(total: dict) -> None:
+    """K8's bars over yolov8n's 32 int8 convs (time_k8's sums, one run):
+    no longer than cuDNN's bf16 conv + SiLU over the same convs, each 3x3
+    conv on a 20 x 20 plane within K8_20X20_MS, and no conv class slower
+    than in K8's first form."""
+    bad = []
+    if total["ms"] > total["library"]:
+        bad.append(f"{total['ms']:.4f} ms over cuDNN's {total['library']:.4f}")
+    for name, c in total["classes"].items():
+        if c["ms"] > c["first"]:
+            bad.append(f"class {name} {c['ms']:.4f} ms over the first "
+                       f"form's {c['first']:.4f}")
+        if name.startswith("3x3 s1") and name.endswith("20x20") and (
+                c["max"] > K8_20X20_MS):
+            bad.append(f"class {name} up to {c['max']:.4f} ms")
+    if bad:
+        raise AssertionError("K8 bars: " + "; ".join(bad))
+    log(f"K8 bars met: {total['ms']:.4f} ms <= cuDNN's {total['library']:.4f}, "
+        f"every 3x3 20x20 conv <= {K8_20X20_MS} ms, every class at or below "
+        f"its first form's time")
 
 
 def _int8_parity(label: str, cpu, card) -> int:
@@ -3995,14 +4059,15 @@ def phase_int8_guard(card: str) -> None:
                  _witness_plain("8c int8 calibrated scales", card_rows))
 
 
-def phase_int8_families(card: str, kernels) -> tuple[int, list]:
+def phase_int8_families(card: str, kernels) -> tuple[int, list, list]:
     """8d: yolov5s int8 + StrongSORT + OSNet-x0_25 fused (K1-K4, K6, K8) and
     yolo11n-pose int8 (K8's depthwise form) at full width, 3 ticks each,
     with their int8 counts; card against CPU, imgsz 160, f32, scales
     calibrated on the card and shared: the detections of a fabricated
     yolov5s .pt (_int8_det_parity) and the tracks of the trained
     yolo11n-pose asset. ->
-    (K8 launches, the captured K8 calls to check)."""
+    (K8 launches, the captured K8 calls to check, the 52 K8 calls of one
+    yolo11n-pose tick)."""
     from strongsort_yolo_tpu_torch.config import DetectorConfig
     from strongsort_yolo_tpu_torch.models.common import int8_convs
     from strongsort_yolo_tpu_torch.pipeline import BatchedPipeline, Pipeline
@@ -4013,7 +4078,7 @@ def phase_int8_families(card: str, kernels) -> tuple[int, list]:
     pool = make_frames(h, w)
     ticks = [np.stack([pool[(s + t) % len(pool)] for s in range(S_MAIN)])
              for t in range(3)]
-    k8, checks = 0, []
+    k8, checks, pose = 0, [], []
     for model, tracker, reid, want_n, want in (
         ("yolov5s", StrongSortConfig(gmc_method="none"), "osnet_x0_25", 42,
          ("letterbox_u8", "nms_keep", "auction", "banded_crop", "os_stage",
@@ -4047,6 +4112,7 @@ def phase_int8_families(card: str, kernels) -> tuple[int, list]:
             checks += [c for c in calls if c[1].stride == 2][:1]
         else:
             checks += [c for c in calls if c[1].groups > 1 or not c[1].act]
+            pose = calls
         del pipe, bp, calls
     S, T = 2, 6
     frames = np.stack([np.stack(render_synthetic(T, seed=s + 1))
@@ -4080,7 +4146,7 @@ def phase_int8_families(card: str, kernels) -> tuple[int, list]:
 
             _int8_parity(label, steps(pipes["cpu"]), _witness_plain(
                 label, lambda: steps(pipes["cuda"])))
-    return k8, checks
+    return k8, checks, pose
 
 
 def phase_int8_app(card: str, kernels) -> None:
@@ -4273,29 +4339,40 @@ def phase_int8(card: str, kernels: dict) -> dict:
     """Phase 8: the int8 slice (8b, 8a, 8c, 8d, 8e) and the host GMC.
     -> K8's entry of the kernels line."""
     from strongsort_yolo_tpu_torch.ops.cuda.quant_kernel import conv_s8
+    from strongsort_yolo_tpu_torch.tools.prof_s8 import YOLOV8N_INT8
 
     k = kernels
     mark("phase 8b: the int8 main path")
     counts, calls = phase_int8_path(card, [k[n] for n in (
         "letterbox_u8", "nms_keep", "auction")] + [conv_s8])
     mark("phase 8d: the other families in int8")
-    _, more = phase_int8_families(card, list(k.values()) + [conv_s8])
+    _, more, pose = phase_int8_families(card, list(k.values()) + [conv_s8])
     mark("phase 8a: K8 against its plain version")
-    check_tensor_core_sass("conv_s8_mma_kernel", "IMMA", "K8 mma")
-    check_no_div64(["conv_s8_mma_kernel", "conv_s8_dw_kernel"])
+    check_tensor_core_sass("conv_s8_gemm_kernel", "IGMMA", "K8 wgmma")
+    check_no_div64(["conv_s8_quant_kernel", "conv_s8_gemm_kernel",
+                    "conv_s8_dw_kernel"])
     err, _ = check_k8_calls(calls, "yolov8n 640 S=8 (8b's tick)")
     err2, _ = check_k8_calls(more, "yolov5s s2, yolo11n-pose depthwise "
                              "and act=False (8d's ticks)")
     v7 = v7_s2_call()
     err3, _ = check_k8_calls(v7, "a yolov7 3x3 stride-2 conv")
-    total = time_k8(card, calls)
+    total = time_k8(card, calls, f"yolov8n 640 S={S_MAIN}", YOLOV8N_INT8)
     log(f"K8 over the 32 int8 convs of one yolov8n S={S_MAIN} 640 tick, bf16, "
         f"calibrated scales, device time (CUDA graph replay): kernel "
-        f"{total['ms']:.4f} ms, plain {total['plain']:.4f} ms (events), "
-        f"cuDNN bf16 conv + SiLU of the dequantized weights {total['library']:.4f} "
-        f"ms (another function), bound {total['bound']:.6f} ms "
-        f"({total['by_ops']:.6f} of it from convs bound by operations); "
-        f"kernel / bound {total['ms'] / total['bound']:.1f}x [{card}]")
+        f"{total['ms']:.4f} ms (first form: {total['first']:.4f} ms), plain "
+        f"{total['plain']:.4f} ms (events), cuDNN bf16 conv + SiLU of the "
+        f"dequantized weights {total['library']:.4f} ms (another function), "
+        f"bound {total['bound']:.6f} ms ({total['by_ops']:.6f} of it from "
+        f"convs bound by operations); kernel / bound "
+        f"{total['ms'] / total['bound']:.1f}x, kernel / cuDNN "
+        f"{total['ms'] / total['library']:.2f}x [{card}]")
+    check_k8_bars(total)
+    pose_total = time_k8(card, pose, f"yolo11n-pose 640 S={S_MAIN}")
+    log(f"K8 over the {len(pose)} int8 convs of one yolo11n-pose S={S_MAIN} "
+        f"640 tick (the depthwise one included), bf16, calibrated scales, "
+        f"graph replay: kernel {pose_total['ms']:.4f} ms, cuDNN bf16 "
+        f"{pose_total['library']:.4f} ms, bound {pose_total['bound']:.6f} ms "
+        f"[{card}]")
     mark("phase 8c: the int8 quality guard, card against CPU")
     phase_int8_guard(card)
     mark("phase 8e: the int8 app")

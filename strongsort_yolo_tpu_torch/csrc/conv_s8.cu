@@ -1,7 +1,7 @@
 // K8: the int8 conv of post-training quantization: quantize the input,
 // int8 x int8 products summed exactly in int32, then
 // y = fma(sum, xscale * wscale[c], b[c]), SiLU if act, one cast to the
-// input dtype. One launch per conv.
+// input dtype. One call per conv: a quantize pass, then the conv.
 //
 // Replaces no Pallas kernel. Its counterpart is
 // strongsort_yolo_tpu/ops/quant.py:41 conv_int8_apply: on the TPU an XLA
@@ -26,45 +26,91 @@
 //   then one cast to the output dtype. With sums=1 the int32 sums are
 //   written instead (the check of the exact part).
 //
-// Two forms, one entry point:
-// - groups 1: an implicit GEMM on the tensor cores. M = output pixels
-//   of one image, N = output channels, K = (tap, ci) with C_in padded to
-//   32 per tap (the wrapper packs the weights so, zero where padded:
-//   C_in 16 occurs). A block of 4 warps computes 64 pixels x 64
-//   channels; per K step of 32 it stages the quantized A tile (each
-//   thread one pixel, 16 of the 32 channels, quantized as it loads, zero
-//   outside the image) and the B tile (16 bytes a thread) in shared
-//   memory, rows padded to 48 bytes, and each warp runs 2 x 4
-//   mma.sync.m16n8k32.s8 on its 32 x 32 quarter.
-// - depthwise (groups = C_in = C_out): CUDA cores, a thread per output
-//   value, its k*k products summed in int32, a row of blocks per
-//   (image, channel) plane.
-// x is read and the output written through their (n, c, h, w) strides,
-// so NCHW activations need no transposing copy.
-//
 // Bound: the larger of the bytes (x read once, the weights once, the
-// output written once) over 3.35 TB/s and 2 x MACs over 1,979 TOPS. The
-// convs of a yolov8n forward at 640 move a few bytes per MAC, so most are
-// bound by their bytes. This first kernel is not near either: it
-// quantizes x again for every tap and every 64 output channels (an IEEE
-// division each), loads A with scalar loads, and waits on each tile
-// (no cp.async pipeline, no wgmma, no TMA). Those are later work.
+// output written once) over 3.35 TB/s and 2 x MACs over 1,979 TOPS. At
+// yolov8n's shapes (S=8, 640) every conv is bound by its bytes: a few
+// bytes per MAC against the ~600 int8 operations per byte the card needs
+// before its tensor cores are the limit. What the card measured
+// (tools/prof_s8.py) is latency: each launch has a few microseconds that
+// the small planes cannot hide, and a block's loop over the K chunks is
+// a chain of short steps with few warps to hide them. So the design
+// quantizes once, keeps a chunk's step short, and fills the card:
+//
+// 1. conv_s8_quant_kernel quantizes each element of x once per conv. It
+//    reads x through its (n, c, h, w) strides (NCHW, C2f's channel
+//    slices, float32 or bfloat16), a thread per pixel and 16 channels:
+//    the 16 loads, coalesced along the pixels, all in flight before the
+//    divisions. It writes the codes channel-minor, (N, H, W, C_pitch)
+//    with C_pitch = C_in padded with zero codes to 32, one K chunk, 16
+//    bytes a store. The codes are half of bf16's bytes and fit the 50 MB
+//    L2 at every yolov8n plane (the largest, 192 x 80 x 80 at S=8, is 9.8
+//    MB), so the conv's re-reads of a tap's rows come from L2.
+//    (Chunk-major codes, (N, C_pitch / 32, H, W, 32) with a thread per 32
+//    channels, gave whole-sector gathers but a slower pass and no faster
+//    conv.)
+// 2. conv_s8_gemm_kernel (groups 1) is an implicit GEMM on the codes:
+//    M = the flattened (n, oy, ox) output pixels, so a tile of 64 spans
+//    images and a 20 x 20 plane leaves no rows idle; N = C_out in tiles
+//    of BN = 32 or 64 (quant_kernel.n_tile); K = (tap, ci) in chunks
+//    of 32 codes. One warpgroup per 64 x BN tile. Per chunk, each thread
+//    gathers 16 codes of its pixel's tap with one cp.async,
+//    zero-filled (src-size 0) outside the image, which covers
+//    padding and any stride; the packed weights (pack_s8: [chunk][half]
+//    [C_out to 64][16 codes]) come as contiguous 16-byte pieces. A
+//    cursor walks the chunks by additions, with no division per chunk
+//    (the first form's divisions cost more than its loads). Both tiles
+//    land in wgmma's no-swizzle K-major layout (8 rows x 16 bytes a core
+//    matrix; LBO the K half, SBO 128), so no tile is re-packed. A ring of
+//    kStages stages of kCPS chunks in dynamic shared memory keeps
+//    kStages - 2 stages of loads in flight while the tensor cores run
+//    wgmma.mma_async.m64nBNk32.s32.s8.s8 on the current one, one wgmma
+//    group in flight behind it; the first wgmma does not accumulate, so
+//    no other instruction defines the accumulators. Tried on the card
+//    and dropped (PERF.md §6):
+//    a producer warpgroup feeding a consumer through mbarriers, deeper
+//    or wider stages, no proxy fence (none was faster), programmatic
+//    dependent launch after the quantize pass (slower, or barely faster
+//    triggered at the end of its blocks: not worth a second launch
+//    path), N tiles of 128 (slower than 64 on all but one conv),
+//    chunk-major codes (whole sectors per gather, but a slower quantize
+//    pass); in the quantize pass, 16-byte reads of x (fewer threads:
+//    slower) and quotients by the rounded reciprocal with a division
+//    fallback (no faster: the pass is not bound by its divisions).
+//    Split-K is not taken: it would cost an atomic pass and a second
+//    launch.
+// 3. The epilogue computes on the int32 accumulators as the function
+//    above says, stages the tile [channel][pixel] in shared memory (the
+//    ring is free by then) and stores along the output's unit stride,
+//    16 bytes (8 bf16 or 4 float32 / int32 pixels) a store where a
+//    plane's pixel count allows.
+// 4. conv_s8_dw_kernel (depthwise, groups = C_in = C_out) reads the same
+//    codes on the CUDA cores: a thread per output value, its k*k
+//    products summed in int32, a row of blocks per (image, channel).
+// Two launches are bit-identical: no atomics, and every sum is exact.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
-constexpr int kBM = 64;        // output pixels per block
-constexpr int kBN = 64;        // output channels per block
-constexpr int kBK = 32;        // K per step: one mma's depth
-constexpr int kRow = 48;       // bytes per staged row (32 used)
-constexpr int kThreads = 128;  // 4 warps, 2 x 2 over the 64 x 64 tile
+constexpr int kBM = 64;         // output pixels per block: one wgmma M tile
+constexpr int kBK = 32;         // codes per K chunk: one wgmma's depth
+constexpr int kCPS = 2;         // K chunks per pipeline stage
+constexpr int kStages = 6;      // stages in the ring; kStages - 2 in flight
+constexpr int kThreads = 128;   // one warpgroup
+constexpr int kGemmBlocks = 4;  // conv blocks an SM holds (registers)
+constexpr int kQThreads = 128;  // quantize pass: pixels per block
 constexpr int kDwThreads = 256;
+constexpr int kCoAlign = 64;    // packed weight rows: C_out padded to this
 
 struct Geo {
-  int h, w, c_in, c_out, h_out, w_out, k, stride, pad, ci_pad, act, sums;
+  int n, h, w, c_in, c_out, h_out, w_out, k, stride, pad;
+  int c_pitch;  // codes per pixel: C_in padded to 32
+  int co_pad;   // packed weight rows per (chunk, half)
+  int act, sums, vec;
   long long sxn, sxc, sxh, sxw;  // strides of x, in elements
   long long son, soc, soh, sow;  // strides of the output
 };
@@ -82,159 +128,377 @@ __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-
-template <>
-__device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
 __device__ __forceinline__ int quantize(float v, float xs) {
   const float q = rintf(__fdiv_rn(v, xs));
   return static_cast<int>(fminf(fmaxf(q, -127.f), 127.f));
 }
 
-// one output value: the epilogue, or the int32 sum itself
-template <typename T>
-__device__ __forceinline__ void store(void* out, long long off, int acc,
-                                      float s, float b, const Geo& g) {
-  if (g.sums) {
-    static_cast<int*>(out)[off] = acc;
-    return;
-  }
+// the epilogue of one sum: dequantize, bias, SiLU, one cast (or the sum)
+template <typename O>
+__device__ __forceinline__ O epilogue(int acc, float s, float b, int act);
+
+template <>
+__device__ __forceinline__ int epilogue<int>(int acc, float, float, int) {
+  return acc;
+}
+
+template <>
+__device__ __forceinline__ float epilogue<float>(int acc, float s, float b,
+                                                 int act) {
   float y = fmaf(static_cast<float>(acc), s, b);
-  if (g.act) y = y * (1.0f / (1.0f + expf(-y)));
-  static_cast<T*>(out)[off] = from_f<T>(y);
+  if (act) y = y * (1.0f / (1.0f + expf(-y)));
+  return y;
 }
 
-__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a,
-                                       const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+template <>
+__device__ __forceinline__ __nv_bfloat16 epilogue<__nv_bfloat16>(int acc,
+                                                                 float s,
+                                                                 float b,
+                                                                 int act) {
+  return __float2bfloat16_rn(epilogue<float>(acc, s, b, act));
 }
 
-// wp: (co_pad, k*k*ci_pad) int8, a row per output channel, K-major
+// -- the quantize pass ---------------------------------------------------
+
+// a thread per (pixel, 16 channels): blockIdx.x * kQThreads + threadIdx.x
+// is the flattened (n, y, x), blockIdx.y the group of 16 channels
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    conv_s8_mma_kernel(const T* __restrict__ x, const int8_t* __restrict__ wp,
-                       const float* __restrict__ wscale,
-                       const float* __restrict__ bias,
-                       const float* __restrict__ xscale, void* out, Geo g) {
-  __shared__ __align__(16) int8_t as[kBM * kRow];  // [pixel][k]
-  __shared__ __align__(16) int8_t bs[kBN * kRow];  // [channel][k]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int gq = lane >> 2, t4 = lane & 3;
-  const int p0 = blockIdx.x * kBM, co0 = blockIdx.y * kBN;
-  const int hw_out = g.h_out * g.w_out;
-  const T* xn = x + static_cast<long long>(blockIdx.z) * g.sxn;
+__global__ void __launch_bounds__(kQThreads)
+    conv_s8_quant_kernel(const T* __restrict__ x,
+                         const float* __restrict__ xscale,
+                         int8_t* __restrict__ codes, Geo g) {
+  const int hw = g.h * g.w;
+  const int p = blockIdx.x * kQThreads + threadIdx.x;
+  if (p >= g.n * hw) return;
+  const int n = p / hw, pix = p % hw;
+  const int c0 = blockIdx.y * 16;
+  const T* src = x + n * g.sxn + (pix / g.w) * g.sxh + (pix % g.w) * g.sxw +
+                 c0 * g.sxc;
+  // the 16 loads first, all in flight at once, then the divisions
+  float v[16];
+#pragma unroll
+  for (int c = 0; c < 16; ++c) {
+    v[c] = c0 + c < g.c_in ? to_f<T>(src[c * g.sxc]) : 0.0f;
+  }
   const float xs = *xscale;
-
-  // this thread's A entries: pixel am, channels ak0 + 2 j of each step
-  const int am = tid & (kBM - 1), ak0 = tid >> 6;
-  const int ap = p0 + am;
-  const bool a_ok = ap < hw_out;
-  const int iy0 = (a_ok ? ap / g.w_out : 0) * g.stride - g.pad;
-  const int ix0 = (a_ok ? ap % g.w_out : 0) * g.stride - g.pad;
-  // this thread's B piece: channel row br, bytes bh * 16 .. + 16
-  const int br = tid >> 1, bh = tid & 1;
-  const long long kpad = static_cast<long long>(g.k) * g.k * g.ci_pad;
-  const int8_t* wrow = wp + static_cast<long long>(co0 + br) * kpad + bh * 16;
-
-  int acc[2][4][4];
+  uint32_t word[4];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int j = 0; j < 4; ++j) {
+    word[j] = 0u;
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0;
-
-  const int chunks = g.ci_pad / kBK;
-  const int steps = g.k * g.k * chunks;
-  for (int step = 0; step < steps; ++step) {
-    const int tap = step / chunks, ci0 = (step % chunks) * kBK;
-    const int iy = iy0 + tap / g.k, ix = ix0 + tap % g.k;
-    const bool in = a_ok && iy >= 0 && iy < g.h && ix >= 0 && ix < g.w;
-    const long long xoff = in ? iy * g.sxh + ix * g.sxw : 0;
-    __syncthreads();  // the previous step's tiles are consumed
-#pragma unroll
-    for (int j = 0; j < kBK / 2; ++j) {
-      const int kk = ak0 + 2 * j, ci = ci0 + kk;
-      int q = 0;
-      if (in && ci < g.c_in) q = quantize(to_f<T>(xn[xoff + ci * g.sxc]), xs);
-      as[am * kRow + kk] = static_cast<int8_t>(q);
+    for (int e = 0; e < 4; ++e) {
+      const int q = quantize(v[4 * j + e], xs);
+      word[j] |= (static_cast<uint32_t>(q) & 0xFFu) << (8 * e);
     }
-    *reinterpret_cast<int4*>(bs + br * kRow + bh * 16) =
-        *reinterpret_cast<const int4*>(wrow + static_cast<long long>(step) * kBK);
-    __syncthreads();
+  }
+  *reinterpret_cast<uint4*>(codes + static_cast<long long>(p) * g.c_pitch +
+                            c0) = make_uint4(word[0], word[1], word[2], word[3]);
+}
 
-    uint32_t a[2][4], b[4][2];
+// -- the implicit GEMM on the tensor cores --------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// wgmma matrix descriptor, no swizzle (layout type 0): start address,
+// leading byte offset (between the two core matrices along K) and stride
+// byte offset (between core matrices along M or N), in 16-byte units
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// makes the landed cp.async writes visible to wgmma's (async proxy) reads
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// 16 bytes, or 16 zeros where bytes = 0 (nothing is read then)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma window
+template <int R>
+__device__ __forceinline__ void fence_operands(int* d) {
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      const int8_t* r = as + (wm * 32 + mi * 16 + gq) * kRow + t4 * 4;
-      a[mi][0] = *reinterpret_cast<const uint32_t*>(r);
-      a[mi][1] = *reinterpret_cast<const uint32_t*>(r + 8 * kRow);
-      a[mi][2] = *reinterpret_cast<const uint32_t*>(r + 16);
-      a[mi][3] = *reinterpret_cast<const uint32_t*>(r + 8 * kRow + 16);
-    }
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// D (64 x N, int32, in registers) = A (64 x 32) * B (32 x N) (+ D where
+// accumulate), both int8 K-major in shared memory
+template <int N>
+struct Mma;
+
+template <>
+struct Mma<32> {
+  static __device__ __forceinline__ void run(int* d, uint64_t a, uint64_t b,
+                                             int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+          "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
+template <>
+struct Mma<64> {
+  static __device__ __forceinline__ void run(int* d, uint64_t a, uint64_t b,
+                                             int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+          "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+          "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
+template <int BN>
+struct Tile {
+  static constexpr int kA = kBM * kBK;  // bytes of a chunk's A tile
+  static constexpr int kB = BN * kBK;   // bytes of a chunk's B tile
+  static constexpr int kStage = kCPS * (kA + kB);
+  static constexpr int kRing = kStages * kStage;
+  // the epilogue's staged tile: a row of 64 pixels per channel, padded
+  // by 16 bytes (rows stay 16-byte aligned, channels 2 apart 8 banks)
+  template <typename O>
+  __host__ __device__ static constexpr int pitch() {
+    return kBM + 16 / static_cast<int>(sizeof(O));
+  }
+  template <typename O>
+  __host__ __device__ static constexpr int smem_bytes() {
+    return kRing > BN * pitch<O>() * static_cast<int>(sizeof(O))
+               ? kRing
+               : BN * pitch<O>() * static_cast<int>(sizeof(O));
+  }
+};
+
+// codes (N, H, W, c_pitch) int8; wp (chunks, 2, co_pad, 16) int8, the
+// chunks over (ky, kx, ci / 32); out (N, C_out, H_out, W_out) of O
+// through its strides. Block (blockIdx.x, blockIdx.y): output pixels
+// 64 bx .. + 64 of the flattened (n, oy, ox), channels BN by .. + BN.
+template <int BN, typename O>
+__global__ void __launch_bounds__(kThreads, kGemmBlocks)
+    conv_s8_gemm_kernel(const int8_t* __restrict__ codes,
+                        const int8_t* __restrict__ wp,
+                        const float* __restrict__ wscale,
+                        const float* __restrict__ bias,
+                        const float* __restrict__ xscale, O* __restrict__ out,
+                        Geo g) {
+  using S = Tile<BN>;
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int tid = threadIdx.x;
+  const int hw_out = g.h_out * g.w_out;
+  const int m_total = g.n * hw_out;
+  const int m0 = blockIdx.x * kBM, nc0 = blockIdx.y * BN;
+
+  // this thread's A row (output pixel) and K half of each chunk
+  const int arow = tid % kBM, ahalf = tid / kBM;
+  const int am = m0 + arow;
+  const bool a_ok = am < m_total;
+  int iy0 = 0, ix0 = 0;
+  const int8_t* img = codes;
+  if (a_ok) {
+    const int n = am / hw_out, pix = am % hw_out;
+    iy0 = (pix / g.w_out) * g.stride - g.pad;
+    ix0 = (pix % g.w_out) * g.stride - g.pad;
+    img = codes + static_cast<long long>(n) * g.h * g.w * g.c_pitch +
+          ahalf * 16;
+  }
+  const int nk = g.k * g.k * (g.c_pitch / kBK);  // chunks
+  const int nst = (nk + kCPS - 1) / kCPS;
+  // this thread's pieces of each chunk's B tile: piece u = half * BN + row
+  constexpr int kBPer = (2 * BN + kThreads - 1) / kThreads;
+  long long boff[kBPer];
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int8_t* r = bs + (wn * 32 + ni * 8 + gq) * kRow + t4 * 4;
-      b[ni][0] = *reinterpret_cast<const uint32_t*>(r);
-      b[ni][1] = *reinterpret_cast<const uint32_t*>(r + 16);
-    }
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], a[mi], b[ni]);
+  for (int i = 0; i < kBPer; ++i) {
+    const int u = tid + i * kThreads;
+    boff[i] = (static_cast<long long>(u / BN) * g.co_pad + nc0 + u % BN) * 16;
   }
 
-  const long long on = static_cast<long long>(blockIdx.z) * g.son;
+  // the chunks are loaded in order: a cursor at the next one, (ky, kx,
+  // ci0) and its weights, advanced by additions (no division per chunk)
+  int ky = 0, kx = 0, ci0 = 0;
+  const int8_t* wc = wp;
+  const long long wstep = 2ll * g.co_pad * 16;
+  // stage st's chunks into its ring slot; one cp.async group always
+  auto load = [&](int st) {
+    uint8_t* sa = smem + (st % kStages) * S::kStage;
+    uint8_t* sb = sa + kCPS * S::kA;
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
+    for (int q = 0; q < kCPS; ++q) {
+      if (st * kCPS + q < nk) {
+        const int iy = iy0 + ky, ix = ix0 + kx;
+        const bool in = a_ok && iy >= 0 && iy < g.h && ix >= 0 && ix < g.w;
+        const int8_t* src =
+            in ? img + (iy * g.w + ix) * g.c_pitch + ci0 : codes;
+        cp_async16(sa + q * S::kA + ahalf * (kBM * 16) + arow * 16, src,
+                   in ? 16 : 0);
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int p = p0 + wm * 32 + mi * 16 + gq + half * 8;
-      if (p >= hw_out) continue;
-      const long long op = on + (p / g.w_out) * g.soh + (p % g.w_out) * g.sow;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int c = co0 + wn * 32 + ni * 8 + t4 * 2 + e;
-          if (c < g.c_out) {
-            store<T>(out, op + c * g.soc, acc[mi][ni][half * 2 + e],
-                     xs * wscale[c], bias[c], g);
+        for (int i = 0; i < kBPer; ++i) {
+          if (2 * BN % kThreads == 0 || tid + i * kThreads < 2 * BN) {
+            cp_async16(sb + q * S::kB + (tid + i * kThreads) * 16,
+                       wc + boff[i], 16);
           }
         }
+        wc += wstep;
+        ci0 += kBK;
+        if (ci0 == g.c_pitch) {
+          ci0 = 0;
+          if (++kx == g.k) {
+            kx = 0;
+            ++ky;
+          }
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  // written first by a wgmma that does not accumulate: no other
+  // instruction defines them inside the pipeline, so ptxas keeps the
+  // wgmmas asynchronous
+  int acc[BN / 2];
+
+#pragma unroll
+  for (int st = 0; st < kStages - 2; ++st) load(st);
+  for (int st = 0; st < nst; ++st) {
+    cp_async_wait<kStages - 3>();  // this thread's pieces of stage st
+    fence_async_shared();
+    wgmma_wait<1>();  // stage st - 2's products: its slot is free
+    __syncthreads();
+    load(st + kStages - 2);
+    const uint32_t a0 = smem_u32(smem + (st % kStages) * S::kStage);
+    const uint32_t b0 = a0 + kCPS * S::kA;
+    wgmma_fence();
+#pragma unroll
+    for (int q = 0; q < kCPS; ++q) {
+      if (st * kCPS + q < nk) {
+        Mma<BN>::run(acc, make_desc(a0 + q * S::kA, kBM * 16, 128),
+                     make_desc(b0 + q * S::kB, BN * 16, 128), st + q > 0);
+      }
+    }
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  fence_operands<BN / 2>(acc);
+  cp_async_wait<0>();
+  __syncthreads();  // every product and load done: the ring is free
+
+  // the accumulator layout of m64nNk32: thread (warp w, lane l) holds
+  // rows 16w + l/4 (+8) and columns 8j + 2(l%4) (+1)
+  constexpr int kPitch = S::template pitch<O>();
+  O* const ot = reinterpret_cast<O*>(smem);
+  const int warp = tid / 32, lane = tid % 32;
+  const float xs = *xscale;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = 8 * j + 2 * (lane % 4) + e, co = nc0 + c;
+      float s = 0.0f, bb = 0.0f;
+      if (co < g.c_out) {
+        s = xs * wscale[co];
+        bb = bias[co];
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = 16 * warp + lane / 4 + 8 * half;
+        ot[c * kPitch + r] = epilogue<O>(acc[4 * j + 2 * half + e], s, bb, g.act);
+      }
+    }
+  }
+  __syncthreads();
+  if (g.vec) {  // 16 bytes of one channel's consecutive pixels per store
+    constexpr int kG = 16 / sizeof(O);
+    for (int i = tid; i < BN * kBM / kG; i += kThreads) {
+      const int c = i / (kBM / kG), p = (i % (kBM / kG)) * kG;
+      const int co = nc0 + c, m = m0 + p;
+      if (co < g.c_out && m < m_total) {
+        const int n = m / hw_out, pix = m % hw_out;
+        *reinterpret_cast<uint4*>(out + n * g.son + co * g.soc + pix) =
+            *reinterpret_cast<const uint4*>(ot + c * kPitch + p);
+      }
+    }
+  } else {
+    for (int i = tid; i < BN * kBM; i += kThreads) {
+      const int c = i / kBM, p = i % kBM;
+      const int co = nc0 + c, m = m0 + p;
+      if (co < g.c_out && m < m_total) {
+        const int n = m / hw_out, pix = m % hw_out;
+        out[n * g.son + co * g.soc + (pix / g.w_out) * g.soh +
+            (pix % g.w_out) * g.sow] = ot[c * kPitch + p];
       }
     }
   }
 }
 
-// depthwise: wp (C, k*k) int8; a block row per (image, channel) plane
-// (blockIdx.y), a thread per output pixel of it
-template <typename T>
+// -- depthwise --------------------------------------------------------------
+
+// wp (C, k*k) int8; a block row per (image, channel) plane (blockIdx.y),
+// a thread per output pixel of it, reading the codes
+template <typename O>
 __global__ void __launch_bounds__(kDwThreads)
-    conv_s8_dw_kernel(const T* __restrict__ x, const int8_t* __restrict__ wp,
+    conv_s8_dw_kernel(const int8_t* __restrict__ codes,
+                      const int8_t* __restrict__ wp,
                       const float* __restrict__ wscale,
                       const float* __restrict__ bias,
-                      const float* __restrict__ xscale, void* out, Geo g) {
+                      const float* __restrict__ xscale, O* __restrict__ out,
+                      Geo g) {
   const int p = blockIdx.x * kDwThreads + threadIdx.x;
   if (p >= g.h_out * g.w_out) return;
-  const float xs = *xscale;
   const int c = blockIdx.y % g.c_out, n = blockIdx.y / g.c_out;
   const int oy = p / g.w_out, ox = p % g.w_out;
-  const T* xc = x + n * g.sxn + c * g.sxc;
+  const int8_t* cn = codes + static_cast<long long>(n) * g.h * g.w * g.c_pitch + c;
   const int8_t* wc = wp + c * g.k * g.k;
   int acc = 0;
   for (int ky = 0; ky < g.k; ++ky) {
@@ -243,69 +507,158 @@ __global__ void __launch_bounds__(kDwThreads)
     for (int kx = 0; kx < g.k; ++kx) {
       const int ix = ox * g.stride - g.pad + kx;
       if (ix < 0 || ix >= g.w) continue;
-      acc += quantize(to_f<T>(xc[iy * g.sxh + ix * g.sxw]), xs) *
+      acc += static_cast<int>(cn[(iy * g.w + ix) * g.c_pitch]) *
              static_cast<int>(wc[ky * g.k + kx]);
     }
   }
-  store<T>(out, n * g.son + c * g.soc + oy * g.soh + ox * g.sow, acc,
-           xs * wscale[c], bias[c], g);
+  out[n * g.son + c * g.soc + oy * g.soh + ox * g.sow] =
+      epilogue<O>(acc, *xscale * wscale[c], bias[c], g.act);
+}
+
+// -- launches ---------------------------------------------------------------
+
+// the dynamic shared memory above 48 KB is asked for once per device
+template <int BN, typename O>
+cudaError_t allow_smem() {
+  static std::atomic<unsigned long long> done{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (done.load() & bit) return cudaSuccess;
+  auto kernel = conv_s8_gemm_kernel<BN, O>;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             Tile<BN>::template smem_bytes<O>());
+  if (err == cudaSuccess) done.fetch_or(bit);
+  return err;
+}
+
+template <int BN, typename O>
+cudaError_t launch_gemm(const int8_t* codes, const int8_t* wp,
+                        const float* ws, const float* bb, const float* xs,
+                        void* out, const Geo& g, cudaStream_t stream) {
+  const cudaError_t err = allow_smem<BN, O>();
+  if (err != cudaSuccess) return err;
+  const int m_total = g.n * g.h_out * g.w_out;
+  const dim3 grid((m_total + kBM - 1) / kBM, (g.c_out + BN - 1) / BN);
+  auto kernel = conv_s8_gemm_kernel<BN, O>;
+  kernel<<<grid, kThreads, Tile<BN>::template smem_bytes<O>(), stream>>>(
+      codes, wp, ws, bb, xs, static_cast<O*>(out), g);
+  return cudaGetLastError();
+}
+
+template <typename O>
+cudaError_t launch_conv(const int8_t* codes, const int8_t* wp,
+                        const float* ws, const float* bb, const float* xs,
+                        void* out, const Geo& g, int depthwise, int n_tile,
+                        cudaStream_t stream) {
+  if (depthwise) {
+    const dim3 grid((g.h_out * g.w_out + kDwThreads - 1) / kDwThreads,
+                    g.n * g.c_out);
+    conv_s8_dw_kernel<O><<<grid, kDwThreads, 0, stream>>>(
+        codes, wp, ws, bb, xs, static_cast<O*>(out), g);
+    return cudaGetLastError();
+  }
+  switch (n_tile) {
+    case 32: return launch_gemm<32, O>(codes, wp, ws, bb, xs, out, g, stream);
+    case 64: return launch_gemm<64, O>(codes, wp, ws, bb, xs, out, g, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
-cudaError_t launch(const void* x, const void* wp, const float* wscale,
-                   const float* bias, const float* xscale, void* out, int n,
-                   const Geo& g, int depthwise, int co_pad,
-                   cudaStream_t stream) {
-  const T* xt = static_cast<const T*>(x);
-  const int8_t* w8 = static_cast<const int8_t*>(wp);
-  if (depthwise) {
-    const dim3 grid((g.h_out * g.w_out + kDwThreads - 1) / kDwThreads,
-                    n * g.c_out);
-    conv_s8_dw_kernel<T><<<grid, kDwThreads, 0, stream>>>(
-        xt, w8, wscale, bias, xscale, out, g);
-  } else {
-    const dim3 grid((g.h_out * g.w_out + kBM - 1) / kBM, co_pad / kBN, n);
-    conv_s8_mma_kernel<T><<<grid, kThreads, 0, stream>>>(
-        xt, w8, wscale, bias, xscale, out, g);
-  }
+cudaError_t launch_quant(const void* x, const float* xs, int8_t* codes,
+                         const Geo& g, cudaStream_t stream) {
+  const dim3 grid((g.n * g.h * g.w + kQThreads - 1) / kQThreads,
+                  g.c_pitch / 16);
+  conv_s8_quant_kernel<T><<<grid, kQThreads, 0, stream>>>(
+      static_cast<const T*>(x), xs, codes, g);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // x (n, c_in, h, w) through its strides, float32 (dtype 0) or bfloat16
-// (1); wp the packed int8 weights (groups 1: (co_pad, k*k*ci_pad) with
-// ci_pad a multiple of 32 and co_pad of 64, 16-byte aligned; depthwise:
-// (c, k*k)); wscale, b (c_out,) float32; xscale one float32 on the
-// device; out (n, c_out, h_out, w_out) through its strides, in x's dtype,
-// or int32 sums with sums = 1.
+// (1); wp the packed int8 weights (groups 1: (k*k*c_pitch/32, 2, co_pad,
+// 16) with co_pad a multiple of 64; depthwise: (c, k*k)), 16-byte
+// aligned; wscale, b (c_out,) float32; xscale one float32 on the device;
+// codes a scratch of n*h*w*c_pitch bytes, 16-byte aligned, c_pitch a
+// multiple of 32; out (n, c_out, h_out, w_out) through its strides, in
+// x's dtype, or int32 sums with sums = 1. n_tile: output channels per
+// block of the tensor-core form (32 or 64). vec: the output's
+// planes are contiguous and 16-byte aligned in groups of 16 bytes
+// (h_out * w_out, son and soc multiples of 16 / element size, sow = 1,
+// soh = w_out).
 extern "C" int ssyt_conv_s8(const void* x, const void* wp, const void* wscale,
-                            const void* b, const void* xscale, void* out,
-                            int n, int h, int wd, int c_in, int c_out,
-                            int h_out, int w_out, long long sxn, long long sxc,
-                            long long sxh, long long sxw, long long son,
-                            long long soc, long long soh, long long sow, int k,
-                            int stride, int pad, int depthwise, int ci_pad,
-                            int co_pad, int act, int sums, int dtype,
+                            const void* b, const void* xscale, void* codes,
+                            void* out, int n, int h, int wd, int c_in,
+                            int c_out, int h_out, int w_out, long long sxn,
+                            long long sxc, long long sxh, long long sxw,
+                            long long son, long long soc, long long soh,
+                            long long sow, int k, int stride, int pad,
+                            int depthwise, int c_pitch, int co_pad, int n_tile,
+                            int act, int sums, int dtype, int vec,
                             void* stream) {
-  if (k < 1 || stride < 1 || pad < 0 || n < 1 || n > 65535 || h < 1 ||
-      wd < 1 || c_in < 1 || c_out < 1 || h_out < 1 || w_out < 1 ||
-      (!depthwise && (ci_pad % kBK || ci_pad < c_in || co_pad % kBN ||
-                      co_pad < c_out)) ||
-      (depthwise && (c_in != c_out || n * c_out > 65535))) {
+  const long long pixels = static_cast<long long>(n) * h * wd;
+  if (k < 1 || stride < 1 || pad < 0 || n < 1 || h < 1 || wd < 1 ||
+      c_in < 1 || c_out < 1 || h_out < 1 || w_out < 1 || c_pitch % kBK ||
+      c_pitch < c_in || pixels >= (1ll << 31) ||
+      static_cast<long long>(n) * h_out * w_out >= (1ll << 31) ||
+      static_cast<long long>(h) * wd * c_pitch >= (1ll << 31) ||
+      (!depthwise && (co_pad % kCoAlign || co_pad < c_out)) ||
+      (depthwise && (c_in != c_out || static_cast<long long>(n) * c_out > 65535))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Geo g{h,   wd,  c_in, c_out, h_out, w_out, k,   stride, pad,
-              ci_pad, act, sums, sxn, sxc, sxh,  sxw, son, soc,    soh,
-              sow};
+  const Geo g{n,   h,    wd,      c_in,   c_out, h_out, w_out, k,
+              stride, pad, c_pitch, co_pad, act, sums,  vec,   sxn,
+              sxc,  sxh,  sxw,     son,    soc,   soh,   sow};
+  const int8_t* w8 = static_cast<const int8_t*>(wp);
   const float* ws = static_cast<const float*>(wscale);
   const float* bb = static_cast<const float*>(b);
   const float* xs = static_cast<const float*>(xscale);
+  int8_t* cd = static_cast<int8_t*>(codes);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = dtype == 1 ? launch_quant<__nv_bfloat16>(x, xs, cd, g, s)
+                               : launch_quant<float>(x, xs, cd, g, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (sums) {
+    err = launch_conv<int>(cd, w8, ws, bb, xs, out, g, depthwise, n_tile, s);
+  } else if (dtype == 1) {
+    err = launch_conv<__nv_bfloat16>(cd, w8, ws, bb, xs, out, g, depthwise,
+                                     n_tile, s);
+  } else {
+    err = launch_conv<float>(cd, w8, ws, bb, xs, out, g, depthwise, n_tile, s);
+  }
+  return static_cast<int>(err);
+}
+
+// the quantize pass alone (the codes of x, as ssyt_conv_s8 writes them
+// before its conv): for the tests and the profiling tool
+extern "C" int ssyt_conv_s8_quantize(const void* x, const void* xscale,
+                                     void* codes, int n, int h, int wd,
+                                     int c_in, long long sxn, long long sxc,
+                                     long long sxh, long long sxw,
+                                     int c_pitch, int dtype, void* stream) {
+  if (n < 1 || h < 1 || wd < 1 || c_in < 1 || c_pitch % kBK ||
+      c_pitch < c_in || static_cast<long long>(n) * h * wd >= (1ll << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Geo g{};
+  g.n = n;
+  g.h = h;
+  g.w = wd;
+  g.c_in = c_in;
+  g.c_pitch = c_pitch;
+  g.sxn = sxn;
+  g.sxc = sxc;
+  g.sxh = sxh;
+  g.sxw = sxw;
+  const float* xs = static_cast<const float*>(xscale);
+  int8_t* cd = static_cast<int8_t*>(codes);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      dtype == 1 ? launch<__nv_bfloat16>(x, wp, ws, bb, xs, out, n, g,
-                                         depthwise, co_pad, s)
-                 : launch<float>(x, wp, ws, bb, xs, out, n, g, depthwise,
-                                 co_pad, s);
+      dtype == 1 ? launch_quant<__nv_bfloat16>(x, xs, cd, g, s)
+                 : launch_quant<float>(x, xs, cd, g, s);
   return static_cast<int>(err);
 }

@@ -68,7 +68,9 @@ _SIGNATURES = {
                       _I, _I, _I, _I, _P),
     "ssyt_conv_mma": (_P, _P, _P, _P, _I, _I, _I, _I, _I, *(_L,) * 8,
                       _I, _I, _I, _I, _I, _P),
-    "ssyt_conv_s8": (*(_P,) * 6, *(_I,) * 7, *(_L,) * 8, *(_I,) * 9, _P),
+    "ssyt_conv_s8": (*(_P,) * 7, *(_I,) * 7, *(_L,) * 8, *(_I,) * 11, _P),
+    "ssyt_conv_s8_quantize": (_P, _P, _P, _I, _I, _I, _I, *(_L,) * 4, _I, _I,
+                              _P),
 }
 
 # byte counts; the other entry points return a CUDA error code

@@ -1,6 +1,8 @@
 """K8: the int8 conv of post-training quantization (``csrc/conv_s8.cu``),
 its wrapper :func:`conv_s8`, its plain PyTorch version
-:func:`conv_s8_plain` and the weight packing :func:`pack_s8`.
+:func:`conv_s8_plain`, the quantize pass's plain version
+:func:`quantize_codes_plain`, the weight packing :func:`pack_s8` and the
+rule for the N tile, :func:`n_tile`.
 
 It replaces no Pallas kernel: its counterpart is the JAX package's
 ``ops/quant.py:41`` ``conv_int8_apply``, an XLA convolution of int8 codes
@@ -8,7 +10,7 @@ with int32 sums (the TPU's int8 matrix unit) and its dequantize / bias /
 SiLU epilogue. PyTorch has no int8 convolution on CUDA, so the port's is
 written for the H100's int8 tensor cores.
 
-What it computes, on NCHW activations, one launch per conv:
+What it computes, on NCHW activations, one call per conv:
 ``xq = clip(round(x / xscale), -127, 127)`` (x widened to float32, a true
 division, half to even), int32 sums of ``xq * wq`` over (ky, kx, ci),
 then ``y = fma(sum, xscale * wscale[c], b[c])`` rounded once, SiLU
@@ -17,12 +19,23 @@ exact, so the kernel and the plain version agree on them bit for bit,
 and on every output where the epilogue rounds alike: always with
 ``act=False``, and with the SiLU where the plain version runs
 ``torch.sigmoid`` on the card (the same ``1 / (1 + expf(-y))``).
-Groups 1 (tensor cores) or depthwise (groups = C_in = C_out, CUDA
-cores); any k, stride and padding.
+Groups 1 or depthwise (groups = C_in = C_out); any k, stride and
+padding.
+
+How, on the card (two launches, one wrapper call): a quantize pass
+writes each element's code once, channel-minor, into a scratch of shape
+(N, H, W, C_pitch) (:func:`quantize_codes_plain` gives the same array);
+then groups 1 runs an implicit GEMM on the int8 tensor cores (``wgmma``
+m64nNk32): M the flattened (n, oy, ox) output pixels in tiles of 64 that
+span images, N the output channels in tiles of :func:`n_tile`, K the
+(tap, ci) in chunks of 32 codes, each chunk's rows gathered from the
+codes with zeros outside the image, the weights packed by :func:`pack_s8`
+as the tensor cores read them; the depthwise form sums its k*k
+products of the same codes on the CUDA cores.
 
 Bound (chip_smoke): the larger of the bytes (x read once, the weights
 once, the output written once) over 3.35 TB/s and 2 x MACs over 1,979
-TOPS (int8 dense).
+TOPS (int8 dense); at yolov8n's shapes every conv is bound by its bytes.
 """
 
 from __future__ import annotations
@@ -34,17 +47,30 @@ from strongsort_yolo_tpu_torch.ops.crops import fma32
 from strongsort_yolo_tpu_torch.ops.cuda import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-BK, BN = 32, 64  # the tensor-core form's K step and output-channel tile
+BK = 32  # codes per K chunk: C_in is padded to it, per tap
+BM = 64  # output pixels per block of the tensor-core form
+CO_ALIGN = 64  # pack_s8's rows: C_out padded to it
+N_TILES = (32, 64)  # output channels per block of the tensor-core form
 
 
 def is_depthwise(wq: torch.Tensor, groups: int) -> bool:
     return groups > 1 and wq.shape[1] == 1 and wq.shape[0] == groups
 
 
-def _pads(wq: torch.Tensor) -> tuple[int, int]:
-    """(ci_pad, co_pad) of the tensor-core form: C_in / groups to a
-    multiple of BK, C_out to a multiple of BN."""
-    return -(-wq.shape[1] // BK) * BK, -(-wq.shape[0] // BN) * BN
+def c_pitch(c_in: int) -> int:
+    """Codes per pixel of the quantize pass's output: C_in padded to a
+    multiple of ``BK``."""
+    return -(-c_in // BK) * BK
+
+
+def n_tile(c_out: int) -> int:
+    """Output channels per block of the tensor-core form: 32 where C_out
+    fits in it, else 64. Measured at yolov8n's 32 int8 convs
+    (tools/prof_s8.py, PERF.md): a block's chunk loop is a chain of short
+    latencies, so more and narrower blocks win; of the convs with C_out
+    above 32, 64 beat 32 on all but two 1x1 convs at 20 x 20, and 128 on
+    all but one 3x3 stride-2 conv."""
+    return N_TILES[0] if c_out <= N_TILES[0] else N_TILES[1]
 
 
 def _check(x, wq, wscale, b, xscale, groups: int) -> None:
@@ -95,11 +121,60 @@ def conv_s8_plain(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
     return y.to(x.dtype)
 
 
+def _planes_vec(t: torch.Tensor) -> bool:
+    """Whether the planes of an NCHW tensor are contiguous and 16-byte
+    aligned in groups of 16 bytes, so that a kernel moves them 16 bytes
+    at a time."""
+    n, c, h, w = t.shape
+    group = 16 // t.element_size()
+    sn, sc, sh, sw = t.stride()
+    return (sw == 1 and sh == w and (h * w) % group == 0 and sc % group == 0
+            and sn % group == 0 and t.data_ptr() % 16 == 0)
+
+
+def quantize_codes_plain(x: torch.Tensor,
+                         xscale: torch.Tensor) -> torch.Tensor:
+    """What the kernel's quantize pass writes: the codes of
+    :func:`quantize_act`, channel-minor, (N, H, W, c_pitch(C)) int8 with
+    zero codes past C."""
+    n, c, h, w = x.shape
+    codes = torch.zeros((n, h, w, c_pitch(c)), dtype=torch.int8,
+                        device=x.device)
+    codes[..., :c] = quantize_act(x, xscale).permute(0, 2, 3, 1)
+    return codes
+
+
+def quantize_codes(x: torch.Tensor, xscale: torch.Tensor) -> torch.Tensor:
+    """K8's quantize pass alone on a CUDA tensor (the codes that
+    :func:`conv_s8` writes before its conv), :func:`quantize_codes_plain`
+    on a CPU tensor: NCHW x -> (N, H, W, c_pitch(C)) int8. Counts no
+    launch: for the tests and the profiling tool."""
+    if x.device.type == "cpu":
+        return quantize_codes_plain(x, xscale)
+    if x.dim() != 4 or x.dtype not in _DTYPES or x.device.type != "cuda" or (
+            xscale.device != x.device or xscale.numel() != 1):
+        raise ValueError(f"quantize_codes wants x (N, C, H, W) float32 or "
+                         f"bfloat16 and one xscale on one CUDA device; got "
+                         f"{tuple(x.shape)} {x.dtype} on {x.device}")
+    n, c, h, w = x.shape
+    codes = torch.empty((n, h, w, c_pitch(c)), dtype=torch.int8,
+                        device=x.device)
+    xs = xscale.float().reshape(1).contiguous()
+    err = _build.lib().ssyt_conv_s8_quantize(
+        x.data_ptr(), xs.data_ptr(), codes.data_ptr(), n, h, w, c,
+        *x.stride(), c_pitch(c), _DTYPES[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "quantize_codes")
+    return codes
+
+
 def pack_s8(wq: torch.Tensor, groups: int = 1) -> torch.Tensor:
-    """K8's weights: for groups 1, ``(co_pad, k * k * ci_pad)`` int8, a
-    row per output channel over (tap, ci), C_in padded with zeros to a
-    multiple of 32 per tap and C_out to a multiple of 64; for a depthwise
-    conv, ``(C, k * k)``."""
+    """K8's weights: for groups 1, ``(k * k * ci_pad / 32, 2, co_pad, 16)``
+    int8: per K chunk of 32 codes over (ky, kx, ci), its two halves of 16,
+    each a row of 16 codes per output channel (wgmma's no-swizzle K-major
+    layout of B: a block's channels of one half are one contiguous run),
+    C_in padded with zeros to ``ci_pad = c_pitch(C_in)`` per tap and C_out
+    to ``co_pad``, a multiple of 64; for a depthwise conv, ``(C, k * k)``."""
     c_out, cig, k, _ = wq.shape
     if is_depthwise(wq, groups):
         return wq.reshape(c_out, k * k).contiguous()
@@ -107,7 +182,13 @@ def pack_s8(wq: torch.Tensor, groups: int = 1) -> torch.Tensor:
     blob = torch.zeros((co_pad, k * k, ci_pad), dtype=torch.int8,
                        device=wq.device)
     blob[:c_out, :, :cig] = wq.permute(0, 2, 3, 1).reshape(c_out, k * k, cig)
-    return blob.reshape(co_pad, k * k * ci_pad)
+    chunks = k * k * ci_pad // BK
+    return blob.reshape(co_pad, chunks, 2, 16).permute(1, 2, 0, 3).contiguous()
+
+
+def _pads(wq: torch.Tensor) -> tuple[int, int]:
+    """(ci_pad, co_pad) of the tensor-core form's packed weights."""
+    return c_pitch(wq.shape[1]), -(-wq.shape[0] // CO_ALIGN) * CO_ALIGN
 
 
 def conv_s8(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
@@ -135,7 +216,8 @@ def conv_s8(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
     depthwise = is_depthwise(wq, groups)
     blob = pack_s8(wq, groups) if packed is None else packed
     ci_pad, co_pad = _pads(wq)
-    want = (c_out, k * k) if depthwise else (co_pad, k * k * ci_pad)
+    want = ((c_out, k * k) if depthwise
+            else (k * k * ci_pad // BK, 2, co_pad, 16))
     if (blob.dtype != torch.int8 or blob.device != x.device
             or tuple(blob.shape) != want or not blob.is_contiguous()
             or blob.data_ptr() % 16):
@@ -146,18 +228,38 @@ def conv_s8(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
                       dtype=torch.int32 if sums else x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    ws = wscale.float().contiguous()
-    bk = b.float().contiguous()
-    xs = xscale.float().reshape(1).contiguous()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _build.lib().ssyt_conv_s8(
-        x.data_ptr(), blob.data_ptr(), ws.data_ptr(), bk.data_ptr(),
-        xs.data_ptr(), out.data_ptr(), n, h, w, c_in, c_out, h_out, w_out,
-        *x.stride(), *out.stride(), k, stride, pad, int(depthwise), ci_pad,
-        co_pad, int(act), int(sums), _DTYPES[x.dtype], stream)
+    launch(x, blob, wscale, b, xscale, out, k=k, stride=stride, pad=pad,
+           depthwise=depthwise, act=act, bn=n_tile(c_out))
     conv_s8.launches += 1
-    _build.check(err, "conv_s8")
     return out
 
 
 conv_s8.launches = 0
+
+
+def launch(x: torch.Tensor, blob: torch.Tensor, wscale: torch.Tensor,
+           b: torch.Tensor, xscale: torch.Tensor, out: torch.Tensor, *,
+           k: int, stride: int, pad: int, depthwise: bool, act: bool,
+           bn: int) -> None:
+    """The C entry on checked CUDA tensors (:func:`conv_s8` checks them):
+    the quantize pass into a scratch of codes, then the conv into
+    ``out`` (int32 sums where ``out`` is int32) with ``bn`` output
+    channels per block of the tensor-core form. Counts no launch: the
+    profiling tool calls it with each tile of ``N_TILES``."""
+    n, c_in, h, w = x.shape
+    _, c_out, h_out, w_out = out.shape
+    pitch = c_pitch(c_in)
+    codes = torch.empty((n, h, w, pitch), dtype=torch.int8, device=x.device)
+    ws = wscale.float().contiguous()
+    bk = b.float().contiguous()
+    xs = xscale.float().reshape(1).contiguous()
+    co_pad = blob.shape[2] if not depthwise else c_out
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _build.lib().ssyt_conv_s8(
+        x.data_ptr(), blob.data_ptr(), ws.data_ptr(), bk.data_ptr(),
+        xs.data_ptr(), codes.data_ptr(), out.data_ptr(), n, h, w, c_in, c_out,
+        h_out, w_out, *x.stride(), *out.stride(), k, stride, pad,
+        int(depthwise), pitch, co_pad, bn, int(act),
+        int(out.dtype == torch.int32), _DTYPES[x.dtype],
+        int(_planes_vec(out)), stream)
+    _build.check(err, "conv_s8")

@@ -89,6 +89,8 @@ from strongsort_yolo_tpu_torch.ops.cuda.quant_kernel import (
     conv_s8,
     conv_s8_plain,
     pack_s8,
+    quantize_codes,
+    quantize_codes_plain,
 )
 from strongsort_yolo_tpu_torch.ops.cuda.resize_kernel import letterbox_u8
 from strongsort_yolo_tpu_torch.ops.letterbox import letterbox, letterbox_params
@@ -1288,7 +1290,10 @@ def test_unfused_osnet_on_the_card_equals_the_folded_one(dev):
 
 # (n, c_in, h, w, c_out, k, stride, groups, act): yolov8n's classes at 640
 # (1x1 and 3x3 stride 1, 3x3 stride 2, C_in 16 padded to 32), yolo11n-pose's
-# depthwise pe conv and its act=False 1x1s, and a ragged C_out
+# depthwise pe conv and its act=False 1x1s, a ragged C_out; and the edges
+# of the tensor-core form's tiles: 64-pixel tiles across three 20 x 20
+# images, C_out 256 (two or more N tiles), stride 2 on a 41 x 41 plane
+# (ragged output rows, no 16-byte stores), a 1x1 conv with C_in 512
 S8_CASES = [
     (2, 16, 160, 160, 32, 1, 1, 1, True),
     (2, 64, 80, 80, 64, 3, 1, 1, True),
@@ -1296,6 +1301,10 @@ S8_CASES = [
     (2, 128, 20, 20, 128, 3, 1, 128, False),
     (2, 128, 20, 20, 256, 1, 1, 1, False),
     (1, 48, 33, 17, 51, 3, 1, 1, True),
+    (3, 128, 20, 20, 128, 3, 1, 1, True),
+    (2, 128, 40, 40, 256, 3, 2, 1, True),
+    (2, 64, 41, 41, 64, 3, 2, 1, True),
+    (2, 512, 20, 20, 256, 1, 1, 1, True),
 ]
 
 
@@ -1335,6 +1344,18 @@ def test_conv_s8_kernel_equals_plain(dev, case, dtype, scale):
         err = ((got.float() - want.float()).abs()
                / want.float().abs().clamp(min=1.0)).max()
         assert float(err) <= unit
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", S8_CASES[:6])
+def test_conv_s8_codes_equal_plain(dev, case, dtype):
+    """K8's quantize pass alone: the codes, channel-minor and zero-padded,
+    equal quantize_codes_plain's, also through a channel slice."""
+    args, _ = _s8_case(dev, case, dtype, "dynamic")
+    x, xs = args[0], args[4]
+    assert torch.equal(quantize_codes(x, xs), quantize_codes_plain(x, xs))
+    wide = torch.cat([x, x.flip(1)], 1)[:, :x.shape[1]]
+    assert torch.equal(quantize_codes(wide, xs), quantize_codes_plain(x, xs))
 
 
 def test_conv_s8_reads_strided_input(dev):
