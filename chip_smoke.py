@@ -160,7 +160,9 @@ raises and the process exits nonzero:
    within 1 px); and a run killed after frame 3 and resumed on the card,
    sequential and batched (cuDNN deterministic), equal to the
    uninterrupted run: final checkpoints field for field and the label
-   files byte for byte;
+   files byte for byte; then tools/make_demo's three images rendered on
+   the card and on the CPU into a temporary directory, their decoded
+   pixels equal;
 6. offline tracking, the repo's tracking-quality tools on the card:
    (6a) ``tools/eval_mot --public`` on tests/fixtures/MOT-synth01 for
    bytetrack.yaml, botsort.yaml, strongsort.yaml (motion-only) and
@@ -205,7 +207,10 @@ raises and the process exits nonzero:
    imgsz 160: the task terms finite, the loss falling, the saved file
    served with its task; (7d) the full-width step, yolov8n (nc 80)
    batch 16 and yolov8n-seg batch 4 at imgsz 640, 10 steps each: median
-   ms per step and peak allocated memory, the losses finite; (7e) the
+   ms per step and peak allocated memory, the losses finite, and the
+   yolov8n run again in bfloat16 (make_train_step(compute_dtype=
+   torch.bfloat16), float32 masters): ms per step, peak memory, the
+   losses beside float32's; (7e) the
    OSNet trainer's own recipe, ``tools/train_osnet --steps 1200``: the
    loss falling, the unseen-id rank-1 at least 0.9, the file served by
    the StrongSORT Pipeline; then K7's gradient on the card
@@ -258,7 +263,19 @@ raises and the process exits nonzero:
    frame; then the default tracker at full width (yolov8n 640 bf16, S=8
    panned 1080p streams): botsort.yaml's host sparseOptFlow and BoT-SORT
    with flow_tpu a tick each in turns, ms per tick of each and of
-   compute_warps alone.
+   compute_warps alone;
+9. several devices, a dp=2 mesh (two cards where there are two, else
+   cuda:0 named twice): (9a) S=8 1080p, yolov8n 640, ByteTrack, then
+   StrongSORT + OSNet-x0_25 fused with flow_tpu on the panned scene, 10
+   ticks each through track_batch_prepare(mesh=) and through the
+   unsharded BatchedPipeline: in float32 (TF32 off) the same rows and
+   ids, boxes within 1e-3 px, and each block's K1-K6 launches equal to
+   the unsharded path's; in bf16 the ms per tick of both; (9b) which
+   torch.distributed collectives the process group (gloo on one card,
+   NCCL on two) completes on CUDA tensors, then tools/train --dp 2 (10
+   steps) and, where the group gathers CUDA tensors, --tp 2 (3 steps),
+   yolov8n 640 batch 16, the first loss within 1e-6 relative of 7d's
+   one-process run, every loss printed beside it, ms per step.
 
 The JSON line before the card's name is one object with one entry per
 kernel: its launches (K1-K3 and K5 counted on the flow path, K4 on the
@@ -4590,13 +4607,15 @@ def phase_train_tasks(card: str, tmp: str) -> None:
             "rendered frame")
 
 
-def phase_train_full_width(card: str) -> None:
+def phase_train_full_width(card: str) -> dict:
     """7d: the full-width step at imgsz 640, 10 steps each (cut from 20 to
-    keep phase 7 near its time budget)."""
+    keep phase 7 near its time budget), and yolov8n's in bfloat16. ->
+    the yolov8n float32 record."""
     import torch
 
     from strongsort_yolo_tpu_torch.tools import train
 
+    out = None
     for model, batch in (("yolov8n", 16), ("yolov8n-seg", 4)):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -4612,6 +4631,55 @@ def phase_train_full_width(card: str) -> None:
             + f" [{card}]")
         if not all(np.isfinite(v) for _, m in res["losses"] for v in m.values()):
             raise AssertionError(f"7d {model}: non-finite losses")
+        out = out or res
+    train_bf16(card, out)
+    return out
+
+
+def train_bf16(card: str, f32: dict) -> None:
+    """7d in bfloat16: tools/train's yolov8n recipe of 7d (seed 0, the
+    synthetic batches of data seed 0, batch 16, imgsz 640, 10 steps)
+    through make_train_step(compute_dtype=torch.bfloat16), which the
+    tool takes no flag for; ms per step by CUDA events, peak memory, the
+    losses beside the float32 run's ``f32``."""
+    import torch
+
+    from strongsort_yolo_tpu_torch.models.yolo import build_model
+    from strongsort_yolo_tpu_torch.tools.train import _StepTimer, synthetic_batch
+    from strongsort_yolo_tpu_torch.train.trainer import (
+        init_train_state, make_optimizer, make_train_step,
+    )
+
+    cfg = build_model("yolov8n")
+    tx = make_optimizer(1e-3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(0, cfg, tx, torch.device("cuda"))
+    step = make_train_step(cfg, 640, tx, compute_dtype=torch.bfloat16)
+    rng = np.random.default_rng(0)
+    timer, losses = _StepTimer(torch.device("cuda")), []
+    for _ in range(10):
+        images, targets = synthetic_batch(rng, 16, 640)
+        timer.start()
+        state, metrics = step(state, images, targets)
+        timer.stop()
+        losses.append({k: float(v) for k, v in metrics.items()})
+    ms = timer.ms()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not all(m["num_fg"] > 0 and all(np.isfinite(v) for v in m.values())
+               for m in losses):
+        raise AssertionError(f"7d bf16: losses {losses}")
+    if any(t.dtype != torch.float32 for t in state.opt.param_groups[0]["params"]):
+        raise AssertionError("7d bf16: a trained tensor left float32")
+    f32_loss = [m["loss"] for _, m in f32["losses"]]
+    log(f"7d yolov8n bf16 (compute_dtype=torch.bfloat16, float32 masters) "
+        f"imgsz 640 batch 16, 10 steps: median {float(np.median(ms[5:])):.2f} "
+        f"ms per step after 5 (first {ms[0]:.1f}; float32 "
+        f"{float(np.median(f32['step_ms'][5:])):.2f}), peak allocated "
+        f"{peak:.2f} GiB; losses "
+        + ", ".join(f"{m['loss']:.4f}" for m in losses)
+        + " (float32: " + ", ".join(f"{v:.4f}" for v in f32_loss)
+        + f") [{card}]")
 
 
 def phase_train_osnet(card: str, out: str, res: dict) -> None:
@@ -4670,10 +4738,11 @@ def phase_train_osnet(card: str, out: str, res: dict) -> None:
             raise AssertionError(f"7e: K7's gradient differs: {errs}")
 
 
-def phase_training(card: str, kernels: dict) -> None:
+def phase_training(card: str, kernels: dict) -> dict:
     """Phase 7: training on the card. The trainers of 7b and 7e, each
     bound by its own host thread, run at once in processes of their own
-    while 7a runs; 7c and 7d, which are timed, run after them."""
+    while 7a runs; 7c and 7d, which are timed, run after them. -> 7d's
+    yolov8n float32 record (tools/train's)."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -4703,7 +4772,222 @@ def phase_training(card: str, kernels: dict) -> None:
         mark("phase 7c: segment and pose training")
         phase_train_tasks(card, tmp)
         mark("phase 7d: the full-width step at 640")
-        phase_train_full_width(card)
+        return phase_train_full_width(card)
+
+
+def phase_demo(card: str) -> None:
+    """5 (the demo tool): tools/make_demo's three images rendered on the
+    card and on the CPU into a temporary directory; their decoded pixels
+    must be equal (the Results drawn are phase 4's trained checkpoints,
+    card == CPU)."""
+    from strongsort_yolo_tpu_torch.media.video import _cv2
+    from strongsort_yolo_tpu_torch.tools import make_demo
+
+    cv2 = _cv2()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        card_paths = make_demo.main([os.path.join(tmp, "card"), "--device",
+                                     "cuda"])
+        seconds = time.perf_counter() - t0
+        cpu_paths = make_demo.main([os.path.join(tmp, "cpu"), "--device", "cpu"])
+        for a, b in zip(card_paths, cpu_paths):
+            got, want = cv2.imread(a), cv2.imread(b)
+            differ = int((got != want).any(-1).sum())
+            log(f"make_demo {os.path.basename(a)} {got.shape}: {differ} pixels "
+                f"differ card vs CPU")
+            if differ:
+                raise AssertionError(f"make_demo {a}: card != CPU")
+    log(f"make_demo on the card: 3 images in {seconds:.2f} s [{card}]")
+
+
+def _mesh_devices(n: int) -> list[str]:
+    """n mesh positions: distinct cards where there are n, else cuda:0
+    named n times."""
+    import torch
+
+    if torch.cuda.device_count() >= n:
+        return [f"cuda:{k}" for k in range(n)]
+    return ["cuda:0"] * n
+
+
+def _block_counts(sharded, kernels) -> list[dict]:
+    """Per block of ``sharded``, the launches of each of ``kernels`` made
+    inside that block's halves of a tick (the host queues the blocks one
+    after another, so the count moved inside a call is that block's)."""
+    per = [{k.__name__: 0 for k in kernels} for _ in sharded.blocks]
+    for b, counts in zip(sharded.blocks, per):
+        for name in ("_start", "_finish"):
+            real = getattr(b, name)
+
+            def counted(*a, real=real, counts=counts):
+                before = {k.__name__: k.launches for k in kernels}
+                try:
+                    return real(*a)
+                finally:
+                    for k in kernels:
+                        counts[k.__name__] += k.launches - before[k.__name__]
+
+            setattr(b, name, counted)
+    return per
+
+
+def phase_mesh_serving(card: str, kernels) -> None:
+    """9a: the S=8 1080p path over a dp=2 mesh (two cards where there are
+    two, else cuda:0 twice), ByteTrack and StrongSORT with the fused
+    OSNet and gmc flow_tpu (the panned scene), 10 ticks each: in float32
+    without TF32, sharded against the unsharded BatchedPipeline (the same
+    rows and ids, boxes within 1e-3 px); each block's K1-K6 launches
+    equal to the unsharded path's; then both in bf16, ms per tick."""
+    import torch
+
+    from strongsort_yolo_tpu_torch.config import DetectorConfig
+    from strongsort_yolo_tpu_torch.parallel.mesh import make_mesh
+    from strongsort_yolo_tpu_torch.pipeline import BatchedPipeline, Pipeline
+    from strongsort_yolo_tpu_torch.track.bytetrack import ByteTrackConfig
+    from strongsort_yolo_tpu_torch.track.strongsort import StrongSortConfig
+
+    h, w = 1080, 1920
+    mesh = make_mesh(2, devices=_mesh_devices(2))
+    pool = make_frames(h, w)
+    scene = panned_scene(h, w)
+    names = [k.__name__ for k in kernels]
+    paths = (
+        ("bytetrack", ByteTrackConfig(tracker_type="bytetrack"), False,
+         [np.stack([pool[(s + t) % len(pool)] for s in range(S_MAIN)])
+          for t in range(TICKS)], names[:3]),
+        ("strongsort fused flow_tpu", StrongSortConfig(gmc_method="flow_tpu"),
+         True, [np.stack([np.roll(scene, (t * dy, t * dx), axis=(0, 1))
+                          for dx, dy in PANS]) for t in range(TICKS)], names),
+    )
+    for label, tracker, fused, ticks, needed in paths:
+        for half in (False, True):
+            pipe = Pipeline(
+                DetectorConfig(weights="yolov8n", imgsz=640, half=half,
+                               max_det=1000),
+                tracker=tracker, track_slots=256, tracker_max_dets=128,
+                reid_topk=128, reid_fused=fused, seed=0, device="cuda")
+            calibrate_candidates(pipe, ticks[0][0], pipe.det_cfg.conf,
+                                 TARGET_DETS)
+            runs = {}
+            for name in ("unsharded", "sharded"):
+                bp = (BatchedPipeline(pipe, S_MAIN, (h, w)) if name ==
+                      "unsharded" else pipe.track_batch_prepare(
+                          S_MAIN, (h, w), mesh=mesh))
+                per = _block_counts(bp, kernels) if name == "sharded" else None
+                results = []
+                counts, times, _ = _drive(
+                    bp, ticks, kernels, lambda b, r: results.append(r))
+                runs[name] = (counts, times, results, per)
+            counts, times, results, _ = runs["unsharded"]
+            _, s_times, s_results, per = runs["sharded"]
+            dtype = "bf16" if half else "float32"
+            if not half:
+                rows = 0
+                for t, (want, got) in enumerate(zip(results, s_results)):
+                    for i, (a, b) in enumerate(zip(want, got)):
+                        if len(a) != len(b) or not np.array_equal(
+                                a.boxes.id, b.boxes.id) or not np.allclose(
+                                    a.boxes.xyxy, b.boxes.xyxy, atol=1e-3):
+                            raise AssertionError(
+                                f"9a {label}: tick {t} stream {i} sharded != "
+                                "unsharded")
+                        rows += len(a)
+                _check_results(f"9a {label}", results[-1])
+                for k, c in enumerate(per):
+                    if c != counts or not all(c[n] for n in needed):
+                        raise AssertionError(
+                            f"9a {label}: block {k} launched {c}, the "
+                            f"unsharded path {counts}")
+                log(f"9a {label}, S={S_MAIN} 1080p over dp=2 on {mesh.flat()} "
+                    f"float32: {TICKS} ticks, {rows} rows, sharded == "
+                    f"unsharded (ids equal, boxes within 1e-3 px); launches "
+                    f"per block {per}, unsharded {counts}")
+            else:
+                log(f"9a {label} bf16 ms/tick: unsharded {_ms_line(times)}; "
+                    f"sharded over dp=2 {_ms_line(s_times)} [{card}]")
+            del pipe, runs
+
+
+def probe_collectives(mesh) -> dict:
+    """In each rank: which torch.distributed collectives this process
+    group (gloo on a shared card, NCCL on distinct ones) completes on
+    CUDA tensors. -> {name: "ok" or the error's first line}."""
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    n, rank = dist.get_world_size(), dist.get_rank()
+    x = torch.full((4,), float(rank + 1), device=dev)
+    tries = {
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "broadcast": lambda: dist.broadcast(x.clone(), 0),
+        "all_gather": lambda: dist.all_gather(
+            [torch.empty_like(x) for _ in range(n)], x),
+        "reduce_scatter": lambda: dist.reduce_scatter(
+            torch.empty_like(x), [x.clone() for _ in range(n)]),
+        "all_to_all": lambda: dist.all_to_all(
+            [torch.empty_like(x) for _ in range(n)],
+            [x.clone() for _ in range(n)]),
+    }
+    out = {}
+    for name, run in tries.items():
+        try:  # a probe: what fails is reported, and the ranks go on
+            run()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except (RuntimeError, ValueError) as err:
+            out[name] = str(err).splitlines()[0][:80]
+        dist.barrier()
+    return out
+
+
+def phase_mesh_training(card: str, ref: dict) -> None:
+    """9b: tools/train over dp=2 (two processes: gloo on one card, NCCL on
+    two), yolov8n imgsz 640 batch 16 (8 a rank), 10 steps, against 7d's
+    one-process run ``ref``: the first step's loss within 1e-6 relative
+    (the CPU test's bar), every step's printed; ms per step. Then tp=2,
+    three steps, where the group can gather CUDA tensors (NCCL on two
+    cards; gloo on one, if its probe says all_gather runs). First, which
+    collectives the process group takes on CUDA tensors."""
+    import torch
+
+    from strongsort_yolo_tpu_torch.parallel.mesh import make_mesh
+    from strongsort_yolo_tpu_torch.parallel.ranks import backend_for, launch
+    from strongsort_yolo_tpu_torch.tools import train
+
+    mesh = make_mesh(2, devices=_mesh_devices(2))
+    probe = launch(probe_collectives, mesh, timeout=300, pg_timeout=60)
+    log(f"9b {backend_for(mesh)} on {mesh.flat()}, collectives on CUDA "
+        f"tensors: {probe[0]}")
+    if probe[0]["all_reduce"] != "ok":
+        raise AssertionError("9b: the process group cannot all_reduce CUDA "
+                             "tensors, which dp needs")
+    base = ["--synthetic", "--model", "yolov8n", "--imgsz", "640", "--batch",
+            "16", "--device", "cuda", "--log-every", "1"]
+    want = [m["loss"] for _, m in ref["losses"]]
+    layouts = [("dp=2", ["--dp", "2", "--steps", "10"])]
+    if torch.cuda.device_count() >= 2 or probe[0]["all_gather"] == "ok":
+        layouts.append(("tp=2", ["--dp", "1", "--tp", "2", "--steps", "3"]))
+    else:
+        log("9b tp: not held on the card (one card, whose gloo group cannot "
+            "all_gather CUDA tensors)")
+    for label, flags in layouts:
+        t0 = time.perf_counter()
+        res = train.main([*base, *flags])
+        seconds = time.perf_counter() - t0
+        got = [m["loss"] for _, m in res["losses"]]
+        rel = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+        ms, warm = res["step_ms"], min(5, len(res["step_ms"]) - 1)
+        log(f"9b {label} yolov8n 640 batch 16 on {_mesh_devices(2)}: losses "
+            + ", ".join(f"{v:.6f}" for v in got) + " (one process: "
+            + ", ".join(f"{v:.6f}" for v in want[:len(got)])
+            + f"), relative differences {[f'{r:.1e}' for r in rel]}; median "
+            f"{float(np.median(ms[warm:])):.2f} ms per step after {warm} "
+            f"(rank 0, CUDA events; first {ms[0]:.1f}; one process "
+            f"{float(np.median(ref['step_ms'][5:])):.2f} after 5); "
+            f"{seconds:.1f} s with the ranks' start [{card}]")
+        if not rel[0] <= 1e-6 or res["losses"][0][1]["num_fg"] <= 0:
+            raise AssertionError(f"9b {label}: first loss {got[0]} vs {want[0]}")
 
 
 def main() -> int:
@@ -4768,12 +5052,19 @@ def main() -> int:
     mark("phase 5: the app and CLI")
     phase_app(card, {k.__name__: k for k in (
         letterbox_u8, nms_keep, auction, lk_pyramid, banded_crop, os_stage)})
+    mark("phase 5: the demo tool")
+    phase_demo(card)
     phase_offline(card, {k.__name__: k for k in (
         letterbox_u8, nms_keep, auction, lk_pyramid, banded_crop)})
-    phase_training(card, {k.__name__: k for k in (
+    train_ref = phase_training(card, {k.__name__: k for k in (
         letterbox_u8, nms_keep, auction)})
     report.append(phase_int8(card, {k.__name__: k for k in (
         letterbox_u8, nms_keep, auction, banded_crop, os_stage)}))
+    mark("phase 9a: serving over a dp=2 mesh")
+    phase_mesh_serving(card, (letterbox_u8, nms_keep, auction, lk_pyramid,
+                              banded_crop, os_stage))
+    mark("phase 9b: training over dp=2")
+    phase_mesh_training(card, train_ref)
     mark("done")
     log(json.dumps({"kernels": [
         {k: e[k] for k in ("name", "route", "source", "replaces", "launches",

@@ -92,6 +92,7 @@ class Conv(nn.Module):
         self.int8 = False
         self._k8 = None  # K8's packed weights (pack_s8) on the card
         self.calib = None  # while calibrating: the dict of input amaxes
+        self.tp = None  # training over a mesh: parallel/ranks.TpShard
 
     def quantize_int8(self) -> None:
         """Int8 mode: the float weight becomes ``wq`` and ``wscale``
@@ -171,10 +172,29 @@ class Conv(nn.Module):
             w, b, packed = self._k7
             return conv_act_nchw(x, w, b, k=self.w.shape[-1], act=self.act,
                                  packed=packed)
+        if self.tp is not None:  # training over a mesh: this rank's channels
+            return self.tp.gather(self._float(self.tp.inputs(x)))
+        return self._float(x)
+
+    def _float(self, x: torch.Tensor) -> torch.Tensor:
+        """The float conv. Where the tensors are float32 and ``x`` is
+        narrower (a bfloat16 train step over float32 masters), the weight
+        and bias are cast to ``x``'s dtype and the bias is added after
+        the conv, at the JAX ``conv_apply``'s points; BN's scale and bias
+        are formed in float32 and cast (:func:`bn_act`)."""
+        w = self.w
+        mixed = w.dtype != x.dtype
+        if mixed:
+            w = w.to(x.dtype)
         if self.fused:
-            y = F.conv2d(x, self.w, self.b, self.stride, self.pad, 1, self.groups)
+            if mixed:
+                y = F.conv2d(x, w, None, self.stride, self.pad, 1, self.groups)
+                y = y + self.b.to(y.dtype)[:, None, None]
+            else:
+                y = F.conv2d(x, w, self.b, self.stride, self.pad, 1,
+                             self.groups)
             return F.silu(y) if self.act else y
-        y = F.conv2d(x, self.w, None, self.stride, self.pad, 1, self.groups)
+        y = F.conv2d(x, w, None, self.stride, self.pad, 1, self.groups)
         return bn_act(self, y, act=self.act)
 
 

@@ -369,13 +369,15 @@ def init_model(
     return model.to(device)
 
 
-def model_apply(model: YoloModel, x: torch.Tensor) -> dict[str, torch.Tensor]:
-    """Forward of (B, 3, H, W) in [0, 1], computed in the dtype of the
-    model's parameters -> the JAX ``model_apply`` dict in float32 and in
-    the JAX layouts: 'box_logits' (B, A, 4*reg_max), 'cls_logits' (B, A,
-    nc), and 'kpt_raw' (B, A, nk), or 'mask_coef' (B, A, nm) and 'proto'
-    (B, Hm, Wm, nm)."""
-    out = model(x.to(model.detect.box[0].out.w.dtype))
+def model_apply(model: YoloModel, x: torch.Tensor,
+                compute_dtype: torch.dtype | None = None) -> dict[str, torch.Tensor]:
+    """Forward of (B, 3, H, W) in [0, 1], computed in ``compute_dtype``
+    (default: the dtype of the model's parameters; a narrower one casts
+    each conv's weight, as the JAX ``model_apply`` does) -> the JAX
+    ``model_apply`` dict in float32 and in the JAX layouts: 'box_logits'
+    (B, A, 4*reg_max), 'cls_logits' (B, A, nc), and 'kpt_raw' (B, A,
+    nk), or 'mask_coef' (B, A, nm) and 'proto' (B, Hm, Wm, nm)."""
+    out = model(x.to(compute_dtype or model.detect.box[0].out.w.dtype))
     out = {k: v.float() for k, v in out.items()}
     if "proto" in out:
         out["proto"] = out["proto"].permute(0, 2, 3, 1)

@@ -43,6 +43,11 @@ task extras gathered after their own tick only. A tick synchronises no
 stream; its one host wait is a ReID tracker's read of the detection
 counts (:meth:`Pipeline.embed`).
 
+Over a mesh (``track_batch_prepare(mesh=...)``), :class:`ShardedBatchedPipeline`
+steps each dp row's block of streams as a :class:`BatchedPipeline` on
+that row's device, in one process: every block's work up to the count
+wait is queued before any block waits.
+
 ``Results``/``Boxes``/``Masks``/``Keypoints`` mirror the ultralytics
 result surface (``.boxes{.xyxy,.conf,.cls,.id}``, ``.masks.xy``,
 ``.keypoints.xy``, ``.names``). A track row takes the extras of the
@@ -53,6 +58,8 @@ first read, one mask at a time.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import os
 import time
 from typing import NamedTuple
@@ -473,6 +480,33 @@ class Pipeline:
         return init_track_state(num_streams, self.track_slots, self.device,
                                 feat_dim=self.feat_dim)
 
+    def on_device(self, device: torch.device | str) -> Pipeline:
+        """This pipeline on ``device``: itself where it runs there already,
+        else a copy with the same configuration whose detector and ReID
+        models (with what they derived from their weights) are copied to
+        ``device`` and whose per-device state (copy streams, geometry
+        constants, GMC, tracker state) is made there anew."""
+        device = torch.device(device)
+        if _device_key(device) == _device_key(self.device):
+            return self
+        twin = copy.copy(self)
+        twin.device = device
+        with device_scope(device):
+            twin.model = copy.deepcopy(self.model).to(device)
+            if self.reid is not None:
+                twin.reid = copy.deepcopy(self.reid).to(device)
+            twin.gmc = FlowGMC(device) if self.gmc is not None else None
+            twin.host_gmc = (make_gmc(self.gmc_method)
+                             if self.host_gmc is not None else None)
+            if self._class_filter is not None:
+                twin._class_filter = self._class_filter.to(device)
+            twin._geoms = {}
+            twin._copies = Copies(device)
+            twin._dummy_box = self._dummy_box.to(device)
+            twin.count_waits, twin.count_wait_ms = 0, 0.0
+            twin.track_state = twin.init_states(1)
+        return twin
+
     # -- per-tick building blocks ---------------------------------------
 
     def _geometry(self, src_hw: tuple[int, int]) -> _Geometry:
@@ -601,14 +635,31 @@ class Pipeline:
         frame's count, or past ``reid_topk``, and every row of a frame
         whose (S,) ``mask`` entry is False get a zero feature. The counts
         start for the host before the pyramid is queued and are waited
-        for after it, so the device has the pyramid to run meanwhile."""
+        for after it, so the device has the pyramid to run meanwhile.
+        :meth:`embed_start` and :meth:`embed_finish` are its two halves:
+        a caller may queue other work between them."""
+        return self.embed_finish(self.embed_start(frames, det), det, mask)
+
+    @torch.no_grad()
+    def embed_start(self, frames: torch.Tensor, det: Detections):
+        """The first half of :meth:`embed`: the counts' copy to the host
+        and the pyramid, queued without a wait (None without ReID)."""
         if self.reid is None:
             return None
-        s, t = frames.shape[0], self.tracker_max_dets
+        read = Download(det.count)
+        return read, self.pyramid(frames)
+
+    @torch.no_grad()
+    def embed_finish(self, started, det: Detections,
+                     mask: np.ndarray | None = None) -> torch.Tensor | None:
+        """The second half of :meth:`embed`: wait for the counts, then
+        crop and embed."""
+        if started is None:
+            return None
+        read, pyr = started
+        s, t = det.count.shape[0], self.tracker_max_dets
         feats = torch.zeros((s, t, self.feat_dim), dtype=torch.float32,
                             device=self.device)
-        read = Download(det.count)
-        pyr = self.pyramid(frames)
         slots = self.embed_slots(self._wait_counts(read), mask)
         real = slots[2].astype(bool)
         if real.any():
@@ -836,19 +887,34 @@ class Pipeline:
             frames_bgr))
 
     def track_batch_prepare(self, num_streams: int, src_hw, *, mesh=None,
-                            auto_topk: bool = False) -> BatchedPipeline:
+                            auto_topk: bool = False):
         """-> a :class:`BatchedPipeline` of ``num_streams`` streams of
-        ``src_hw`` frames. ``mesh``: the JAX package shards the streams
-        over chips with it; the port runs on one card and raises for any
-        mesh. ``auto_topk`` is taken and changes nothing: the JAX package
-        uses it to pick a narrower ReID crop batch and replay a tick that
-        overflows it, while the port sizes its crop batch from each
-        tick's real detection counts, so either value gives the same
+        ``src_hw`` frames; with ``mesh`` (``parallel/mesh.make_mesh``) a
+        :class:`ShardedBatchedPipeline`, whose streams split over the
+        mesh's dp rows. ``auto_topk`` is taken and changes nothing: the
+        JAX package uses it to pick a narrower ReID crop batch and replay a
+        tick that overflows it, while the port sizes its crop batch from
+        each tick's real detection counts, so either value gives the same
         results, which equal the JAX package's with either value."""
         if mesh is not None:
-            raise ValueError("track_batch_prepare: the port runs on one "
-                             "card and takes no mesh")
+            return ShardedBatchedPipeline(self, num_streams, src_hw, mesh)
         return BatchedPipeline(self, num_streams, src_hw)
+
+
+def _device_key(device: torch.device) -> torch.device:
+    """``device`` with the current CUDA device's index where it has none."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def device_scope(device: torch.device):
+    """The context in which work for ``device`` is queued: on a card that
+    card as the current device (its current stream and events); nothing
+    on the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
 
 def _pack_outputs(*outs: TrackOutputs) -> torch.Tensor:
@@ -952,6 +1018,11 @@ class BatchedPipeline:
         waiting for the device. frames (S, H, W, 3) uint8 BGR, copied
         before this returns; warps (S, 2, 3) in place of the host
         estimators' (:meth:`compute_warps`; refused with ``flow_tpu``)."""
+        return self._finish(self._start(frames, warps))
+
+    def _start(self, frames: np.ndarray, warps: np.ndarray | None):
+        """The first half of a tick: everything queued before the ReID
+        trackers' wait for their detection counts."""
         p = self.pipeline
         if tuple(frames.shape[:3]) != (self.num_streams, *self.src_hw):
             raise ValueError(
@@ -961,18 +1032,26 @@ class BatchedPipeline:
         if warps is None and self.gmcs is not None:
             warps = self.compute_warps(frames)
         w = p._warps(warps, self.num_streams)
-        mask = has_app = None
+        mask = has_app = grays = None
         if self.cadence > 1:
             phase = self.tick % self.cadence
             mask, has_app = self._masks[phase], self._has_app[phase]
+        self.tick += 1
         with p._copies.frames(frames, self.ring) as dev_frames:
             if self.flow:  # all S warps in one K5 launch
                 grays = frame_to_gray(dev_frames)
                 w = batched_warps(self.prev_grays, grays, self.src_hw,
                                   self.has_prev)
             det, extras = p.detect_with_extras(dev_frames, p.tracker_max_dets)
-            feats = p.embed(dev_frames, det, mask)
-        self.tick += 1
+            started = p.embed_start(dev_frames, det)
+        return w, mask, has_app, grays, det, extras, started
+
+    def _finish(self, begun) -> TickHandle:
+        """The second half of a tick (:meth:`_start`'s result): the ReID
+        crops and the tracker step."""
+        p = self.pipeline
+        w, mask, has_app, grays, det, extras, started = begun
+        feats = p.embed_finish(started, det, mask)
         self.states, out = p.associate(self.states, det, w, feats, has_app)
         if self.flow:
             self.prev_grays = grays
@@ -1010,3 +1089,131 @@ class BatchedPipeline:
             done = torch.cuda.Event()
             done.record()
             done.synchronize()
+
+
+class ShardedHandle:
+    """One dispatched tick of a :class:`ShardedBatchedPipeline`: its
+    blocks' handles, in stream order."""
+
+    __slots__ = ("handles",)
+
+    def __init__(self, handles: list[TickHandle]):
+        self.handles = handles
+
+    def query(self) -> bool:
+        return all(h.query() for h in self.handles)
+
+
+class ShardedBatchedPipeline:
+    """S streams split over a mesh's dp rows: block k steps streams [k S /
+    dp, (k + 1) S / dp) as a :class:`BatchedPipeline` on the device of dp
+    row k (its first tp column; the tp axis replicates, as in the JAX
+    package). The streams are independent, so the blocks exchange
+    nothing: one process queues every block's work, each on its own
+    device. The models are copied to each distinct device once, here
+    (``Pipeline.on_device``); blocks on a repeated device share one copy.
+
+    The :class:`BatchedPipeline` surface, streams in their global order:
+    :meth:`step_async` queues every block's detector, NMS and pyramid
+    work before any block waits on its ReID detection counts (a wait in
+    between would hold the other devices idle), then each block's crops
+    and tracker step. ``states`` and ``last_warps`` gather the blocks'
+    onto the first block's device."""
+
+    def __init__(self, pipeline: Pipeline, num_streams: int, src_hw, mesh):
+        dp = mesh.shape["dp"]
+        if num_streams % dp:
+            raise ValueError(f"{num_streams} streams do not split over "
+                             f"dp={dp}")
+        if pipeline.reid is not None and pipeline.reid_cadence > 1:
+            raise ValueError(
+                "reid_cadence > 1 takes no mesh (the JAX package embeds at a "
+                "cadence only in its packed cross-stream path, without a "
+                "mesh)")
+        self.pipeline = pipeline
+        self.mesh = mesh
+        self.num_streams = num_streams
+        self.src_hw = (int(src_hw[0]), int(src_hw[1]))
+        self.per = num_streams // dp
+        copies: dict[torch.device, Pipeline] = {}
+        self.blocks: list[BatchedPipeline] = []
+        for device in mesh.devices[:, 0]:
+            key = _device_key(device)
+            if key not in copies:
+                copies[key] = pipeline.on_device(device)
+            with device_scope(device):
+                self.blocks.append(
+                    BatchedPipeline(copies[key], self.per, self.src_hw))
+
+    def _parts(self, array):
+        if array is None:
+            return [None] * len(self.blocks)
+        return [array[k * self.per:(k + 1) * self.per]
+                for k in range(len(self.blocks))]
+
+    def step_async(self, frames: np.ndarray,
+                   warps: np.ndarray | None = None) -> ShardedHandle:
+        """Dispatch one tick of the S streams -> its handle (see
+        :meth:`BatchedPipeline.step_async`)."""
+        if tuple(frames.shape[:3]) != (self.num_streams, *self.src_hw):
+            raise ValueError(
+                f"frames must be ({self.num_streams}, {self.src_hw[0]}, "
+                f"{self.src_hw[1]}, 3), got {tuple(frames.shape)}")
+        if warps is not None:
+            warps = np.asarray(warps, np.float32)
+            if warps.shape != (self.num_streams, 2, 3):
+                raise ValueError(f"warps must be ({self.num_streams}, 2, 3), "
+                                 f"got {tuple(warps.shape)}")
+        begun = []
+        for b, f, w in zip(self.blocks, self._parts(frames), self._parts(warps)):
+            with device_scope(b.pipeline.device):
+                begun.append(b._start(f, w))
+        handles = []
+        for b, started in zip(self.blocks, begun):
+            with device_scope(b.pipeline.device):
+                handles.append(b._finish(started))
+        return ShardedHandle(handles)
+
+    def materialize(self, handle: ShardedHandle) -> list[Results]:
+        """Wait for a :meth:`step_async` handle -> list of S Results."""
+        out = []
+        for b, h in zip(self.blocks, handle.handles):
+            with device_scope(b.pipeline.device):
+                out.extend(b.materialize(h))
+        return out
+
+    def step(self, frames: np.ndarray, warps: np.ndarray | None = None):
+        """frames (S, H, W, 3) uint8 BGR -> list of S Results."""
+        return self.materialize(self.step_async(frames, warps))
+
+    def compute_warps(self, frames: np.ndarray) -> np.ndarray:
+        """(S, 2, 3) warps of the streams' host estimators."""
+        return np.concatenate([b.compute_warps(f) for b, f in
+                               zip(self.blocks, self._parts(frames))])
+
+    def reset_stream(self, i: int) -> None:
+        b = self.blocks[i // self.per]
+        with device_scope(b.pipeline.device):
+            b.reset_stream(i % self.per)
+
+    def sync(self) -> None:
+        for b in self.blocks:
+            with device_scope(b.pipeline.device):
+                b.sync()
+
+    def _gather(self, parts: list[torch.Tensor]) -> torch.Tensor:
+        first = self.blocks[0].pipeline.device
+        return torch.cat([t.to(first) for t in parts])
+
+    @property
+    def states(self) -> TrackState:
+        """The S streams' tracker state (a copy on the first block's
+        device)."""
+        return TrackState(*(self._gather(list(fields)) for fields in
+                            zip(*(b.states for b in self.blocks))))
+
+    @property
+    def last_warps(self) -> torch.Tensor | None:
+        if self.blocks[0].last_warps is None:
+            return None
+        return self._gather([b.last_warps for b in self.blocks])

@@ -1,5 +1,5 @@
 """Training CLI: fit a YOLO detector (v8 / YOLO11; detect, segment or
-pose) on a detection dataset, on one device.
+pose) on a detection dataset, on one device or over a mesh of ranks.
 
 Counterpart of ``strongsort_yolo_tpu/tools/train.py``. Data: a YOLO-txt
 layout (an ``images`` dir + per-image ``cls cx cy w h`` normalized label
@@ -15,10 +15,15 @@ Usage:
     python -m strongsort_yolo_tpu_torch.tools.train --steps 500 \\
         [--data DIR | --synthetic] [--model yolov8n] [--imgsz 320]
         [--batch 8] [--lr 1e-3] [--cosine] [--save out.npz]
-        [--seed 0] [--device cuda]
+        [--seed 0] [--device cuda] [--dp N] [--tp M]
 
-``--dp``/``--tp`` above 1 (a mesh of several devices) are ROADMAP A14b
-and raise.
+As in the JAX tool, it trains over a mesh when ``--dp`` is given, or
+``--tp`` is above 1, or more than one CUDA device is visible (to
+``--device cuda``; ``cuda:K`` names one card): N x M
+processes (``parallel/ranks.launch``), position k on card k % (visible
+cards), so a mesh may name one card twice; ``--device cpu`` puts every
+position on the CPU. ``--batch`` is the global batch, split over dp;
+rank 0 logs and saves, and ``main`` returns its record.
 """
 
 from __future__ import annotations
@@ -257,17 +262,38 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda",
                     help="torch device (default: the CUDA device)")
     args = ap.parse_args(argv)
-    if (args.dp or 1) > 1 or args.tp > 1:
-        raise NotImplementedError(
-            "--dp/--tp above 1 shard over a mesh of devices: ROADMAP A14b; "
-            "the port trains on one device")
 
     import torch
+
+    from strongsort_yolo_tpu_torch.parallel.mesh import make_mesh
+    from strongsort_yolo_tpu_torch.parallel.ranks import launch
+
+    device = torch.device(args.device)
+    cards = (torch.cuda.device_count()
+             if device.type == "cuda" and device.index is None else 1)
+    if args.dp or args.tp > 1 or cards > 1:
+        dp = args.dp or max(cards // args.tp, 1)
+        if device.type == "cuda":
+            devices = [torch.device("cuda", k % cards)
+                       for k in range(dp * args.tp)]
+            threads = None
+        else:
+            devices = [device] * (dp * args.tp)
+            threads = max(torch.get_num_threads() // len(devices), 1)
+        mesh = make_mesh(dp=dp, tp=args.tp, devices=devices)
+        return launch(_train, mesh, (args,), threads=threads)[0]
+    return _train(None, args)
+
+
+def _train(mesh, args) -> dict:
+    """The training loop of :func:`main`; over ``mesh``, one rank's."""
+    import torch
+    import torch.distributed as dist
 
     from strongsort_yolo_tpu_torch.models.porting import save_npz_checkpoint
     from strongsort_yolo_tpu_torch.models.yolo import YoloConfig, build_model
     from strongsort_yolo_tpu_torch.train.trainer import (
-        init_train_state, make_optimizer, make_train_step,
+        init_train_state, make_optimizer, make_train_step, shard_batch,
         warmup_cosine_decay_schedule,
     )
 
@@ -286,7 +312,10 @@ def main(argv=None) -> dict:
             args.steps, args.lr * 0.01,
         )
     tx = make_optimizer(lr)
-    state = init_train_state(args.seed, cfg, tx, torch.device(args.device))
+    state = init_train_state(args.seed, cfg, tx, torch.device(args.device),
+                             mesh=mesh)
+    device = next(state.model.parameters()).device
+    lead = mesh is None or dist.get_rank() == 0
     step = make_train_step(cfg, args.imgsz, tx)
 
     rng = np.random.default_rng(0)
@@ -309,15 +338,17 @@ def main(argv=None) -> dict:
     # while the card runs the last; a step's time is the card's, between
     # events recorded around it (the host clock on a CPU, which runs each
     # op as it is called)
-    timer = _StepTimer(torch.device(args.device))
+    timer = _StepTimer(device)
     losses = []
     t0 = time.perf_counter()
     for i in range(args.steps):
         images, targets = next(data)
         timer.start()
+        if mesh is not None:
+            images, targets = shard_batch(mesh, images, targets)
         state, metrics = step(state, images, targets)
         timer.stop()
-        if i % args.log_every == 0 or i == args.steps - 1:
+        if lead and (i % args.log_every == 0 or i == args.steps - 1):
             logged = {k: float(v) for k, v in metrics.items()}
             losses.append((i, logged))
             extra = "".join(
@@ -335,11 +366,15 @@ def main(argv=None) -> dict:
             )
     step_ms = timer.ms()
     seconds = time.perf_counter() - t0
-    print(f"{args.steps} steps in {seconds:.2f} s, median "
-          f"{float(np.median(step_ms)):.2f} ms a step", flush=True)
+    if lead:
+        print(f"{args.steps} steps in {seconds:.2f} s, median "
+              f"{float(np.median(step_ms)):.2f} ms a step", flush=True)
     if args.save:
-        save_npz_checkpoint(args.save, state.model.state_dict(), cfg)
-        print(f"saved {args.save}")
+        sd = (state.model.state_dict() if mesh is None
+              else state.ranks.state_dict(state.model))
+        if lead:
+            save_npz_checkpoint(args.save, sd, cfg)
+            print(f"saved {args.save}")
     return {"losses": losses, "step_ms": step_ms, "seconds": seconds}
 
 

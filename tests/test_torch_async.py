@@ -11,7 +11,8 @@ JAX package's, on the CPU.
   ByteTrack, BoT-SORT with host warps, StrongSORT at cadence 2 (JAX with
   ``auto_topk=True``), ``flow_tpu`` (JAX through its Pallas LK in
   interpret mode) and the pose and segment extras.
-- ``reset_stream`` and ``sync`` between pending handles, ``mesh`` refused,
+- ``reset_stream`` and ``sync`` between pending handles, a dp=2 mesh of
+  the CPU equal to the unsharded batch and refusing ``reid_cadence`` 2,
   ``auto_topk`` changing nothing.
 
 Against JAX: equal rows and ids, boxes and keypoints within 1e-3 px,
@@ -34,6 +35,7 @@ from strongsort_yolo_tpu.track import gmc_tpu
 from strongsort_yolo_tpu.track.bytetrack import ByteTrackConfig as JByteTrackConfig
 from strongsort_yolo_tpu.track.strongsort import StrongSortConfig as JStrongSortConfig
 from strongsort_yolo_tpu_torch.config import DetectorConfig
+from strongsort_yolo_tpu_torch.parallel.mesh import make_mesh
 from strongsort_yolo_tpu_torch.pipeline import BatchedPipeline, Pipeline
 from strongsort_yolo_tpu_torch.track.bytetrack import ByteTrackConfig
 from strongsort_yolo_tpu_torch.track.strongsort import StrongSortConfig
@@ -228,10 +230,28 @@ def test_reset_stream_and_sync_between_pending_handles():
 
 
 def test_track_batch_prepare_mesh_and_auto_topk():
+    """A mesh refuses reid_cadence > 1 (as the JAX package does); at
+    cadence 1 the streams over a dp=2 mesh of the CPU step as the
+    unsharded batch does (same rows and ids, boxes within 1e-3 px),
+    handles materialized newest first."""
     port_kw, _, _, frames, _ = _case("strongsort_cadence2")
     pipe = _port(port_kw)
-    with pytest.raises(ValueError, match="mesh"):
-        pipe.track_batch_prepare(2, (320, 320), mesh=object())
+    mesh = make_mesh(2, devices=["cpu"] * 2)
+    with pytest.raises(ValueError, match="reid_cadence"):
+        pipe.track_batch_prepare(2, (320, 320), mesh=mesh)
+    one = _port({**port_kw, "reid_cadence": 1})
+    plain = one.track_batch_prepare(2, (320, 320))
+    want = [plain.step(frames[t]) for t in range(3)]
+    assert sum(len(r) for r in want[2]) > 0
+    sharded = one.track_batch_prepare(2, (320, 320), mesh=mesh)
+    handles = [sharded.step_async(frames[t]) for t in range(3)]
+    for t in reversed(range(3)):
+        for i, (a, b) in enumerate(zip(want[t], sharded.materialize(handles[t]))):
+            # a block's forward has another batch size: the CPU's convs
+            # may round the last bit otherwise
+            assert len(a) == len(b), (t, i)
+            np.testing.assert_array_equal(b.boxes.id, a.boxes.id)
+            np.testing.assert_allclose(b.boxes.xyxy, a.boxes.xyxy, atol=1e-3)
     runs = []
     for auto in (False, True):
         bp = pipe.track_batch_prepare(2, (320, 320), auto_topk=auto)
