@@ -44,15 +44,18 @@ raises and the process exits nonzero:
    the tensor-core form (bit-identical in the columns form), two launches
    bit-identical, then the trained OSNet's rank-1 >= 0.9 on its unseen
    identities, fused in bfloat16 (K6) and unfused; K7: HGMMA
-   instructions in every mma kernel of the built library (cuobjdump
-   -sass), then every conv shape that the K7 rule picks in yolo11n-pose
-   and yolov8n at 640, S=8, NCHW, in every form (mma, the tensor-core
-   form, in bfloat16; taps and im2col in both dtypes), float32 within
-   2e-5 x max(1, |ref|) and bfloat16 within one bf16 unit at 1.0 of the
-   output scaled by max(1, |ref|), two launches bit-identical, the NHWC
-   layout on four of them; device times (CUDA graph replay) in bfloat16
-   beside the plain version's and cuDNN's F.silu(F.conv2d(x, w, b)), two
-   launches);
+   instructions in every mma and bfloat16 im2col kernel of the built
+   library and no local-memory access (spill) in the CUDA-core kernel
+   (cuobjdump -sass), then every conv shape that the K7 rule picks in
+   yolo11n-pose and yolov8n at 640, S=8, NCHW, in every form (mma, the
+   tensor-core form, in bfloat16; taps and im2col in both dtypes),
+   float32 within 2e-5 x max(1, |ref|) and bfloat16 within one bf16 unit
+   at 1.0 of the output scaled by max(1, |ref|), two launches
+   bit-identical, the NHWC layout on four of them in both dtypes;
+   device times (CUDA graph replay) in bfloat16 and in float32 beside the
+   plain version's, cuDNN's F.silu(F.conv2d(x, w, b)) in the same dtype
+   (two launches; float32 with TF32 off) and the bound, summed over the
+   41 convs of a yolo11n-pose forward);
 3. the main paths at full width: yolov8n (nc=80, imgsz 640, bf16,
    seeded random weights with the class-head bias calibrated to about
    120 candidates per frame), BatchedPipeline over S=8 streams of
@@ -1194,6 +1197,19 @@ def check_tensor_core_sass(kernel: str, instruction: str, label: str) -> None:
         f"({min(counts.values())}-{max(counts.values())}; cuobjdump -sass)")
 
 
+def check_no_spill(kernel: str, label: str) -> None:
+    """No instance of ``kernel`` in the built library loads or stores
+    local memory (LDL/STL in `cuobjdump -sass`: no register spilled)."""
+    from strongsort_yolo_tpu_torch.ops.cuda import _build
+    from strongsort_yolo_tpu_torch.tools.sass import local_accesses
+
+    counts = local_accesses(_build.lib_path(), kernel)
+    log(f"{label}: {len(counts)} {kernel} instances, local loads and "
+        f"stores per instance {sorted(counts.values())} (cuobjdump -sass)")
+    if not counts or max(counts.values()):
+        raise AssertionError(f"{label}: {kernel} spills registers {counts}")
+
+
 def check_no_div64(kernels) -> None:
     """No instance of ``kernels`` calls the 64-bit integer division routine
     or holds its conversion (tools/sass.py on cuobjdump -sass)."""
@@ -1210,6 +1226,48 @@ def check_no_div64(kernels) -> None:
             raise AssertionError(f"{kernel} divides 64-bit integers")
 
 
+DT_NAME = {"torch.bfloat16": "bf16", "torch.float32": "f32"}
+
+
+def k7_times(x, wt, b, k: int, act: bool) -> dict:
+    """Device times (ms, CUDA-graph replay) of K7's forms on NCHW ``x`` in
+    its dtype, of the plain version and of cuDNN's F.silu(F.conv2d(x, w,
+    b)) in the same dtype (two launches; float32 with TF32 off), and the
+    bound: x, the weights in x's dtype, the float32 bias and the output
+    moved once, or the products over the peak of x's type (bf16 tensor
+    cores, f32 CUDA cores). The tensor-core forms (mma, and im2col in
+    bfloat16) run on weights packed once, as the route caches them."""
+    import torch
+    import torch.nn.functional as F
+
+    from strongsort_yolo_tpu_torch.ops.cuda.conv_kernel import (
+        conv_act_kernel, conv_act_plain, pack_im2col, pack_mma,
+    )
+    from strongsort_yolo_tpu_torch.tools.prof_conv import graph_ms
+
+    torch.backends.cudnn.allow_tf32 = False
+    s, c_in, h, w = x.shape
+    c_out = wt.shape[1]
+    half = x.dtype == torch.bfloat16
+    forms = ("mma", "taps", "im2col") if half else ("taps", "im2col")
+    packed = {"mma": pack_mma(wt, k), "im2col": pack_im2col(wt)} if half else {}
+    row = {form: graph_ms(lambda f=form: conv_act_kernel(
+        x, wt, b, k=k, act=act, layout="nchw", form=f,
+        packed=packed.get(f))) for form in forms}
+    row["plain"] = graph_ms(lambda: conv_act_plain(
+        x, wt, b, k=k, act=act, layout="nchw"), iters=5)
+    w4 = (wt.reshape(k, k, c_in, c_out).permute(3, 2, 0, 1).to(x.dtype)
+          .contiguous())
+    bx = b.to(x.dtype)
+    row["library"] = graph_ms(
+        (lambda: F.silu(F.conv2d(x, w4, bx, 1, k // 2))) if act
+        else (lambda: F.conv2d(x, w4, bx, 1, k // 2)))
+    flops = 2 * k * k * c_in * c_out * s * h * w
+    moved = nbytes(x, b) + (x.numel() // c_in * c_out + wt.numel()) * x.element_size()
+    row["bound"] = bound(moved, flops, "bf16" if half else "f32")
+    return row
+
+
 def check_k7(card: str) -> dict:
     """K7 against conv_act_plain on the card: every distinct conv that the
     K7 rule picks in yolo11n-pose and yolov8n at 640 (S=8, NCHW, seeded
@@ -1218,21 +1276,20 @@ def check_k7(card: str) -> dict:
     bit-identical; float32 within 2e-5 x max(1, |ref|) and bfloat16
     within one bf16 unit at 1.0 of the output scaled by max(1, |ref|)
     (the plain version is cuDNN's float32 conv, TF32 off: another
-    summation order); the NHWC layout on K7_REQUIRED. Times in bfloat16
-    (device time, CUDA-graph replay) of the yolo11n-pose shapes: each form, the
-    plain version, the bound and cuDNN's F.silu(F.conv2d(x, w, b)) (two
-    launches); the entry sums them over the convs of one yolo11n-pose
-    forward, the path that runs the route, and reports the mma form, the
-    route's."""
+    summation order); the NHWC layout on K7_REQUIRED in both dtypes.
+    Times in both dtypes of the yolo11n-pose shapes (k7_times: each
+    form, the plain version, cuDNN's conv + SiLU and the bound); the
+    totals over the convs of one yolo11n-pose forward, the path that runs
+    the route, in bfloat16 and in float32 (the route's float32 form is
+    taps); then the SASS checks (HGMMA in the tensor-core kernels, no
+    spill in the CUDA-core one); the entry reports the bfloat16 mma form,
+    the route's default."""
     import torch
-    import torch.nn.functional as F
 
     from strongsort_yolo_tpu_torch.ops.cuda.conv_kernel import (
-        FORMS, conv_act_kernel, conv_act_plain, pack_mma,
+        FORMS, conv_act_kernel, conv_act_plain,
     )
-    from strongsort_yolo_tpu_torch.tools.prof_conv import graph_ms
 
-    check_tensor_core_sass("conv_mma_kernel", "HGMMA", "K7 mma")
     dev = torch.device("cuda")
     pose = k7_picks("yolo11n-pose")
     shapes = sorted({p[1:] for p in pose + k7_picks("yolov8n")})
@@ -1250,8 +1307,7 @@ def check_k7(card: str) -> dict:
         shape = (h, w, c_in, c_out, k, act)
         for dt in (torch.float32, torch.bfloat16):
             tol = 2e-5 if dt == torch.float32 else 2.0 ** -7
-            layouts = ("nchw", "nhwc") if (
-                shape[:5] in K7_REQUIRED and dt == torch.bfloat16) else ("nchw",)
+            layouts = ("nchw", "nhwc") if shape[:5] in K7_REQUIRED else ("nchw",)
             forms = FORMS if dt == torch.bfloat16 else ("taps", "im2col")
             for layout in layouts:
                 x = x32.to(dt)
@@ -1277,44 +1333,45 @@ def check_k7(card: str) -> dict:
             log(f"K7 conv_act {h}x{w} {c_in}->{c_out} k{k} act={act} S={S_MAIN}:"
                 f" every form within its bound (yolov8n only, not timed)")
             continue
-        x = x32.to(torch.bfloat16)
-        w4 = (wt.reshape(k, k, c_in, c_out).permute(3, 2, 0, 1)
-              .to(torch.bfloat16).contiguous())
-        b16 = b.to(torch.bfloat16)
-        packed = pack_mma(wt, k)  # as the route caches it per conv
-        row = {form: graph_ms(lambda f=form: conv_act_kernel(
-            x, wt, b, k=k, act=act, layout="nchw", form=f,
-            packed=packed if f == "mma" else None)) for form in FORMS}
-        row["plain"] = graph_ms(lambda: conv_act_plain(
-            x, wt, b, k=k, act=act, layout="nchw"), iters=5)
-        row["library"] = graph_ms(
-            (lambda: F.silu(F.conv2d(x, w4, b16, 1, k // 2))) if act
-            else (lambda: F.conv2d(x, w4, b16, 1, k // 2)))
+        rows[shape] = {dt: k7_times(x32.to(dt), wt, b, k, act)
+                       for dt in (torch.bfloat16, torch.float32)}
         flops = 2 * k * k * c_in * c_out * S_MAIN * h * w
-        out_bytes = S_MAIN * c_out * h * w * 2
-        row["bound"] = bound(nbytes(x, b) + wt.numel() * 2 + out_bytes,
-                             flops, "bf16")
-        rows[shape] = row
-        log(f"K7 conv_act {h}x{w} {c_in}->{c_out} k{k} act={act} S={S_MAIN} "
-            f"bf16: mma {row['mma']:.4f} ms, taps {row['taps']:.4f} ms, im2col "
-            f"{row['im2col']:.4f} ms, plain {row['plain']:.4f} ms, cuDNN "
-            f"{row['library']:.4f} ms, bound {row['bound'][0]:.6f} ms "
-            f"({row['bound'][1]}, {flops / 1e9:.3f} GFLOP); mma "
-            f"{flops / row['mma'] / 1e9:.2f} TFLOP/s, cuDNN "
-            f"{flops / row['library'] / 1e9:.2f} [{card}]")
-    total = {key: sum(rows[p[1:]][key] for p in pose)
-             for key in ("mma", "taps", "im2col", "plain", "library")}
-    t_bound = sum(rows[p[1:]]["bound"][0] for p in pose)
-    by_ops = sum(rows[p[1:]]["bound"][0] for p in pose
-                 if rows[p[1:]]["bound"][1] == "operations")
-    log(f"K7 over the {len(pose)} convs of one yolo11n-pose S={S_MAIN} 640 "
-        f"forward, bf16, device time (CUDA graph replay): mma "
-        f"{total['mma']:.4f} ms, taps {total['taps']:.4f} ms, im2col "
-        f"{total['im2col']:.4f} ms, plain {total['plain']:.4f} ms, cuDNN "
-        f"conv + SiLU {total['library']:.4f} ms, bound {t_bound:.6f} ms "
-        f"({by_ops:.6f} of it from convs bound by operations); mma / cuDNN "
-        f"{total['mma'] / total['library']:.3f}; {len(shapes)} shapes "
-        f"checked, every form, max |err| {max_err:.3g} [{card}]")
+        for dt, r in rows[shape].items():
+            forms = "mma taps im2col" if dt == torch.bfloat16 else "taps im2col"
+            log(f"K7 conv_act {h}x{w} {c_in}->{c_out} k{k} act={act} "
+                f"S={S_MAIN} {DT_NAME[str(dt)]}: "
+                + ", ".join(f"{f} {r[f]:.4f} ms" for f in forms.split())
+                + f", plain {r['plain']:.4f} ms, cuDNN {r['library']:.4f} ms, "
+                f"bound {r['bound'][0]:.6f} ms ({r['bound'][1]}, "
+                f"{flops / 1e9:.3f} GFLOP); {forms.split()[0]} "
+                f"{flops / r[forms.split()[0]] / 1e9:.2f} TFLOP/s, cuDNN "
+                f"{flops / r['library'] / 1e9:.2f} [{card}]")
+    totals = {}
+    for dt in (torch.bfloat16, torch.float32):
+        keys = ("mma", "taps", "im2col") if dt == torch.bfloat16 else (
+            "taps", "im2col")
+        tot = {key: sum(rows[p[1:]][dt][key] for p in pose)
+               for key in (*keys, "plain", "library")}
+        tot["bound"] = sum(rows[p[1:]][dt]["bound"][0] for p in pose)
+        tot["by_ops"] = sum(rows[p[1:]][dt]["bound"][0] for p in pose
+                            if rows[p[1:]][dt]["bound"][1] == "operations")
+        totals[dt] = tot
+        log(f"K7 over the {len(pose)} convs of one yolo11n-pose S={S_MAIN} "
+            f"640 forward, {DT_NAME[str(dt)]}, device time (CUDA graph replay): "
+            + ", ".join(f"{f} {tot[f]:.4f} ms" for f in keys)
+            + f", plain {tot['plain']:.4f} ms, cuDNN conv + SiLU "
+            f"{tot['library']:.4f} ms, bound {tot['bound']:.6f} ms "
+            f"({tot['by_ops']:.6f} of it from convs bound by operations); "
+            f"{keys[0]} / cuDNN {tot[keys[0]] / tot['library']:.3f}, "
+            f"{keys[0]} at {tot['bound'] / tot[keys[0]]:.1%} of the bound "
+            f"[{card}]")
+    log(f"K7: {len(shapes)} shapes checked, every form, max |err| "
+        f"{max_err:.3g} [{card}]")
+    check_tensor_core_sass("conv_mma_kernel", "HGMMA", "K7 mma")
+    check_tensor_core_sass("conv_im2col_mma_kernel", "HGMMA", "K7 im2col")
+    check_no_spill("conv_act_kernel", "K7 taps and float32 im2col")
+    total = totals[torch.bfloat16]
+    t_bound, by_ops = total["bound"], total["by_ops"]
     return dict(
         name="conv_act", route="cuda",
         source="strongsort_yolo_tpu_torch/csrc/conv_mma.cuh",

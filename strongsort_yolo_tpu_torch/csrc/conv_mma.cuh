@@ -268,26 +268,27 @@ struct Shape {
 constexpr int kPix = kTH * kTW;   // output pixels of a tile
 constexpr int kPitch = kPix + 8;  // staged row: spreads channels over banks
 
-// + bias, SiLU (ACT), one rounding to bf16, into the staged tile
-// [channel][tile pixel]. The accumulator layout of m64nNk16: thread (warp
-// w, lane l) holds rows 16w + l/4 (+8) of its M tile and columns
-// 8j + 2(l%4) (+1). SiLU is y / (1 + exp(-y)) with the special-function
-// unit's exp and its approximate division: within a few float32 units
-// of the IEEE forms, far inside the one bf16 rounding that follows (an
-// IEEE reciprocal here made the epilogue of a 1x1 conv cost more than
-// its products). ACT is a template constant so that the unrolled loop
-// has no branch and its exponentials overlap.
-template <int N, bool ACT>
-__device__ __forceinline__ void stage_tile(const float (&acc)[kMT][N / 2],
-                                           const float* __restrict__ bias,
-                                           int nc0, int c_out,
-                                           __nv_bfloat16* ot) {
+// + bias, SiLU (ACT), one rounding to bf16, into a staged tile
+// [channel][pixel] of PITCH pixels a channel; px_of(mt, row) is the staged
+// pixel of row `row` of M tile mt. The accumulator layout of m64nNk16:
+// thread (warp w, lane l) holds rows 16w + l/4 (+8) of its M tile and
+// columns 8j + 2(l%4) (+1). SiLU is y / (1 + exp(-y)) with the
+// special-function unit's exp and its approximate division: within a few
+// float32 units of the IEEE forms, far inside the one bf16 rounding that
+// follows (an IEEE reciprocal here made the epilogue of a 1x1 conv cost
+// more than its products). ACT is a template constant so that the
+// unrolled loop has no branch and its exponentials overlap.
+template <int N, bool ACT, int MT, int PITCH, typename PixelOf>
+__device__ __forceinline__ void stage_acc(const float (&acc)[MT][N / 2],
+                                          const float* __restrict__ bias,
+                                          int nc0, int c_out,
+                                          __nv_bfloat16* ot, PixelOf px_of) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 #pragma unroll
-  for (int mt = 0; mt < kMT; ++mt) {
+  for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int px = (2 * warp + half) * kTW + 8 * mt + lane / 4;
+      const int px = px_of(mt, 16 * warp + 8 * half + lane / 4);
 #pragma unroll
       for (int j = 0; j < N / 8; ++j) {
 #pragma unroll
@@ -296,11 +297,23 @@ __device__ __forceinline__ void stage_tile(const float (&acc)[kMT][N / 2],
           float y = acc[mt][4 * j + 2 * half + e] +
                     (nc0 + c < c_out ? bias[nc0 + c] : 0.0f);
           if (ACT) y = __fdividef(y, 1.0f + __expf(-y));
-          ot[c * kPitch + px] = __float2bfloat16_rn(y);
+          ot[c * PITCH + px] = __float2bfloat16_rn(y);
         }
       }
     }
   }
+}
+
+// the mma form's tile: M tile mt is the 8x8 pixels at column 8 mt of the
+// 8x16 tile, its row r the tile pixel (r / 8, 8 mt + r % 8)
+template <int N, bool ACT>
+__device__ __forceinline__ void stage_tile(const float (&acc)[kMT][N / 2],
+                                           const float* __restrict__ bias,
+                                           int nc0, int c_out,
+                                           __nv_bfloat16* ot) {
+  stage_acc<N, ACT, kMT, kPitch>(
+      acc, bias, nc0, c_out, ot,
+      [](int mt, int row) { return (row / 8) * kTW + 8 * mt + row % 8; });
 }
 
 // vec: the output is NCHW with rows of 16-byte-aligned 8-pixel groups

@@ -65,7 +65,9 @@ _SIGNATURES = {
     "ssyt_os_stage": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                       _P),
     "ssyt_conv_act": (_P, _P, _P, _P, _I, _I, _I, _I, _I, *(_L,) * 8,
-                      _I, _I, _I, _I, _P),
+                      _I, _I, _I, _I, _I, _P),
+    "ssyt_conv_im2col_mma": (_P, _P, _P, _P, _I, _I, _I, _I, _I, *(_L,) * 8,
+                             _I, _I, _I, _I, _I, _P),
     "ssyt_conv_mma": (_P, _P, _P, _P, _I, _I, _I, _I, _I, *(_L,) * 8,
                       _I, _I, _I, _I, _I, _P),
     "ssyt_conv_s8": (*(_P,) * 7, *(_I,) * 7, *(_L,) * 8, *(_I,) * 11, _P),

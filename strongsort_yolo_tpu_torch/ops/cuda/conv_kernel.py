@@ -22,10 +22,15 @@ bias, so in bf16 the route gives slightly other detections by design.
 Forms, chosen by dtype: bfloat16 runs the ``mma`` form
 (``csrc/conv_mma.cuh``, an implicit GEMM on the tensor cores with
 ``wgmma``, its weights packed by :func:`pack_mma`); float32 runs the
-``taps`` form (``csrc/conv_act.cu``, CUDA cores), since the tensor cores
-take float32 only as TF32. The ``im2col`` form (bf16 or float32) is the
-port of the TPU shootout's ``_prof_conv2`` kernel, for the profiling tool
-and the card checks only.
+``taps`` form (``csrc/conv_act.cuh``: a register-tiled implicit GEMM on
+the CUDA cores, 8 pixels x 8 channels a thread, the tile's input slab
+and the weights staged by ``cp.async``), since the tensor cores take
+float32 only as TF32. The ``im2col`` form is the port of the TPU
+shootout's ``_prof_conv2`` kernel, for the profiling tool and the card
+checks only: in bfloat16 a GEMM on ``wgmma`` over the gathered rows
+(``csrc/conv_im2col_mma.cu``, weights packed by :func:`pack_im2col`), in
+float32 the CUDA-core tile over the gathered rows. The ``taps`` form
+also takes bfloat16, with float32 products.
 
 Layouts: the public :func:`conv_act` keeps the JAX signature, NHWC ``x``
 and a ``(k * k * C_in, C_out)`` weight flattened over (ky, kx, ci) as
@@ -44,6 +49,11 @@ from strongsort_yolo_tpu_torch.ops.cuda import _build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 FORMS = ("taps", "im2col", "mma")
 MMA_N_TILES = (16, 32, 64, 80, 128)  # output channels of one wgmma (N)
+CORE_N_TILES = (32, 64, 80, 128)  # output channels of a CUDA-core block
+# csrc/conv_act.cuh's tiling, which the CPU tests emulate: the taps form's
+# output tile (rows, columns) and a block's output pixels
+CORE_TILE = (8, 16)
+CORE_M = 128
 VMEM_BUDGET = 72 * 1024 * 1024  # the TPU kernel's whole-plane budget
 
 
@@ -101,6 +111,23 @@ def mma_n_tile(c_out: int) -> int:
     return next((n for n in MMA_N_TILES if n >= c_out), MMA_N_TILES[-1])
 
 
+def core_n_tile(c_out: int) -> int:
+    """Output channels per block of the CUDA-core forms (``taps``, and
+    ``im2col`` in float32): the smallest of :data:`CORE_N_TILES` that
+    holds ``c_out``, else the largest (then the grid loops over them)."""
+    return next((n for n in CORE_N_TILES if n >= c_out), CORE_N_TILES[-1])
+
+
+def core_chunk(k: int, form: str, dtype: torch.dtype) -> int:
+    """The K chunk of the CUDA-core forms, staged per step (``Cfg::CK``
+    of ``csrc/conv_act.cuh``): ``taps`` input channels (each with its
+    k * k taps; 4 for k = 3, 16 for k = 1 in float32 and 8 in bfloat16),
+    ``im2col`` entries of the row (16)."""
+    if form == "im2col":
+        return 16
+    return 4 if k == 3 else (16 if dtype == torch.float32 else 8)
+
+
 def mma_chunks(c_in: int, k: int) -> int:
     """16-channel chunks of the ``mma`` form's packed weights: C_in
     padded to a whole number of the kernel's stages, 64 input channels
@@ -137,6 +164,17 @@ def unpack_mma(blob: torch.Tensor, k: int, c_in: int, c_out: int) -> torch.Tenso
     return w[:, :c_in, :c_out].reshape(k * k * c_in, c_out)
 
 
+def pack_im2col(w: torch.Tensor) -> torch.Tensor:
+    """The ``(k * k * C_in, C_out)`` weight, rounded to bfloat16, as the
+    bfloat16 ``im2col`` form stages it: its rows are the gathered row's
+    entries in (ky, kx, ci) order, so it is :func:`pack_mma` of a 1x1
+    conv of k * k * C_in input channels, ``(K_pad / 16, 1, 2, N_pad,
+    8)``, zero past the row (K_pad a multiple of 64: whole stages of the
+    kernel's 32 entries) and past C_out (N_pad a multiple of
+    :func:`mma_n_tile`). :func:`unpack_mma` with k = 1 inverts it."""
+    return pack_mma(w, 1)
+
+
 def conv_act_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
                    k: int, act: bool, layout: str = "nhwc") -> torch.Tensor:
     """The plain version, rounding where K7 rounds: the conv in float32
@@ -161,7 +199,8 @@ def conv_act_kernel(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     version (every form computes the same function). ``form`` None is
     :func:`default_form` of x's dtype; ``"mma"`` takes bfloat16 only and
     uses ``packed`` (:func:`pack_mma` of ``w``) where given, else packs
-    ``w`` itself."""
+    ``w`` itself; so does ``"im2col"`` in bfloat16 with
+    :func:`pack_im2col`."""
     c_in, c_out = _check(x, w, b, k, layout)
     form = default_form(x.dtype) if form is None else form
     if form not in FORMS:
@@ -188,25 +227,29 @@ def conv_act_kernel(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
         return out
     bk = b.float().contiguous()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    if form == "mma":
-        blob = pack_mma(w, k) if packed is None else packed
+    if form == "mma" or (form == "im2col" and x.dtype == torch.bfloat16):
+        # im2col's K is the weight's k*k*C_in rows: packed as a 1x1 conv's
+        kk, rows = (k, c_in) if form == "mma" else (1, k * k * c_in)
+        blob = pack_mma(w, kk) if packed is None else packed
         if (blob.dtype != torch.bfloat16 or blob.device != x.device
                 or not blob.is_contiguous()
-                or blob.shape[:3] != (mma_chunks(c_in, k), k * k, 2)
+                or blob.shape[:3] != (mma_chunks(rows, kk), kk * kk, 2)
                 or blob.shape[3] % mma_n_tile(c_out) or blob.shape[3] < c_out):
             raise ValueError(f"conv_act: packed weights {tuple(blob.shape)} "
-                             f"{blob.dtype} are not pack_mma of a k={k} "
-                             f"{c_in}->{c_out} weight on {x.device}")
-        err = _build.lib().ssyt_conv_mma(
-            x.data_ptr(), blob.data_ptr(), bk.data_ptr(), out.data_ptr(),
-            n, h, wd, c_in, c_out, *sx, *so, k, int(act), mma_n_tile(c_out),
-            blob.shape[3], blob.shape[0], stream)
-    else:
-        wk = w.to(x.dtype).contiguous()
+                             f"{blob.dtype} are not the {form} packing of a "
+                             f"k={k} {c_in}->{c_out} weight on {x.device}")
+        entry = (_build.lib().ssyt_conv_mma if form == "mma"
+                 else _build.lib().ssyt_conv_im2col_mma)
+        err = entry(x.data_ptr(), blob.data_ptr(), bk.data_ptr(),
+                    out.data_ptr(), n, h, wd, c_in, c_out, *sx, *so, k,
+                    int(act), mma_n_tile(c_out), blob.shape[3], blob.shape[0],
+                    stream)
+    else:  # the CUDA-core forms: float32 weights rounded to x's dtype
+        wk = w.to(x.dtype).float().contiguous()
         err = _build.lib().ssyt_conv_act(
             x.data_ptr(), wk.data_ptr(), bk.data_ptr(), out.data_ptr(),
             n, h, wd, c_in, c_out, *sx, *so, k, int(act), FORMS.index(form),
-            _DTYPES[x.dtype], stream)
+            _DTYPES[x.dtype], core_n_tile(c_out), stream)
     conv_act.launches += 1
     _build.check(err, "conv_act")
     return out

@@ -4,21 +4,26 @@
 
 Counterpart of ``tools/prof/_prof_conv.py`` and ``_prof_conv2.py`` (the
 formulation shootout of the TPU kernel), at their shapes ``SHAPES``
-(80x80 and 40x40 planes, k=3, the route's NCHW layout), in bfloat16, for
-each batch S given (default 32 and 8). Per shape and S it prints one row:
-the device time (CUDA events around the replay of a CUDA graph of 20
-calls, after 3 warm-ups: no host launch overhead) and TFLOP/s of K7's
-``mma`` form (tensor cores, the route's in bf16, weights packed once as
-the route caches them), its ``taps`` and ``im2col`` forms, the plain
-version, and the yardstick ``F.silu(F.conv2d(x, w, b))`` in bf16 (cuDNN,
-two launches: conv with bias, then SiLU, as the TPU shootout's XLA
-column was); the bound (the larger of the bytes, x read once and y
-written once, over 3.35 TB/s and the operations over 989 TFLOP/s, the
-H100 SXM's bf16 tensor-core peak) and what sets it; and the largest
-difference of each form from the plain version. The TPU tool's two
-probes with wrong numerics (``dots``, ``dot1``: the least time a kernel
-could take) are not ported: the bound plays their part. The last line
-is every row as one JSON object. Exits nonzero without a CUDA device.
+(80x80 and 40x40 planes, k=3, the route's NCHW layout), for each batch S
+given (default 32 and 8). Per shape and S it prints two rows, bfloat16
+and float32, with the device time (CUDA events around the replay of a
+CUDA graph of 20 calls, after 3 warm-ups: no host launch overhead) and
+TFLOP/s of each of K7's forms in that dtype: in bfloat16 the ``mma`` form
+(tensor cores, the route's), ``taps`` and ``im2col`` (wgmma over the
+gathered rows), the tensor-core forms on weights packed once as the route
+caches them; in float32
+``taps`` (the route's) and ``im2col`` (CUDA cores); then the plain
+version, and the yardstick ``F.silu(F.conv2d(x, w, b))`` in the same
+dtype (cuDNN, two launches: conv with bias, then SiLU, as the TPU
+shootout's XLA column was; float32 with TF32 off); the bound (the larger
+of the bytes, x read once and y written once, over 3.35 TB/s and the
+operations over the H100 SXM's peak for the type: 989 TFLOP/s bf16
+tensor cores, 67 TFLOP/s float32 CUDA cores) and what sets it; and the
+largest difference of each form from the plain version. The TPU tool's
+two probes with wrong numerics (``dots``, ``dot1``: the least time a
+kernel could take) are not ported: the bound plays their part. The last
+line is every row as one JSON object. Exits nonzero without a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -31,9 +36,9 @@ import torch
 import torch.nn.functional as F
 
 from strongsort_yolo_tpu_torch.ops.cuda.conv_kernel import (
-    FORMS,
     conv_act_kernel,
     conv_act_plain,
+    pack_im2col,
     pack_mma,
 )
 
@@ -45,7 +50,9 @@ SHAPES = [  # (h, w, c_in, c_out, k), tools/prof/_prof_conv2.py:30
     (40, 40, 64, 64, 3),
 ]
 HBM_BYTES_PER_S = 3.35e12
-BF16_FLOPS = 989e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+FORMS_OF = {torch.bfloat16: ("mma", "taps", "im2col"),
+            torch.float32: ("taps", "im2col")}
 
 
 def graph_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -74,37 +81,42 @@ def graph_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def profile_shape(s: int, h: int, w: int, c_in: int, c_out: int, k: int,
-                  seed: int = 0) -> dict:
+                  dtype: torch.dtype, seed: int = 0) -> dict:
     """One row: times (ms), TFLOP/s, the bound and each form's largest
-    difference from the plain version, for S images in bfloat16."""
+    difference from the plain version, for S images in ``dtype``."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    dev, bf = torch.device("cuda"), torch.bfloat16
-    x = torch.randn((s, c_in, h, w), generator=g, device=dev).to(bf)
+    dev = torch.device("cuda")
+    x = torch.randn((s, c_in, h, w), generator=g, device=dev).to(dtype)
     wt = torch.randn((k * k * c_in, c_out), generator=g, device=dev) * 0.05
     b = torch.randn((c_out,), generator=g, device=dev) * 0.1
-    w4 = wt.reshape(k, k, c_in, c_out).permute(3, 2, 0, 1).to(bf).contiguous()
-    b16 = b.to(bf)
+    w4 = wt.reshape(k, k, c_in, c_out).permute(3, 2, 0, 1).to(dtype).contiguous()
+    bx = b.to(dtype)
     want = conv_act_plain(x, wt, b, k=k, act=True, layout="nchw").float()
-    packed = pack_mma(wt, k)
+    packed = ({"mma": pack_mma(wt, k), "im2col": pack_im2col(wt)}
+              if dtype == torch.bfloat16 else {})
+    forms = FORMS_OF[dtype]
     runs = {
         form: (lambda f=form: conv_act_kernel(
             x, wt, b, k=k, act=True, layout="nchw", form=f,
-            packed=packed if f == "mma" else None))
-        for form in FORMS
+            packed=packed.get(f)))
+        for form in forms
     }
     runs["plain"] = lambda: conv_act_plain(x, wt, b, k=k, act=True, layout="nchw")
-    runs["library"] = lambda: F.silu(F.conv2d(x, w4, b16, 1, k // 2))
-    row = {"S": s, "h": h, "w": w, "c_in": c_in, "c_out": c_out, "k": k}
+    runs["library"] = lambda: F.silu(F.conv2d(x, w4, bx, 1, k // 2))
+    row = {"S": s, "h": h, "w": w, "c_in": c_in, "c_out": c_out, "k": k,
+           "dtype": str(dtype).removeprefix("torch.")}
     flops = 2 * k * k * c_in * c_out * s * h * w
     for name, fn in runs.items():
         ms = graph_ms(fn, iters=5 if name == "plain" else 20)
         row[f"{name}_ms"] = ms
         row[f"{name}_tflops"] = flops / ms / 1e9
-        if name in FORMS:
+        if name in forms:
             got = fn().float()
             row[f"{name}_max_diff"] = float((got - want).abs().max())
-    nbytes = (x.numel() + s * c_out * h * w) * 2 + wt.numel() * 2 + b.numel() * 4
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    size = x.element_size()
+    nbytes = (x.numel() + s * c_out * h * w + wt.numel()) * size + b.numel() * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     row["bound_ms"] = max(t_bytes, t_ops)
     row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     return row
@@ -124,16 +136,18 @@ def main(argv: list[str]) -> int:
     rows = []
     for s in [int(a) for a in argv] or [32, 8]:
         for h, w, c_in, c_out, k in SHAPES:
-            r = profile_shape(s, h, w, c_in, c_out, k)
-            rows.append(r)
-            print(f"S={s} {h}x{w} {c_in:>3}->{c_out:<3} k{k}: "
-                  + "  ".join(f"{n} {r[n + '_ms'] * 1e3:8.1f}us "
-                              f"({r[n + '_tflops']:6.2f} TF/s)"
-                              for n in (*FORMS, "plain", "library"))
-                  + f"  bound {r['bound_ms'] * 1e3:.2f}us ({r['bound_by']})"
-                  + "  max diff " + ", ".join(
-                      f"{f} {r[f + '_max_diff']:.3g}" for f in FORMS)
-                  + f" [{card}]", flush=True)
+            for dtype, forms in FORMS_OF.items():
+                r = profile_shape(s, h, w, c_in, c_out, k, dtype)
+                rows.append(r)
+                print(f"S={s} {h}x{w} {c_in:>3}->{c_out:<3} k{k} "
+                      f"{r['dtype']:>8}: "
+                      + "  ".join(f"{n} {r[n + '_ms'] * 1e3:8.1f}us "
+                                  f"({r[n + '_tflops']:6.2f} TF/s)"
+                                  for n in (*forms, "plain", "library"))
+                      + f"  bound {r['bound_ms'] * 1e3:.2f}us "
+                      f"({r['bound_by']})  max diff " + ", ".join(
+                          f"{f} {r[f + '_max_diff']:.3g}" for f in forms)
+                      + f" [{card}]", flush=True)
     print(json.dumps({"card": card, "rows": rows}))
     return 0
 

@@ -1,12 +1,14 @@
-"""Read a built kernel library's SASS: instructions per kernel instance and
-the calls of the 64-bit integer division routine.
+"""Read a built kernel library's SASS: instructions per kernel instance,
+the calls of the 64-bit integer division routine and the local-memory
+accesses.
 
     python -m strongsort_yolo_tpu_torch.tools.sass LIBRARY KERNEL [KERNEL ...]
 
 For each instance of each KERNEL (a substring of the mangled name) in
 `cuobjdump -sass LIBRARY`, prints the calls of the software routine that
 divides 64-bit integers (a division or remainder by a runtime value:
-dozens of instructions a call) beside the calls of any routine. The
+dozens of instructions a call) beside the calls of any routine, and the
+local-memory loads and stores (``LDL``, ``STL``: registers spilled). The
 routine is told by the conversion of its divisor, ``I2F.U64.RP`` (the inline
 32-bit path converts with ``I2F.U32.RP``). Needs the CUDA toolkit's
 cuobjdump (beside nvcc).
@@ -24,6 +26,8 @@ import sys
 DIV64_MARK = "I2F.U64.RP"
 _LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 _CALL = re.compile(r"CALL\.\S+\s+0x([0-9a-f]+)")
+# a local-memory load or store, behind an optional predicate
+_LOCAL = re.compile(r"^(@!?U?P[0-9T]+\s+)?(LDL|STL)\b")
 
 
 @functools.lru_cache(maxsize=4)
@@ -73,6 +77,13 @@ def div64_calls(lines: list[tuple[int, str]]) -> tuple[int, int]:
     return div64, calls
 
 
+def local_accesses(library: str, kernel: str) -> dict[str, int]:
+    """Per instance of ``kernel`` in ``library``, its local-memory loads
+    and stores (``LDL``/``STL``): 0 where no register spills."""
+    return {fn: sum(bool(_LOCAL.match(ins)) for _, ins in lines)
+            for fn, lines in functions(library, kernel).items()}
+
+
 def report(library: str, kernel: str) -> tuple[list[tuple[int, int]], int]:
     """-> ((64-bit division calls, calls) per instance, DIV64_MARK
     instructions anywhere in the instances)."""
@@ -93,7 +104,9 @@ def main(argv: list[str]) -> int:
         print(f"{kernel}: {len(counts)} instances in "
               f"{os.path.basename(argv[0])}; 64-bit division calls per "
               f"instance {[c[0] for c in counts]}, calls of any routine "
-              f"{[c[1] for c in counts]}, {DIV64_MARK} instructions {marks}")
+              f"{[c[1] for c in counts]}, {DIV64_MARK} instructions {marks}, "
+              f"local loads and stores per instance "
+              f"{sorted(local_accesses(argv[0], kernel).values())}")
     return 0
 
 
