@@ -1,9 +1,7 @@
 // K6: one fused OSNet backbone stage per crop: the register form and the
 // C entry points (the note, and what the forms share, are in
 // os_stage.cuh; the columns form is in os_stage_columns.cu, the
-// tensor-core form in os_stage_mma.cu).
-
-#include <type_traits>
+// tensor-core forms in os_stage_mma.cu and os_stage_cluster.cu).
 
 #include "os_stage.cuh"
 
@@ -208,11 +206,7 @@ int dispatch(const void* x, const void* mats, const void* vecs,
              const void* offs, void* out, void* scratch, int G, int c_in,
              int c_out, int mid, int h, int w, int gap, cudaStream_t s) {
   const int pixels = h * w;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (scratch == nullptr && os_stage_mma_bytes(c_in, c_out, mid, h, w) >= 0)
-      return os_stage_mma(x, mats, vecs, offs, out, G, c_in, c_out, mid, h, w,
-                          gap, s);
-  } else if (scratch == nullptr && has_register_form(mid, pixels)) {
+  if (scratch == nullptr && has_register_form(mid, pixels)) {
     if (mid == 16)
       return launch_registers<T, 16, 512>(x, mats, vecs, offs, out, G, c_in, c_out, h, w, gap, s);
     if (mid == 24)
@@ -220,47 +214,66 @@ int dispatch(const void* x, const void* mats, const void* vecs,
     return launch_registers<T, 32, 32>(x, mats, vecs, offs, out, G, c_in, c_out, h, w, gap, s);
   }
   return os_stage_columns(x, mats, vecs, offs, out, scratch, G, c_in, c_out,
-                          mid, h, w, gap, std::is_same<T, __nv_bfloat16>::value,
-                          s);
+                          mid, h, w, gap, s);
 }
 
 }  // namespace
 
-// Dynamic shared memory of the form the stage takes without a scratch:
-// in bfloat16 the tensor-core form where a crop fits, in float32 the
+// Dynamic shared memory of a block of the form the stage takes (cluster:
+// the blocks a crop is split over in bfloat16, 1 for one block a crop):
+// in bfloat16 the tensor-core form, or its cluster form; in float32 the
 // register form where it is built for (mid, h*w), else the columns form
-// with its workspace in shared memory. Above what a block can use, the
-// wrapper passes a (G, c_out + 5 mid, h*w) scratch in T instead.
+// with its workspace in shared memory. -1 where the form is not built
+// for the stage or does not fit. Above what a block can use (float32
+// only), the wrapper passes a (G, c_out + 5 mid, h*w) float32 scratch.
 extern "C" long long ssyt_os_stage_smem_bytes(int c_in, int c_out, int mid,
-                                              int h, int w, int bf16) {
+                                              int h, int w, int bf16,
+                                              int cluster) {
   const int pixels = h * w;
-  const long long mma = bf16 ? os_stage_mma_bytes(c_in, c_out, mid, h, w) : -1;
-  if (mma >= 0) return mma;
-  if (!bf16 && has_register_form(mid, pixels))
+  if (bf16) {
+    return cluster > 1 ? os_stage_cluster_bytes(c_in, c_out, mid, h, w, cluster)
+                       : os_stage_mma_bytes(c_in, c_out, mid, h, w);
+  }
+  if (cluster != 1) return -1;
+  if (has_register_form(mid, pixels))
     return register_bytes<float>(c_in, c_out, mid, pixels);
-  return bf16 ? columns_bytes<__nv_bfloat16>(c_in, c_out, mid, pixels, true)
-              : columns_bytes<float>(c_in, c_out, mid, pixels, true);
+  return columns_bytes<float>(c_in, c_out, mid, pixels, true);
 }
 
 // The form a stage takes: 0 registers, 1 columns in shared memory, 2
-// columns in the global scratch, 3 tensor cores.
+// columns in the global scratch, 3 tensor cores, 4 tensor cores in a
+// cluster of `cluster` blocks a crop; -1 none.
 extern "C" int ssyt_os_stage_form(int c_in, int c_out, int mid, int h, int w,
-                                  int bf16) {
-  if (bf16 && os_stage_mma_bytes(c_in, c_out, mid, h, w) >= 0) return 3;
-  if (!bf16 && has_register_form(mid, h * w)) return 0;
-  return ssyt_os_stage_smem_bytes(c_in, c_out, mid, h, w, bf16) <= 227 * 1024 ? 1 : 2;
+                                  int bf16, int cluster) {
+  if (bf16) {
+    if (ssyt_os_stage_smem_bytes(c_in, c_out, mid, h, w, 1, cluster) < 0) return -1;
+    return cluster > 1 ? 4 : 3;
+  }
+  if (cluster != 1) return -1;
+  if (has_register_form(mid, h * w)) return 0;
+  return ssyt_os_stage_smem_bytes(c_in, c_out, mid, h, w, 0, 1) <= 227 * 1024 ? 1 : 2;
 }
 
+// bfloat16 takes the tensor-core form (cluster 1) or its cluster form,
+// float32 the register or the columns form (cluster 1); any other stage
+// and split is refused with cudaErrorInvalidValue.
 extern "C" int ssyt_os_stage(const void* x, const void* mats, const void* vecs,
                              const void* offs, void* out, void* scratch, int G,
                              int c_in, int c_out, int mid, int h, int w,
-                             int gap, int bf16, void* stream) {
+                             int gap, int bf16, int cluster, void* stream) {
   if (G == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    return dispatch<__nv_bfloat16>(x, mats, vecs, offs, out, scratch, G, c_in,
-                                   c_out, mid, h, w, gap, s);
+    if (scratch != nullptr) return (int)cudaErrorInvalidValue;
+    if (cluster > 1) {
+      if (gap) return (int)cudaErrorInvalidValue;
+      return os_stage_cluster(x, mats, vecs, offs, out, G, c_in, c_out, mid, h, w,
+                              cluster, s);
+    }
+    if (cluster != 1) return (int)cudaErrorInvalidValue;
+    return os_stage_mma(x, mats, vecs, offs, out, G, c_in, c_out, mid, h, w, gap, s);
   }
+  if (cluster != 1) return (int)cudaErrorInvalidValue;
   return dispatch<float>(x, mats, vecs, offs, out, scratch, G, c_in, c_out,
                          mid, h, w, gap, s);
 }

@@ -54,32 +54,34 @@
 // cores instead (os_stage_mma.cu).
 //
 // Built for the stages of the four released widths (x0_25, x0_5, x0_75,
-// x1_0) at 128x64 crops: 512, 128 and 32 pixels, mid 16 to 128. Three
-// forms of one function:
+// x1_0) at 128x64 crops: 512, 128 and 32 pixels, mid 16 to 128. Forms of
+// one function:
 //
-// - bfloat16: the tensor-core form (os_stage_mma.cu, its note there) for
-//   every stage whose crop fits a block's shared memory: the
-//   three x0_25 stages, stages 3 and 4 of x0_5 and x0_75 and stage 4 of
-//   x1_0; the other stages take the columns form below;
+// - bfloat16: the tensor-core form (os_stage_mma.cu, its note there), one
+//   block per crop, for every stage whose crop fits a block's shared
+//   memory: the three x0_25 stages, stages 3 and 4 of x0_5 and x0_75 and
+//   stage 4 of x1_0; the others (stage 2 of x0_5, x0_75 and x1_0, stage
+//   3 of x1_0) take its cluster form (os_stage_cluster.cu), each crop
+//   split over a thread block cluster, a band of rows a block;
 // - float32 (the tensor cores would take it only as TF32): the register
 //   form above, with mid a template constant and y, agg and s in
 //   registers: the OSNet-x0_25 stages, (mid, pixels) = (16, 512), (24,
 //   128) and (32, 32), whose X, XA and lite buffers fit shared memory;
-// - the columns form, for every other stage: mid is a loop bound, and y,
-//   s and agg (already rounded to T, so stored in T without loss) become
-//   columns of a workspace, as X, XA and the lite buffers are, each
-//   pixel's column read and written by its own thread: registers no
-//   longer hold 3 * mid floats at mid 64-128, and the loops would unroll
-//   into megabytes of code. The workspace, (c_in + c_out + 5 mid, pixels)
-//   in T, sits in shared memory where it fits a block; otherwise the
-//   wrapper allocates a global scratch of (G, c_out + 5 mid, pixels) in
-//   T, X is read from the input in place, and the columns go through L1
-//   and L2 (x1_0's stage 2 needs 590 KB per crop in bf16).
+// - the columns form, for every other float32 stage: mid is a loop
+//   bound, and y, s and agg become columns of a workspace, as X, XA and
+//   the lite buffers are, each pixel's column read and written by its own
+//   thread: registers no longer hold 3 * mid floats at mid 64-128, and
+//   the loops would unroll into megabytes of code. The workspace, (c_in +
+//   c_out + 5 mid, pixels) floats, sits in shared memory where it fits a
+//   block; otherwise the wrapper allocates a global scratch of (G, c_out
+//   + 5 mid, pixels) floats, X is read from the input in place, and the
+//   columns go through L1 and L2 (x1_0's stage 2 needs 1.2 MB per crop).
 //
 // This header holds what the forms share; os_stage.cu holds the register
 // form and the C entry points, os_stage_columns.cu the columns form,
-// os_stage_mma.cu the tensor-core form, compiled apart so that the build
-// runs them in parallel.
+// os_stage_mma.cu and os_stage_cluster.cu the tensor-core forms (their
+// body in os_stage_mma.cuh), compiled apart so that the build runs them
+// in parallel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -181,9 +183,18 @@ int os_stage_mma(const void* x, const void* mats, const void* vecs,
                  const void* offs, void* out, int G, int c_in, int c_out,
                  int mid, int h, int w, int gap, cudaStream_t s);
 
-// the columns form's launch (os_stage_columns.cu): scratch null puts the
-// workspace in shared memory
+// its cluster form (os_stage_cluster.cu, bfloat16, pool stages): a
+// block's dynamic shared memory with a crop in k bands, -1 where it is not
+// built for the stage and k or a band does not fit
+long long os_stage_cluster_bytes(int c_in, int c_out, int mid, int h, int w,
+                                 int k);
+int os_stage_cluster(const void* x, const void* mats, const void* vecs,
+                     const void* offs, void* out, int G, int c_in, int c_out,
+                     int mid, int h, int w, int k, cudaStream_t s);
+
+// the columns form's launch (os_stage_columns.cu, float32): scratch null
+// puts the workspace in shared memory
 int os_stage_columns(const void* x, const void* mats, const void* vecs,
                      const void* offs, void* out, void* scratch, int G,
                      int c_in, int c_out, int mid, int h, int w, int gap,
-                     int bf16, cudaStream_t s);
+                     cudaStream_t s);

@@ -1,5 +1,5 @@
-// K6: the columns form (the note, and what both forms share, are in
-// os_stage.cuh).
+// K6: the columns form, for float32 (the note, and what the forms share,
+// are in os_stage.cuh).
 
 #include "os_stage.cuh"
 
@@ -231,10 +231,8 @@ int dispatch_columns(const void* x, const void* mats, const void* vecs,
 int os_stage_columns(const void* x, const void* mats, const void* vecs,
                      const void* offs, void* out, void* scratch, int G,
                      int c_in, int c_out, int mid, int h, int w, int gap,
-                     int bf16, cudaStream_t s) {
+                     cudaStream_t s) {
   if (mid % 8 != 0 || c_out % 8 != 0 || mid / 16 > 8) return (int)cudaErrorInvalidValue;
-  return bf16 ? dispatch_columns<__nv_bfloat16>(x, mats, vecs, offs, out, scratch, G,
-                                                c_in, c_out, mid, h, w, gap, s)
-              : dispatch_columns<float>(x, mats, vecs, offs, out, scratch, G, c_in,
-                                        c_out, mid, h, w, gap, s);
+  return dispatch_columns<float>(x, mats, vecs, offs, out, scratch, G, c_in, c_out, mid,
+                                 h, w, gap, s);
 }

@@ -43,228 +43,14 @@
 // One crop per block, not a tile of several: the weights come through
 // L1 either way, and a smaller block keeps more blocks resident per SM
 // (stage 3: 70 KB, 3 blocks; stage 4: 27 KB and 4 warps a crop), which
-// hides the ~85 barriers of a stage. A stage whose crop does not fit a block's shared memory (stage 2
-// of x0_5, x0_75 and x1_0, stage 3 of x1_0) keeps the columns form.
+// hides the ~85 barriers of a stage. A stage whose crop does not fit a
+// block's shared memory (stage 2 of x0_5, x0_75 and x1_0, stage 3 of
+// x1_0) splits it over a cluster of blocks (os_stage_cluster.cu). The
+// stage's body, shared by both launches, is in os_stage_mma.cuh.
 
-#include "os_stage.cuh"
+#include "os_stage_mma.cuh"
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
-
-constexpr long long kMaxSmem = 227 * 1024;
-
-// the least row stride >= c that is 8 more than a multiple of 16: its 4-byte
-// words then step by 4 mod 8 banks, so the 8 rows of a fragment load hit
-// 8 different groups of 4 banks (the columns past c of a K chunk are never
-// read: the fragments zero them)
-__host__ __device__ constexpr int row_stride(int c) { return (c + 7) / 16 * 16 + 8; }
-
-// element offsets of the shared-memory regions, and the bytes in all
-struct Layout {
-  int sx, sm, sxa, se;        // row strides (bf16) of X, the mid columns, XA, E
-  long long cols, xa;         // element offsets of the columns and of XA
-  long long floats;           // byte offset of the float arrays
-  long long bytes;
-};
-
-__host__ __device__ inline Layout layout(int c_in, int c_out, int mid, int pixels) {
-  Layout l;
-  const long long m = pixels;
-  l.sx = row_stride(c_in);
-  l.sm = row_stride(mid);
-  l.sxa = row_stride(c_out);
-  l.se = l.sxa;
-  l.cols = m * l.sx;
-  // X and the four columns (y, s, agg, u), overlaid at the end by E, the
-  // transition's or conv5's output
-  long long region = l.cols + 4 * m * l.sm;
-  if (m * l.se > region) region = m * l.se;
-  l.xa = (region + 7) / 8 * 8;
-  l.floats = (l.xa + m * l.sxa) * 2;
-  // the gate's mean and values
-  l.bytes = l.floats + 4LL * 2 * mid;
-  return l;
-}
-
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t ldg32(const bf16* p) {
-  return __ldg(reinterpret_cast<const unsigned int*>(p));
-}
-
-__device__ __forceinline__ void store2(bf16* p, float v0, float v1) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
-}
-
-__device__ __forceinline__ float2 load2(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// acc[mb][nb] += A[row0 + 16 mb .., :K] x W[n0 + 8 nb .., :K]^T: the A
-// rows in shared memory (stride sa), W (N, K) row-major bf16 in global
-// memory; K a multiple of 8, the last chunk zero-padded past K. Each
-// 16-wide chunk is summed by the tensor cores from zero and added to acc
-// in float32, rounded to nearest: the tensor cores align a chunk's
-// products to the largest of them and drop the bits below, so summing
-// into a large running value would lose more of each chunk.
-__device__ __forceinline__ void mma_unit(float (&acc)[2][4][4], const bf16* A, int sa,
-                                         int row0, const bf16* __restrict__ w, int K,
-                                         int N, int n0, int g, int t) {
-  const int kpad = (K + 15) / 16 * 16;
-  for (int k0 = 0; k0 < kpad; k0 += 16) {
-    const bool hi = k0 + 16 <= K;  // columns k0 + 8 .. k0 + 15 exist
-    uint32_t a[2][4];
-#pragma unroll
-    for (int mb = 0; mb < 2; ++mb) {
-      const bf16* p0 = A + (row0 + 16 * mb + g) * sa + k0 + 2 * t;
-      const bf16* p1 = p0 + 8 * sa;
-      a[mb][0] = lds32(p0);
-      a[mb][1] = lds32(p1);
-      a[mb][2] = hi ? lds32(p0 + 8) : 0u;
-      a[mb][3] = hi ? lds32(p1 + 8) : 0u;
-    }
-#pragma unroll
-    for (int nb = 0; nb < 4; ++nb) {
-      const int n = n0 + 8 * nb;
-      if (n < N) {  // warp-uniform: N is a multiple of 8
-        const bf16* wp = w + (n + g) * K + k0 + 2 * t;
-        const uint32_t b0 = ldg32(wp);
-        const uint32_t b1 = hi ? ldg32(wp + 8) : 0u;
-#pragma unroll
-        for (int mb = 0; mb < 2; ++mb) {
-          float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-          mma16816(part, a[mb], b0, b1);
-#pragma unroll
-          for (int q = 0; q < 4; ++q) acc[mb][nb][q] = acc[mb][nb][q] + part[q];
-        }
-      }
-    }
-  }
-}
-
-// out[row, n] = epi(row, n, sum_k A[row, k] W[n, k], sum_k A2[row, k] W2[n, k])
-// for rows < mv (a multiple of 32) and n < N, two columns at a time; the
-// second product only with kDual
-template <int NW, bool kDual, typename Epi>
-__device__ __forceinline__ void gemm(int mv, int N, const bf16* A, int sa,
-                                     const bf16* __restrict__ w, int K, const bf16* A2,
-                                     int sa2, const bf16* __restrict__ w2, int K2,
-                                     Epi epi) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int mt = mv / 32, nt = (N + 31) / 32;
-  for (int u = warp; u < mt * nt; u += NW) {
-    const int row0 = (u % mt) * 32, n0 = (u / mt) * 32;
-    float acc[2][4][4], acc2[2][4][4];
-#pragma unroll
-    for (int mb = 0; mb < 2; ++mb)
-#pragma unroll
-      for (int nb = 0; nb < 4; ++nb)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[mb][nb][q] = acc2[mb][nb][q] = 0.0f;
-    mma_unit(acc, A, sa, row0, w, K, N, n0, g, t);
-    if (kDual) mma_unit(acc2, A2, sa2, row0, w2, K2, N, n0, g, t);
-#pragma unroll
-    for (int mb = 0; mb < 2; ++mb)
-#pragma unroll
-      for (int nb = 0; nb < 4; ++nb) {
-        const int col = n0 + 8 * nb + 2 * t;
-        if (n0 + 8 * nb < N) {
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-            epi(row0 + 16 * mb + g + 8 * h, col, acc[mb][nb][2 * h],
-                acc[mb][nb][2 * h + 1], acc2[mb][nb][2 * h], acc2[mb][nb][2 * h + 1]);
-        }
-      }
-  }
-}
-
-// walks (row, channel pair) over rows < mv and n2 pairs, NT threads at
-// a time, without a division per step
-template <int NT, typename Fn>
-__device__ __forceinline__ void for_pairs(int mv, int n2, Fn fn) {
-  int row = threadIdx.x / n2, c2 = threadIdx.x - row * n2;
-  const int drow = NT / n2, dc = NT - drow * n2;
-  while (row < mv) {
-    fn(row, 2 * c2);
-    c2 += dc;
-    row += drow;
-    if (c2 >= n2) {
-      c2 -= n2;
-      ++row;
-    }
-  }
-}
-
-constexpr int kMaxHidden = 8;  // the gate's hidden width, mid / 16, at most
-constexpr int kRun = 4;        // pixels of a crop row one thread's stencil takes
-
-// s = round(relu(3x3 depthwise stencil of u + bias)) over rows < mv: a
-// thread keeps one channel pair, its 18 taps and 2 biases in registers,
-// and walks runs of kRun pixels of a crop row, loading the 3 x (kRun + 2)
-// neighbourhood once; outside the crop the neighbours are 0, which adds
-// +-0 to a sum: the same value as leaving the tap out. Each output sums
-// its 9 products in float32, dy outer and dx inner, each product and sum
-// rounded on its own, as os_stage_plain.
-template <int P, int W, int NT>
-__device__ __forceinline__ void stencil(const bf16* u, bf16* s, int sm, int mv, int mid,
-                                        const float* __restrict__ taps,
-                                        const float* __restrict__ dwb) {
-  constexpr int H = P / W, kRuns = W / kRun;
-  const int n2 = mid / 2, per = NT / n2;  // threads per channel pair
-  const int c = 2 * (threadIdx.x % n2);
-  const int first = threadIdx.x / n2;
-  if (first >= per) return;  // the threads past a whole number of pairs
-  float t0[9], t1[9];
-#pragma unroll
-  for (int q = 0; q < 9; ++q) {
-    t0[q] = __ldg(taps + q * mid + c);
-    t1[q] = __ldg(taps + q * mid + c + 1);
-  }
-  const float b0 = __ldg(dwb + c), b1 = __ldg(dwb + c + 1);
-  const int items = mv / W * kRuns;
-  for (int it = first; it < items; it += per) {
-    const int rr = it / kRuns, x0 = (it - rr * kRuns) * kRun;
-    const int y = rr % H, row = rr * W;  // the run's first pixel: row + x0
-    float2 v[3][kRun + 2];
-#pragma unroll
-    for (int dy = 0; dy < 3; ++dy) {
-      const bool in_y = (dy > 0 || y > 0) && (dy < 2 || y < H - 1);
-#pragma unroll
-      for (int dx = 0; dx < kRun + 2; ++dx) {
-        const int xx = x0 + dx - 1;
-        v[dy][dx] = (in_y && xx >= 0 && xx < W)
-                        ? load2(u + (row + (dy - 1) * W + xx) * sm + c)
-                        : make_float2(0.0f, 0.0f);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kRun; ++j) {
-      float a0 = 0.0f, a1 = 0.0f;
-#pragma unroll
-      for (int dy = 0; dy < 3; ++dy) {
-#pragma unroll
-        for (int dx = 0; dx < 3; ++dx) {
-          a0 = a0 + v[dy][j + dx].x * t0[dy * 3 + dx];
-          a1 = a1 + v[dy][j + dx].y * t1[dy * 3 + dx];
-        }
-      }
-      store2(s + (row + x0 + j) * sm + c, fmaxf(a0 + b0, 0.0f), fmaxf(a1 + b1, 0.0f));
-    }
-  }
-}
 
 template <int P, int W, int NT>
 __global__ void __launch_bounds__(NT, 1)
@@ -272,181 +58,7 @@ __global__ void __launch_bounds__(NT, 1)
                         const float* __restrict__ vecs, const int32_t* __restrict__ offs,
                         bf16* __restrict__ out, int c_in, int c_out, int mid,
                         int gap) {
-  constexpr int NW = NT / 32;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L = layout(c_in, c_out, mid, P);
-  const int R = mid / 16 > 0 ? mid / 16 : 1;  // the gate's hidden width
-  bf16* base = reinterpret_cast<bf16*>(smem);
-  bf16* xs = base;                 // (P, c_in) block input
-  bf16* ycol = base + L.cols;      // conv1's output y
-  bf16* scol = ycol + P * L.sm;    // the current stream s
-  bf16* acol = scol + P * L.sm;    // the aggregate
-  bf16* ucol = acol + P * L.sm;    // a lite conv's pointwise output
-  bf16* es = base;                 // the transition's or conv5's output
-  bf16* xa = base + L.xa;          // (P, c_out) block output
-  float* gmean = reinterpret_cast<float*>(smem + L.floats);  // (mid,)
-  float* gval = gmean + mid;                                  // (mid,)
-  const int sm = L.sm, sx = L.sx, sxa = L.sxa, se = L.se;
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int64_t g = blockIdx.x;
-  constexpr int mv = P;
-  const int n2 = mid / 2;
-
-  // the crop, NCHW in global memory, to [pixel][channel]
-  {
-    const bf16* xg = x + g * c_in * P;
-    for (int e = tid; e < c_in * P; e += NT) xs[(e % P) * sx + e / P] = xg[e];
-  }
-  __syncthreads();
-
-#pragma unroll 1
-  for (int blk = 0; blk < 2; ++blk) {
-    const int32_t* bo = offs + blk * kBlockEntries;
-    const int cin = blk == 0 ? c_in : c_out;
-    const bf16* src = blk == 0 ? xs : xa;
-    const int ssrc = blk == 0 ? sx : sxa;
-
-    // conv1 -> relu -> round
-    {
-      const float* b1 = vecs + bo[kB1];
-      gemm<NW, false>(mv, mid, src, ssrc, mats + bo[kW1], cin, nullptr, 0, nullptr, 0,
-                      [&](int row, int col, float v0, float v1, float, float) {
-                        store2(ycol + row * sm + col, fmaxf(v0 + b1[col], 0.0f),
-                               fmaxf(v1 + b1[col + 1], 0.0f));
-                      });
-    }
-    __syncthreads();
-
-#pragma unroll 1
-    for (int t = 0; t < 4; ++t) {
-#pragma unroll 1
-      for (int k = 0; k <= t; ++k) {
-        const int32_t* lo = bo + kLite0 + 4 * (t * (t + 1) / 2 + k);
-        const float* pwb = vecs + lo[1];
-        // pointwise -> round (the stream starts at y)
-        gemm<NW, false>(mv, mid, k == 0 ? ycol : scol, sm, mats + lo[0], mid, nullptr,
-                        0, nullptr, 0,
-                        [&](int row, int col, float v0, float v1, float, float) {
-                          store2(ucol + row * sm + col, v0 + pwb[col], v1 + pwb[col + 1]);
-                        });
-        __syncthreads();
-        stencil<P, W, NT>(ucol, scol, sm, mv, mid, vecs + lo[2], vecs + lo[3]);
-        __syncthreads();
-      }
-
-      // the gate: per channel, the mean over the crop (a warp per
-      // channel: lanes, then shuffles, in a fixed order) -> round
-      for (int m = warp; m < mid; m += NW) {
-        float v = 0.0f;
-        for (int q = lane; q < P; q += 32) v = v + __bfloat162float(scol[q * sm + m]);
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) v = v + __shfl_xor_sync(0xffffffffu, v, o);
-        if (lane == 0) gmean[m] = round_t<bf16>(v / (float)P);
-      }
-      __syncthreads();
-      // one warp: the hidden layer (lanes over the channels, then
-      // shuffles) -> relu -> round, then the gate -> sigmoid -> round
-      if (warp == 0) {
-        const bf16* g1 = mats + bo[kG1];
-        const float* g1b = vecs + bo[kG1b];
-        const bf16* g2 = mats + bo[kG2];
-        const float* g2b = vecs + bo[kG2b];
-        float hid[kMaxHidden];
-#pragma unroll
-        for (int j = 0; j < kMaxHidden; ++j) {
-          if (j < R) {
-            float a = 0.0f;
-            for (int c = lane; c < mid; c += 32)
-              a = a + __bfloat162float(g1[j * mid + c]) * gmean[c];
-#pragma unroll
-            for (int o = 16; o > 0; o >>= 1) a = a + __shfl_xor_sync(0xffffffffu, a, o);
-            hid[j] = round_t<bf16>(fmaxf(a + g1b[j], 0.0f));
-          }
-        }
-        for (int m = lane; m < mid; m += 32) {
-          float z = 0.0f;
-#pragma unroll
-          for (int j = 0; j < kMaxHidden; ++j)
-            if (j < R) z = z + __bfloat162float(g2[m * R + j]) * hid[j];
-          z = z + g2b[m];
-          gval[m] = round_t<bf16>(1.0f / (1.0f + expf(-z)));
-        }
-      }
-      __syncthreads();
-      // s * g -> round, summed into the aggregate -> round (the first
-      // stream's gs is the aggregate itself)
-      for_pairs<NT>(mv, n2, [&](int row, int c) {
-        const float* gv = gval + c;
-        const float2 s = load2(scol + row * sm + c);
-        const float gs0 = round_t<bf16>(s.x * gv[0]), gs1 = round_t<bf16>(s.y * gv[1]);
-        if (t == 0) {
-          store2(acol + row * sm + c, gs0, gs1);
-        } else {
-          const float2 a = load2(acol + row * sm + c);
-          store2(acol + row * sm + c, a.x + gs0, a.y + gs1);
-        }
-      });
-      // the next stream's pointwise conv reads y and writes u, which this
-      // pass does not touch; its stencil writes s after a barrier
-    }
-    __syncthreads();
-
-    // conv3 + residual (down, or the input itself) -> relu -> round, into
-    // XA; block b works in place, each value read and written by one thread
-    {
-      const float* b3 = vecs + bo[kB3];
-      const int wd_off = bo[kWd];
-      if (wd_off >= 0) {
-        const float* bd = vecs + bo[kBd];
-        gemm<NW, true>(mv, c_out, acol, sm, mats + bo[kW3], mid, src, ssrc,
-                       mats + wd_off, cin,
-                       [&](int row, int col, float v0, float v1, float d0, float d1) {
-                         store2(xa + row * sxa + col,
-                                fmaxf((v0 + b3[col]) + (d0 + bd[col]), 0.0f),
-                                fmaxf((v1 + b3[col + 1]) + (d1 + bd[col + 1]), 0.0f));
-                       });
-      } else {
-        gemm<NW, false>(mv, c_out, acol, sm, mats + bo[kW3], mid, nullptr, 0, nullptr, 0,
-                        [&](int row, int col, float v0, float v1, float, float) {
-                          const float2 r = load2(src + row * ssrc + col);
-                          store2(xa + row * sxa + col, fmaxf((v0 + b3[col]) + r.x, 0.0f),
-                                 fmaxf((v1 + b3[col + 1]) + r.y, 0.0f));
-                        });
-      }
-    }
-    __syncthreads();
-  }
-
-  // the transition or conv5 -> relu -> round, into E over the dead input
-  // columns; then the 2x2 mean or the global mean, in a fixed order
-  {
-    const float* eb = vecs + offs[kEpB];
-    gemm<NW, false>(mv, c_out, xa, sxa, mats + offs[kEpW], c_out, nullptr, 0, nullptr, 0,
-                    [&](int row, int col, float v0, float v1, float, float) {
-                      store2(es + row * se + col, fmaxf(v0 + eb[col], 0.0f),
-                             fmaxf(v1 + eb[col + 1], 0.0f));
-                    });
-  }
-  __syncthreads();
-  if (gap) {
-    for (int co = tid; co < c_out; co += NT) {
-      float sum = 0.0f;
-      for (int q = 0; q < P; ++q) sum = sum + __bfloat162float(es[q * se + co]);
-      out[g * c_out + co] = __float2bfloat16_rn(sum / (float)P);
-    }
-  } else {
-    constexpr int w2 = W / 2, nq = P / 4;
-    for (int e = tid; e < c_out * nq; e += NT) {
-      const int q = e % nq, co = e / nq;
-      const int top = (q / w2) * 2 * W + (q % w2) * 2;
-      float sum = 0.0f;
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        sum = sum + __bfloat162float(es[(top + (k >> 1) * W + (k & 1)) * se + co]);
-      out[(g * c_out + co) * nq + q] = __float2bfloat16_rn(sum * 0.25f);
-    }
-  }
+  stage_body<P, W, NT, 1>(x, mats, vecs, offs, out, c_in, c_out, mid, gap);
 }
 
 template <int P, int W, int NT>

@@ -60,10 +60,10 @@ _SIGNATURES = {
     "ssyt_auction": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     "ssyt_banded_crop": (_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _P),
-    "ssyt_os_stage_smem_bytes": (_I, _I, _I, _I, _I, _I),
-    "ssyt_os_stage_form": (_I, _I, _I, _I, _I, _I),
+    "ssyt_os_stage_smem_bytes": (_I, _I, _I, _I, _I, _I, _I),
+    "ssyt_os_stage_form": (_I, _I, _I, _I, _I, _I, _I),
     "ssyt_os_stage": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                      _P),
+                      _I, _P),
     "ssyt_conv_act": (_P, _P, _P, _P, _I, _I, _I, _I, _I, *(_L,) * 8,
                       _I, _I, _I, _I, _I, _P),
     "ssyt_conv_im2col_mma": (_P, _P, _P, _P, _I, _I, _I, _I, _I, *(_L,) * 8,

@@ -90,10 +90,28 @@ KERNEL_SHAPES = frozenset(
     for width in WIDTHS for s in stage_specs(osnet_channels(width)))
 
 
+# (c_in, c_out, mid, pixels) -> the blocks a crop is split over in
+# bfloat16, a band of rows each (``csrc/os_stage_cluster.cu``): the stages
+# whose crop does not fit one block in the tensor-core layout (stage 2 of
+# x0_5, x0_75 and x1_0; stage 3 of x1_0), at the least split whose band
+# lets two blocks share an SM (a block's bytes: 89.8, 68.9, 89.5 and 75.8
+# KB), which ran faster than the least split that fits one block
+CLUSTER_SPLIT = {(32, 128, 32, 512): 4, (48, 192, 48, 512): 8,
+                 (64, 256, 64, 512): 8, (256, 384, 96, 128): 4}
+
+
+def cluster_split(spec: StageSpec, dtype: torch.dtype) -> int:
+    """The blocks K6 splits one crop of this stage over: CLUSTER_SPLIT's
+    in bfloat16, else 1 (one block a crop)."""
+    if dtype != torch.bfloat16:
+        return 1
+    return CLUSTER_SPLIT.get((spec.c_in, spec.c_out, spec.mid, spec.h * spec.w), 1)
+
+
 def scratch_rows(spec: StageSpec) -> int:
-    """Rows (of h*w values in the compute dtype) per crop of K6's global
-    workspace, where its shared-memory one does not fit a block: XA, two
-    lite buffers, y, s and the aggregate (``csrc/os_stage.cu``)."""
+    """Rows (of h*w float32 values) per crop of K6's global workspace,
+    where the columns form's shared-memory one does not fit a block: XA,
+    two lite buffers, y, s and the aggregate (``csrc/os_stage.cuh``)."""
     return spec.c_out + 5 * spec.mid
 
 
@@ -237,10 +255,15 @@ def _lite(s, v, name: str, spec: StageSpec, dt):
     return out.reshape(g, c, h * w)
 
 
+def _gate_mean(s):
+    """(G, mid, P) -> the float32 mean over the pixels, (G, mid)."""
+    return s.float().mean(-1)
+
+
 def _gate(s, v, blk: str, dt):
     """The channel gate of one stream, applied: s * g in the compute
     dtype."""
-    m = s.float().mean(-1).to(dt)  # (G, mid)
+    m = _gate_mean(s).to(dt)  # (G, mid)
     a = torch.relu(m.float() @ v[blk + ".g1"].float().T + v[blk + ".g1b"])
     g = torch.sigmoid(a.to(dt).float() @ v[blk + ".g2"].float().T
                       + v[blk + ".g2b"]).to(dt)
@@ -285,17 +308,23 @@ _B_WD = 98  # the offsets table's entry of block b's ``down`` (-1: absent;
 # every form also computes a down conv there, read from the table on the
 # card, so the wrapper reads nothing back from the device)
 FORMS = ("registers", "columns, shared memory", "columns, global scratch",
-         "tensor cores")
+         "tensor cores", "tensor cores, cluster of {}")
 
 
 def stage_form(spec: StageSpec, dtype: torch.dtype) -> str:
     """The form K6 takes for a stage (``csrc/os_stage.cuh``): in bfloat16
-    the tensor cores wherever one crop fits a block, in float32
-    the register form for the x0_25 stages; else the columns form, its
-    workspace in shared memory or in a global scratch."""
-    return FORMS[_build.lib().ssyt_os_stage_form(
+    the tensor cores, one block a crop or, for the stages of
+    CLUSTER_SPLIT, a cluster of blocks a crop ("tensor cores, cluster of
+    4"); in float32 the register form for the x0_25 stages, else the
+    columns form, its workspace in shared memory or in a global
+    scratch."""
+    k = cluster_split(spec, dtype)
+    form = _build.lib().ssyt_os_stage_form(
         spec.c_in, spec.c_out, spec.mid, spec.h, spec.w,
-        int(dtype == torch.bfloat16))]
+        int(dtype == torch.bfloat16), k)
+    if form < 0:
+        raise ValueError(f"os_stage: no form of K6 for {spec} in {dtype}")
+    return FORMS[form].format(k)
 
 
 def os_stage(x: torch.Tensor, weights: StageWeights,
@@ -304,8 +333,10 @@ def os_stage(x: torch.Tensor, weights: StageWeights,
     (G, c_out) for the last stage, in x's dtype (float32 or bfloat16).
     CPU tensors take :func:`os_stage_plain`; CUDA tensors launch K6 on
     any stage of :data:`KERNEL_SHAPES`, in the form :func:`stage_form`
-    names. Where the stage's shared-memory form does not fit a block, K6
-    works in a global scratch allocated here."""
+    names: in bfloat16 one block a crop or a cluster of
+    :func:`cluster_split` blocks a crop; a failed launch raises. Where
+    the float32 columns form's workspace does not fit a block, K6 works
+    in a global scratch allocated here."""
     g = x.shape[0]
     if (x.shape != (g, spec.c_in, spec.h, spec.w) or x.dtype not in _DTYPES
             or weights.mats.dtype != x.dtype
@@ -335,9 +366,10 @@ def os_stage(x: torch.Tensor, weights: StageWeights,
     x = x.contiguous()
     lib = _build.lib()
     bf16 = _DTYPES[x.dtype]
+    k = cluster_split(spec, x.dtype)
     scratch = None
-    if lib.ssyt_os_stage_smem_bytes(spec.c_in, spec.c_out, spec.mid, spec.h,
-                                    spec.w, bf16) > _build.MAX_SMEM:
+    if not bf16 and lib.ssyt_os_stage_smem_bytes(
+            spec.c_in, spec.c_out, spec.mid, spec.h, spec.w, 0, 1) > _build.MAX_SMEM:
         scratch = torch.empty((g, scratch_rows(spec), spec.h * spec.w),
                               dtype=x.dtype, device=x.device)
     err = lib.ssyt_os_stage(
@@ -345,7 +377,7 @@ def os_stage(x: torch.Tensor, weights: StageWeights,
         weights.offs.data_ptr(), out.data_ptr(),
         None if scratch is None else scratch.data_ptr(), g, spec.c_in,
         spec.c_out,
-        spec.mid, spec.h, spec.w, int(spec.epilogue == "gap"), bf16,
+        spec.mid, spec.h, spec.w, int(spec.epilogue == "gap"), bf16, k,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     os_stage.launches += 1

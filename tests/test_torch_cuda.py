@@ -20,8 +20,8 @@ tensor-core form adds a chunk's products in the tensor cores' order,
 and a flipped rounding propagates (a gate value moves a whole channel;
 exact float64 sums differ from the plain version as much), so it is
 held to a mean |err| within 2e-4 of the largest output (the bar of its
-plain version against the JAX kernel), while the columns form's differences stay below the rounding and it
-must equal its plain version bit for bit; its launches are
+plain version against the JAX kernel), one block a crop or a cluster of
+blocks a crop alike; its launches are
 bit-identical, at every OSNet width; K3
 must equal its plain version in both forms (benefit block in shared
 memory, and in the global scratch), on random, tied, tracker-shaped and
@@ -79,6 +79,7 @@ from strongsort_yolo_tpu_torch.ops.cuda.auction_kernel import (
     max_rounds_for,
 )
 from strongsort_yolo_tpu_torch.ops.cuda.osnet_kernel import (
+    cluster_split,
     os_stage,
     os_stage_plain,
     stage_form,
@@ -638,16 +639,15 @@ def test_os_stage_kernel_equals_plain(dev, i, dtype, variant):
 
 
 def _assert_k6_close(got, want, form):
-    """K6's bars (see the note at the top): float32 within 1e-4; bfloat16
-    bit-identical in the CUDA-core forms and, in the tensor-core form,
-    the mean |err| within 2e-4 of the largest output."""
+    """K6's bars (see the note at the top): float32 within 1e-4; bfloat16,
+    which takes only the tensor-core forms (one block or a cluster of
+    blocks a crop), the mean |err| within 2e-4 of the largest output."""
     if got.dtype == torch.float32:
         assert float((got - want).abs().max()) <= 1e-4
-    elif form == "tensor cores":
+    else:
+        assert form.startswith("tensor cores")
         diff = (got.float() - want.float()).abs()
         assert float(diff.mean()) <= 2e-4 * float(want.float().abs().max())
-    else:
-        assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("i", [0, 1, 2], ids=["stage2", "stage3", "stage4-gap"])
@@ -677,18 +677,59 @@ def test_os_stage_tensor_cores_x0_25(dev, i, g):
 
 
 def test_os_stage_forms_by_width(dev):
-    """The form each stage takes in bfloat16: the tensor cores wherever a
-    crop fits a block (all of x0_25, stages 3-4 of x0_5 and x0_75, stage
-    4 of x1_0), the columns form elsewhere; float32 keeps the CUDA-core
-    forms."""
-    tc = {("osnet_x0_25", 0), ("osnet_x0_25", 1), ("osnet_x0_25", 2),
-          ("osnet_x0_5", 1), ("osnet_x0_5", 2), ("osnet_x0_75", 1),
-          ("osnet_x0_75", 2), ("osnet_x1_0", 2)}
+    """The form each stage takes: in bfloat16 the tensor cores at every
+    stage, one block a crop wherever a crop fits a block (all of x0_25,
+    stages 3-4 of x0_5 and x0_75, stage 4 of x1_0), elsewhere a cluster
+    of blocks a crop at the split of cluster_split, each block's shared
+    memory such that two blocks share an SM's 228 KB (1 KB reserved a
+    block); float32 keeps the CUDA-core forms (the
+    register form for x0_25, the columns form elsewhere, its workspace in
+    shared memory at stage 4)."""
+    cluster = {("osnet_x0_5", 0): 4, ("osnet_x0_75", 0): 8, ("osnet_x1_0", 0): 8,
+               ("osnet_x1_0", 1): 4}
+    lib = _build.lib()
     for variant in ("osnet_x0_25", "osnet_x0_5", "osnet_x0_75", "osnet_x1_0"):
         for i, spec in enumerate(stage_specs(OsnetConfig(variant=variant).channels)):
-            assert (stage_form(spec, torch.bfloat16) == "tensor cores") == (
-                (variant, i) in tc)
-            assert stage_form(spec, torch.float32) != "tensor cores"
+            k = cluster.get((variant, i))
+            assert cluster_split(spec, torch.bfloat16) == (k or 1)
+            assert stage_form(spec, torch.bfloat16) == (
+                f"tensor cores, cluster of {k}" if k else "tensor cores")
+            args = (spec.c_in, spec.c_out, spec.mid, spec.h, spec.w)
+            smem = lib.ssyt_os_stage_smem_bytes(*args, 1, k or 1)
+            assert 0 < smem <= _build.MAX_SMEM
+            if k:  # one block a crop does not fit; two bands share an SM
+                assert lib.ssyt_os_stage_smem_bytes(*args, 1, 1) == -1
+                assert 2 * (smem + 1024) <= 228 * 1024
+            assert stage_form(spec, torch.float32) == (
+                "registers" if variant == "osnet_x0_25" else
+                "columns, shared memory" if i == 2 else "columns, global scratch")
+
+
+@pytest.mark.parametrize("variant,i", [("osnet_x0_5", 0), ("osnet_x0_75", 0),
+                                       ("osnet_x1_0", 0), ("osnet_x1_0", 1)],
+                         ids=["x0_5-stage2", "x0_75-stage2", "x1_0-stage2",
+                              "x1_0-stage3"])
+def test_os_stage_cluster_form(dev, variant, i):
+    """The four bfloat16 stages K6 splits over a cluster of blocks a crop,
+    at G = 96: within the bar of the plain version, two launches
+    bit-identical, and at G = 1 and 7 the same crops' output of the G =
+    96 launch, bit for bit (a crop's bands never see another crop)."""
+    cfg = OsnetConfig(variant=variant)
+    model = osnet_from_state_dict(
+        init_osnet(cfg, torch.Generator().manual_seed(1)), cfg)
+    spec = stage_specs(cfg.channels)[i]
+    assert stage_form(spec, torch.bfloat16).startswith("tensor cores, cluster of")
+    w = stage_weights(model, i, torch.bfloat16).to(dev)
+    x = torch.from_numpy(np.random.default_rng(i).normal(
+        0, 1, (96, spec.c_in, spec.h, spec.w)).astype(np.float32)).to(
+            dev, torch.bfloat16)
+    full, again = os_stage(x, w, spec), os_stage(x, w, spec)
+    torch.cuda.synchronize()
+    assert torch.equal(full, again)
+    for g in (1, 7):
+        assert torch.equal(os_stage(x[:g], w, spec), full[:g])
+    _assert_k6_close(full, os_stage_plain(x, w, spec),
+                     stage_form(spec, torch.bfloat16))
 
 
 def test_os_stage_refuses_stages_outside_the_table(dev):

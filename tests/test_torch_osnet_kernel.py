@@ -190,7 +190,9 @@ def test_mutations_break_the_bounds(jparams, model, monkeypatch, mutation):
 
 F32_SCALE = 48.0  # the output scale F32_TOL was set at
 WIDE_G = 2  # crops per stage call at the wider widths (one TPU tile, tm=2)
-WIDE_BF16_MEAN_TOL = {"osnet_x0_5": BF16_MEAN_TOL, "osnet_x1_0": 4e-4}
+WIDE_BF16_MEAN_TOL = {"osnet_x0_5": BF16_MEAN_TOL, "osnet_x0_75": BF16_MEAN_TOL,
+                      "osnet_x1_0": 4e-4}
+WIDE_PLAIN_VARIANTS = ("osnet_x0_5", "osnet_x1_0")  # every stage vs JAX
 
 
 @pytest.fixture(scope="module")
@@ -228,7 +230,7 @@ def _wide_stage(wide, variant, i, dt):
     return spec, x, _WIDE_JAX[variant, i, dt]
 
 
-@pytest.mark.parametrize("variant", list(WIDE_BF16_MEAN_TOL))
+@pytest.mark.parametrize("variant", WIDE_PLAIN_VARIANTS)
 @pytest.mark.parametrize("i", [0, 1, 2], ids=["stage2", "stage3", "stage4-gap"])
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 def test_stage_plain_vs_jax_wider_widths(wide, variant, i, dt):
@@ -461,3 +463,71 @@ def test_tensor_core_emulation_per_crop(model, monkeypatch):
     x = torch.from_numpy(_stage_input(2)).bfloat16()
     assert torch.equal(_tc_emulated(x, w, spec, monkeypatch, per_crop=True),
                        _tc_emulated(x, w, spec, monkeypatch))
+
+
+# --- K6's cluster form, emulated on the CPU ----------------------------
+
+# (variant, stage index): the stages bfloat16 splits over a cluster of
+# blocks a crop (tk.CLUSTER_SPLIT)
+CLUSTER_STAGES = [("osnet_x0_5", 0), ("osnet_x0_75", 0), ("osnet_x1_0", 0),
+                  ("osnet_x1_0", 1)]
+
+
+def _gate_mean_banded(k):
+    """The gate's mean as the cluster form takes it: each of k bands of
+    whole rows sums its pixels in float32, then the k sums are added in
+    rank order 0 .. k-1 and divided by the crop's pixels."""
+    def mean(s):
+        g, c, p = s.shape
+        part = s.float().reshape(g, c, k, p // k).sum(-1)
+        total = part[..., 0]
+        for j in range(1, k):
+            total = total + part[..., j]
+        return total / p
+    return mean
+
+
+def _cluster_emulated(x, weights, spec, monkeypatch, per_crop=False):
+    """The stage as the cluster form computes it: the tensor-core form's
+    16-wide chunks (each band's 1x1 products are its own pixels'), the
+    gate's mean summed per band and then in rank order, at the split the
+    wrapper takes (tk.cluster_split)."""
+    monkeypatch.setattr(tk, "_gate_mean",
+                        _gate_mean_banded(tk.cluster_split(spec, torch.bfloat16)))
+    return _tc_emulated(x, weights, spec, monkeypatch, per_crop)
+
+
+def test_cluster_split_is_whole_even_rows():
+    """In bfloat16 exactly the four stages of CLUSTER_STAGES split a crop,
+    each into bands of an even number of whole rows (the 2x2 pool stays
+    in a band) and a multiple of 32 pixels (the tensor-core units'
+    rows); float32 never splits."""
+    split = set()
+    for variant in WIDE_BF16_MEAN_TOL | {"osnet_x0_25": None}:
+        for i, spec in enumerate(tk.stage_specs(OsnetConfig(variant=variant).channels)):
+            assert tk.cluster_split(spec, torch.float32) == 1
+            k = tk.cluster_split(spec, torch.bfloat16)
+            if k > 1:
+                split.add((variant, i))
+                assert k in (2, 4, 8) and spec.epilogue == "pool"
+                assert spec.h % (2 * k) == 0 and spec.h * spec.w // k % 32 == 0
+    assert split == set(CLUSTER_STAGES)
+
+
+@pytest.mark.parametrize("variant,i", CLUSTER_STAGES,
+                         ids=[f"{v}-stage{i + 2}" for v, i in CLUSTER_STAGES])
+def test_cluster_emulation_vs_jax(wide, monkeypatch, variant, i):
+    """The emulated cluster form in bfloat16 against the JAX os_stage
+    (interpret mode) within the width's bar, and against os_stage_plain
+    within the card's bar; crop by crop it equals the whole batch bit for
+    bit (a crop's bands never see another crop)."""
+    spec, x, want = _wide_stage(wide, variant, i, "bf16")
+    w = tk.stage_weights(wide[variant][1], i, torch.bfloat16)
+    xb = torch.from_numpy(x).bfloat16()
+    got = _cluster_emulated(xb, w, spec, monkeypatch)
+    assert got.shape == want.shape == (WIDE_G, *spec.out_shape)
+    assert _bf16_mean_err(got.float().numpy(), want) <= WIDE_BF16_MEAN_TOL[variant]
+    _assert_tc_bar(got.float().numpy(),
+                   tk.os_stage_plain(xb, w, spec).float().numpy())
+    assert torch.equal(_cluster_emulated(xb, w, spec, monkeypatch, per_crop=True),
+                       got)
