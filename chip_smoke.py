@@ -330,8 +330,10 @@ S_MAIN, TICKS = 8, 10
 CROWD_TICKS, WIDE_TICKS = 6, 4  # ticks of the paths added for K3's and K6's
 # large forms
 HBM_BYTES_PER_MS = 3.35e9  # H100 SXM, 3.35 TB/s
-PEAK_OPS_PER_MS = {"bf16": 989e9, "f32": 67e9,  # tensor cores; CUDA cores
-                   "int8": 1979e9}  # tensor cores, dense
+# bf16 and int8: tensor cores, dense; f32: CUDA cores; tf32x3: the 3xTF32
+# ceiling, the tensor cores' 495 TF32 TFLOP/s over three products
+PEAK_OPS_PER_MS = {"bf16": 989e9, "f32": 67e9, "tf32x3": 495e9 / 3,
+                   "int8": 1979e9}
 
 
 T0 = time.perf_counter()
@@ -947,6 +949,19 @@ K6_G_WIDE = 96  # crops per stage call for the widths off the main path
 K6_COLUMNS_MS = {("osnet_x0_5", 0): 1.7943, ("osnet_x0_75", 0): 3.8021,
                  ("osnet_x1_0", 0): 7.2474, ("osnet_x1_0", 1): 9.4510}
 WIDE_TICK_COLUMNS_MS = 74.68
+# (variant, stage index) -> the float32 first forms' ms (the register form
+# for x0_25 at G=480, the columns form elsewhere at K6_G_WIDE), measured
+# by CUDA-graph replay on the kernels before the 3xTF32 forms took every
+# float32 stage (NVIDIA H100 80GB HBM3, 700.00 W); and the f32 b-x1_0
+# path's median ms/tick then
+K6_F32_FIRST_MS = {
+    ("osnet_x0_25", 0): 1.5882, ("osnet_x0_25", 1): 1.1153,
+    ("osnet_x0_25", 2): 1.9362, ("osnet_x0_5", 0): 2.0284,
+    ("osnet_x0_5", 1): 2.6588, ("osnet_x0_5", 2): 4.6588,
+    ("osnet_x0_75", 0): 4.4694, ("osnet_x0_75", 1): 6.6779,
+    ("osnet_x0_75", 2): 9.9847, ("osnet_x1_0", 0): 8.1042,
+    ("osnet_x1_0", 1): 14.5220, ("osnet_x1_0", 2): 16.1036}
+WIDE_TICK_F32_FIRST_MS = 154.67
 
 
 # K6's bfloat16 bar for its tensor-core forms, against os_stage_plain: the
@@ -986,16 +1001,17 @@ def check_k6(card: str) -> dict:
     within the K6_BF16_MEAN bar (the tensor cores add a chunk's products
     in their own order, and a flipped rounding propagates), with the
     largest deviation and the share of differing elements; two launches
-    bit-identical; x0_25 and the cluster form's stages also at G = 0, 1
+    bit-identical; x0_25 and the cluster forms' stages also at G = 0, 1
     and 7, each equal to those crops of the full launch; HMMA in every
-    instance of both tensor-core kernels and no spill in the cluster
-    form's; times (device time by CUDA-graph replay, and CUDA events
-    around host launches, the earlier method) beside the bound, in both
-    dtypes with the plain version's for x0_25 and in bfloat16, the main
-    path's dtype, for the others, the cluster form's stages beside the
-    columns form's time before (K6_COLUMNS_MS). The entry is x0_25's
-    three stages at G=480, the fused path's work, in bfloat16: the
-    tensor-core form."""
+    instance of the four tensor-core kernels (TF32 ones in the float32
+    kernels) and no spill in the cluster and float32 ones; times (device
+    time by CUDA-graph replay, and CUDA events around host launches, the
+    earlier method) beside the bound, in both dtypes, with the plain
+    version's for x0_25, the bf16 cluster form's stages beside the
+    columns form's time before (K6_COLUMNS_MS), every float32 stage
+    beside its first form's (K6_F32_FIRST_MS) and the bf16 time of the
+    same stage. The entry is x0_25's three stages at G=480, the fused
+    path's work, in bfloat16: the tensor-core form."""
     import torch
 
     from strongsort_yolo_tpu_torch.models.osnet import (
@@ -1011,6 +1027,9 @@ def check_k6(card: str) -> dict:
     check_tensor_core_sass("os_stage_cluster_kernel", "HMMA",
                            "K6 tensor cores, cluster form")
     check_no_spill("os_stage_cluster_kernel", "K6 tensor cores, cluster form")
+    for kernel in ("os_stage_tf32_kernel", "os_stage_tf32_cluster_kernel"):
+        check_tensor_core_sass(kernel, "F32.TF32", "K6 float32, 3xTF32")
+        check_no_spill(kernel, "K6 float32, 3xTF32")
     dev = torch.device("cuda")
     rng = np.random.default_rng(6)
     max_err, total = 0.0, {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
@@ -1023,7 +1042,9 @@ def check_k6(card: str) -> dict:
         model = osnet_from_state_dict(
             init_osnet(cfg, torch.Generator().manual_seed(1)), cfg)
         width_ms = width_events = 0.0
+        f32_ms = f32_first = 0.0
         for i, spec in enumerate(stage_specs(cfg.channels)):
+            stage_ms = {}
             x32 = torch.from_numpy(rng.normal(
                 0, 1, (g, spec.c_in, spec.h, spec.w)).astype(np.float32)).to(dev)
             for dt in (torch.float32, torch.bfloat16):
@@ -1048,13 +1069,10 @@ def check_k6(card: str) -> dict:
                 name += (f": max |err| {err:.3g}, scaled {scaled:.3g}, "
                          f"mean {mean:.3g} of the largest output, {share:.3%} "
                          f"of elements differ")
-                if form.startswith("tensor cores"):
+                if kind == "bf16":
                     e = k6_stats(k6_exact(x, w, spec), want)
                     name += (f" (exact sums: scaled {e[1]:.3g}, mean {e[3]:.3g}, "
                              f"{e[2]:.3%} differ)")
-                if not (main or kind == "bf16"):
-                    log(name)
-                    continue
                 flops = 2 * stage_macs(spec) * g
                 b = bound(nbytes(x, got, w.mats, w.vecs), flops, kind)
                 ms = graph_ms(lambda: os_stage(x, w, spec), iters=20 if main else 3,
@@ -1063,14 +1081,27 @@ def check_k6(card: str) -> dict:
                                     iters=20 if main else 3, warmup=1)
                 plain = (cuda_ms(lambda: os_stage_plain(x, w, spec), iters=5)
                          if main else None)
-                before = K6_COLUMNS_MS.get((variant, i)) if kind == "bf16" else None
+                stage_ms[kind] = ms
+                if kind == "bf16":
+                    before = K6_COLUMNS_MS.get((variant, i))
+                    then = "the columns form"
+                else:
+                    before = K6_F32_FIRST_MS[variant, i]
+                    then = "the first form (CUDA cores)"
+                if kind == "f32":
+                    f32_ms += ms
+                    f32_first += before
+                ceiling = (f", {flops / (PEAK_OPS_PER_MS['tf32x3'] * ms):.1%} of "
+                           f"the 3xTF32 ceiling" if kind == "f32" else "")
                 log(f"{name}; kernel {ms:.4f} ms (CUDA-graph replay; "
                     f"{ms_events:.4f} by events around host launches), "
                     + (f"plain {plain:.4f} ms, " if main else "")
                     + f"bound {b[0]:.4f} ms ({b[1]}, {flops / 1e9:.2f} GFLOP), "
-                    f"{b[0] / ms:.1%} of it, {flops / ms / 1e9:.2f} TFLOP/s"
-                    + (f"; the columns form took {before:.4f} ms before, "
+                    f"{b[0] / ms:.1%} of it{ceiling}, {flops / ms / 1e9:.2f} TFLOP/s"
+                    + (f"; {then} took {before:.4f} ms before, "
                        f"{before / ms:.2f}x this" if before else "")
+                    + (f"; f32 / bf16 of this stage {stage_ms['f32'] / ms:.2f}x"
+                       if kind == "bf16" else "")
                     + f" [{card}]")
                 if kind == "bf16":
                     width_ms += ms
@@ -1084,7 +1115,9 @@ def check_k6(card: str) -> dict:
                     total["bytes_ms"] += nbytes(x, got, w.mats,
                                                 w.vecs) / HBM_BYTES_PER_MS
         log(f"K6 {variant} three stages at G={g} bf16: kernel {width_ms:.4f} ms "
-            f"(CUDA-graph replay; {width_events:.4f} by events) [{card}]")
+            f"(CUDA-graph replay; {width_events:.4f} by events); f32 "
+            f"{f32_ms:.4f} ms (the first forms: {f32_first:.4f}, "
+            f"{f32_first / f32_ms:.2f}x) [{card}]")
     log(f"K6 osnet_x0_25 three stages at G=480 bf16: kernel {total['ms']:.4f} "
         f"ms (per stage {[round(v, 4) for v in per_stage]}), plain "
         f"{total['plain_ms']:.4f} ms, bound {total['bound_ms']:.4f} ms [{card}]")
@@ -1190,7 +1223,8 @@ def check_tensor_core_sass(kernel: str, instruction: str, label: str) -> None:
     """The built library's tensor-core kernels run on the tensor cores:
     every instance of ``kernel`` in `cuobjdump -sass` of the .so under
     build/torch_kernels/ holds ``instruction`` (HGMMA for K7's wgmma,
-    HMMA for K6's mma.sync)."""
+    HMMA for K6's mma.sync, F32.TF32 for its float32 kernels' TF32
+    HMMA)."""
     from strongsort_yolo_tpu_torch.ops.cuda import _build
     from strongsort_yolo_tpu_torch.tools.sass import functions
 
@@ -1615,12 +1649,12 @@ def _ms_line(times: list[float]) -> str:
 def _main_pipeline(tracker, pool, *, fused: bool = False, cadence: int = 1,
                    model: str = "yolov8n", conv_kernel: bool = False,
                    max_dets: int = 128, reid: str | None = None,
-                   quant: str | None = None):
+                   quant: str | None = None, half: bool = True):
     from strongsort_yolo_tpu_torch.config import DetectorConfig
     from strongsort_yolo_tpu_torch.pipeline import Pipeline
 
     pipe = Pipeline(
-        DetectorConfig(weights=model, imgsz=640, half=True, max_det=1000,
+        DetectorConfig(weights=model, imgsz=640, half=half, max_det=1000,
                        quant=quant),
         tracker=tracker, track_slots=256, tracker_max_dets=max_dets,
         reid_weights=reid, reid_topk=128, reid_cadence=cadence,
@@ -2087,9 +2121,12 @@ def phase_wide_reid_path(card: str, kernels) -> None:
     a crop, stage 4 in one block a crop), the median tick beside the
     columns form's (WIDE_TICK_COLUMNS_MS); then K6 alone on x1_0's three
     stages at each G the path took (tools/prof_k6, graph replay, held to
-    the K6_BF16_MEAN bar, two launches bit-identical); then the same
-    OSNet-x1_0 weights in float32, fused, on the card (K6) and on the CPU
-    (its plain version), on 64 crops: the embeddings within 1e-4."""
+    the K6_BF16_MEAN bar, two launches bit-identical); then the same path
+    in float32 (half=False: K6 in its 3xTF32 forms, stages 2 and 3 in a
+    cluster of blocks a crop) for WIDE_TICKS ticks, the median tick beside
+    the first forms' (WIDE_TICK_F32_FIRST_MS); then the same OSNet-x1_0
+    weights in float32, fused, on the card (K6) and on the CPU (its plain
+    version), on 64 crops: the embeddings within 1e-4."""
     import torch
 
     from strongsort_yolo_tpu_torch.models.osnet import (
@@ -2142,6 +2179,21 @@ def phase_wide_reid_path(card: str, kernels) -> None:
             f"{sum(r['ms'] for r in rows):.4f} ms (graph replay; per stage "
             + ", ".join(f"{r['ms']:.4f} ({r['form']}, {r['share']:.2%} of "
                         f"its bound)" for r in rows) + f") [{card}]")
+    pipe = _main_pipeline(StrongSortConfig(gmc_method="none"), pool,
+                          fused=True, reid="osnet_x1_0", half=False)
+    slot_counts = _record_slots(pipe)
+    counts, times, results = _drive(
+        BatchedPipeline(pipe, S_MAIN, (h, w)), ticks, kernels)
+    if counts["os_stage"] != 3 * WIDE_TICKS:
+        raise AssertionError(f"osnet_x1_0 f32 path: K6 launched "
+                             f"{counts['os_stage']} times in {WIDE_TICKS} ticks")
+    tracks = _check_results("osnet_x1_0 f32 path", results)
+    forms = [stage_form(spec, torch.float32) for spec in specs]
+    log(f"fused strongsort path with osnet_x1_0 in float32 (half=False; K6 "
+        f"stages {forms}), S={S_MAIN} 1080p; launches over {WIDE_TICKS} "
+        f"ticks: {counts}; G per tick {slot_counts}; active tracks per "
+        f"stream {tracks}; ms/tick {_ms_line(times)}; the median with the "
+        f"float32 first forms was {WIDE_TICK_F32_FIRST_MS:.2f} [{card}]")
     crops = torch.from_numpy(np.random.default_rng(8).integers(
         0, 256, (64, 3, 128, 64)).astype(np.float32) / np.float32(255.0))
     emb = {}
@@ -3776,8 +3828,9 @@ def time_k8(card: str, calls, label: str, first=None) -> dict:
     function: bf16 products, no quantization) by graph replay, and the
     bound; each conv beside its time in K8's first form where
     ``first`` (tools/prof_s8.YOLOV8N_INT8, the same convs in the same
-    order) is given, then the sums over each conv class. -> the sums over
-    all, and per class."""
+    order) is given, a depthwise conv beside K8_DW_FIRST_MS and cuDNN's
+    bf16 depthwise conv + SiLU; then the sums over each conv class. -> the
+    sums over all, and per class."""
     import torch
     import torch.nn.functional as F
 
@@ -3787,7 +3840,7 @@ def time_k8(card: str, calls, label: str, first=None) -> dict:
     from strongsort_yolo_tpu_torch.tools.prof_conv import graph_ms
     from strongsort_yolo_tpu_torch.tools.prof_s8 import conv_class
 
-    keys = ("ms", "plain", "library", "bound", "by_ops", "first")
+    keys = ("ms", "plain", "library", "bound", "by_ops", "first", "silu")
     total = dict.fromkeys(keys, 0.0)
     classes = {}
     if first is not None and len(first) != len(calls):
@@ -3812,19 +3865,27 @@ def time_k8(card: str, calls, label: str, first=None) -> dict:
             return F.silu(y) if conv.act else y
 
         library = graph_ms(lib)
+        depthwise = conv.groups > 1
+        silu = (graph_ms(lambda: F.silu(F.conv2d(x, w16, b16, conv.stride, conv.pad,
+                                                 1, conv.groups)))
+                if depthwise else 0.0)
         out = conv_s8(*args, **kw, packed=packed)
         macs = out.numel() * conv.wq[0].numel()
         t, by = bound(nbytes(x, conv.wq, conv.wscale, conv.b, out), 2 * macs,
                       "int8")
         then = ""
         row = dict(ms=ms, plain=plain, library=library, bound=t,
-                   by_ops=t if by == "operations" else 0.0, first=0.0)
+                   by_ops=t if by == "operations" else 0.0, first=0.0, silu=silu)
         if first is not None:
             if tuple(first[i][:6]) != shape:
                 raise AssertionError(f"K8 {label}: conv {i} is {shape}, the "
                                      f"first form timed {first[i][:6]}")
             row["first"] = first[i][6]
             then = f" (first form: {first[i][6]:.4f} ms)"
+        elif depthwise:
+            row["first"] = K8_DW_FIRST_MS
+            then = (f" (first form: {K8_DW_FIRST_MS:.4f} ms; cuDNN bf16 "
+                    f"depthwise conv + SiLU {silu:.4f} ms)")
         for key in keys:
             total[key] += row[key]
         name = (conv_class(*shape) if conv.groups == 1
@@ -3839,8 +3900,10 @@ def time_k8(card: str, calls, label: str, first=None) -> dict:
             f"{' + SiLU' * conv.act} {library:.4f} ms, bound {t:.6f} ms "
             f"({by}, {2 * macs / 1e9:.3f} GOP) [{card}]")
     for name, c in classes.items():
-        then = (f" (first form: {c['first']:.4f} ms)" if first is not None
-                else "")
+        then = (f" (first form: {c['first']:.4f} ms)"
+                if first is not None or c["first"] else "")
+        if c["silu"]:
+            then += f", cuDNN bf16 conv + SiLU {c['silu']:.4f} ms"
         log(f"K8 {label}, class {name}: {int(c['n'])} convs, kernel "
             f"{c['ms']:.4f} ms{then}, cuDNN bf16 {c['library']:.4f} ms, "
             f"bound {c['bound']:.6f} ms [{card}]")
@@ -3849,6 +3912,11 @@ def time_k8(card: str, calls, label: str, first=None) -> dict:
 
 
 K8_20X20_MS = 0.04  # the bar of each 3x3 conv on a 20 x 20 plane
+# K8's first depthwise form (the quantize pass, then a thread per output
+# reading channel-minor codes) on yolo11n-pose's pe conv (S=8, 128 x 20 x
+# 20, bf16), by CUDA-graph replay on the kernels before the one-launch
+# form took it (NVIDIA H100 80GB HBM3, 700.00 W)
+K8_DW_FIRST_MS = 0.0229
 
 
 def check_k8_bars(total: dict) -> None:
@@ -3871,6 +3939,23 @@ def check_k8_bars(total: dict) -> None:
     log(f"K8 bars met: {total['ms']:.4f} ms <= cuDNN's {total['library']:.4f}, "
         f"every 3x3 20x20 conv <= {K8_20X20_MS} ms, every class at or below "
         f"its first form's time")
+
+
+def check_k8_dw_bar(total: dict) -> None:
+    """K8's depthwise bar (time_k8's sums over yolo11n-pose's convs, one
+    run): the depthwise class no slower than cuDNN's bf16 depthwise conv
+    + SiLU of the same convs in the same run, and faster than the first
+    form."""
+    c = total["classes"].get("depthwise 3x3")
+    if c is None:
+        raise AssertionError("K8: yolo11n-pose ran no depthwise conv")
+    if not (c["ms"] <= c["silu"] and c["ms"] < c["first"]):
+        raise AssertionError(f"K8 depthwise {c['ms']:.4f} ms: cuDNN bf16 conv "
+                             f"+ SiLU {c['silu']:.4f}, first form "
+                             f"{c['first']:.4f}")
+    log(f"K8 depthwise bar met: {c['ms']:.4f} ms <= cuDNN bf16 depthwise conv "
+        f"+ SiLU {c['silu']:.4f} (conv alone {c['library']:.4f}), "
+        f"{c['first'] / c['ms']:.2f}x the first form's {c['first']:.4f}")
 
 
 def _int8_parity(label: str, cpu, card) -> int:
@@ -4477,6 +4562,7 @@ def phase_int8(card: str, kernels: dict) -> dict:
         f"graph replay: kernel {pose_total['ms']:.4f} ms, cuDNN bf16 "
         f"{pose_total['library']:.4f} ms, bound {pose_total['bound']:.6f} ms "
         f"[{card}]")
+    check_k8_dw_bar(pose_total)
     mark("phase 8c: the int8 quality guard, card against CPU")
     phase_int8_guard(card)
     mark("phase 8e: the int8 app")

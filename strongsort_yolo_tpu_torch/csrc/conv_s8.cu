@@ -1,7 +1,9 @@
 // K8: the int8 conv of post-training quantization: quantize the input,
 // int8 x int8 products summed exactly in int32, then
 // y = fma(sum, xscale * wscale[c], b[c]), SiLU if act, one cast to the
-// input dtype. One call per conv: a quantize pass, then the conv.
+// input dtype. One call per conv: for groups 1 a quantize pass, then
+// the implicit GEMM; for a depthwise conv one launch that quantizes its
+// own tile.
 //
 // Replaces no Pallas kernel. Its counterpart is
 // strongsort_yolo_tpu/ops/quant.py:41 conv_int8_apply: on the TPU an XLA
@@ -83,9 +85,26 @@
 //    ring is free by then) and stores along the output's unit stride,
 //    16 bytes (8 bf16 or 4 float32 / int32 pixels) a store where a
 //    plane's pixel count allows.
-// 4. conv_s8_dw_kernel (depthwise, groups = C_in = C_out) reads the same
-//    codes on the CUDA cores: a thread per output value, its k*k
-//    products summed in int32, a row of blocks per (image, channel).
+// 4. conv_s8_dw_kernel (depthwise, groups = C_in = C_out) is one launch
+//    that quantizes its own tile: no codes buffer, no quantize pass. A
+//    block takes (image, a group of cg channels, a band of bh output
+//    rows) (quant_kernel.dw_plan picks cg and bh so that the grid fills
+//    the card); it reads the band's input rows and their halo straight
+//    from x through its strides, coalesced along w, several loads of a
+//    thread in flight before their divisions, and quantizes each element
+//    into shared memory with the quantize pass's arithmetic (the same
+//    quantize(): __fdiv_rn by *xscale, rint, clip to +-127), zero codes
+//    in the padding. Then a thread sums the k*k int8 products of one
+//    channel at 16 bytes' worth of consecutive output pixels (8 bf16, or
+//    4 float32 / int32) in int32, applies the epilogue and stores them
+//    as one 16-byte store where the plane allows, else one value at a
+//    time; k = 3 and 5 are compiled with the taps in registers and the
+//    loops unrolled, any other k reads them from shared memory. The
+//    epilogue's per-channel constants are staged in shared memory while
+//    the tile's loads are in flight. The conv is bound by launch latency, not by its bytes (at
+//    yolo11n-pose's pe conv: 0.5 us of bytes in a launch of several), so
+//    one launch with one round of loads, and no codes buffer read back
+//    channel-minor (a byte per 32-byte sector), is the design.
 // Two launches are bit-identical: no atomics, and every sum is exact.
 
 #include <cuda_bf16.h>
@@ -103,7 +122,9 @@ constexpr int kStages = 6;      // stages in the ring; kStages - 2 in flight
 constexpr int kThreads = 128;   // one warpgroup
 constexpr int kGemmBlocks = 4;  // conv blocks an SM holds (registers)
 constexpr int kQThreads = 128;  // quantize pass: pixels per block
-constexpr int kDwThreads = 256;
+constexpr int kDwThreads = 256;  // depthwise: threads per block
+constexpr int kDwBatch = 8;      // depthwise: loads of a thread in flight
+constexpr int kDwSmem = 48 * 1024;  // depthwise: a block's shared memory
 constexpr int kCoAlign = 64;    // packed weight rows: C_out padded to this
 
 struct Geo {
@@ -484,35 +505,170 @@ __global__ void __launch_bounds__(kThreads, kGemmBlocks)
 
 // -- depthwise --------------------------------------------------------------
 
-// wp (C, k*k) int8; a block row per (image, channel) plane (blockIdx.y),
-// a thread per output pixel of it, reading the codes
-template <typename O>
+// a depthwise block's share of the conv (quant_kernel.dw_plan): cg
+// channels and bh output rows of one image; ih input rows (the band's and
+// its halo) of iw = w + 2 pad codes each; the grid's blocks walk
+// (image, channel group, band), the band fastest. m_iw and m_ih divide by
+// iw and ih (div_by).
+struct DwPlan {
+  int cg, bh, ih, iw, groups, bands;
+  unsigned long long m_iw, m_ih;
+};
+
+// bytes of a block's shared memory: the codes tile, the taps, then (from
+// a multiple of 4 bytes) the channels' xscale * wscale and bias
+__host__ __device__ inline int dw_codes_bytes(const DwPlan& d, int k) {
+  return (d.cg * d.ih * d.iw + d.cg * k * k + 3) / 4 * 4;
+}
+
+__host__ __device__ inline int dw_smem_bytes(const DwPlan& d, int k) {
+  return dw_codes_bytes(d, k) + 8 * d.cg;
+}
+
+// n / d for n < 2^17 and 1 <= d < 2^23, from m = ceil(2^40 / d): n m / 2^40
+// exceeds n / d by less than 2^-23 < 1 / d, so the floor is exact
+__host__ __device__ inline unsigned long long div_magic(int d) {
+  return ((1ull << 40) + d - 1) / d;
+}
+
+__device__ __forceinline__ int div_by(int n, unsigned long long m) {
+  return static_cast<int>((static_cast<unsigned long long>(n) * m) >> 40);
+}
+
+// a value's bits, in the low bits of a word
+__device__ __forceinline__ uint32_t bits_of(int v) { return static_cast<uint32_t>(v); }
+__device__ __forceinline__ uint32_t bits_of(float v) { return __float_as_uint(v); }
+__device__ __forceinline__ uint32_t bits_of(__nv_bfloat16 v) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(v));
+}
+
+// The k*k taps of one channel and the sum of their products at an output
+// pixel of the band: KT = k a compile-time constant (3 and 5), the taps in
+// registers and the loops unrolled; KT = 0 any k, read from shared memory.
+template <int KT>
+struct DwTaps {
+  int w[KT * KT];
+  __device__ __forceinline__ DwTaps(const int8_t* taps, int, int) {
+#pragma unroll
+    for (int q = 0; q < KT * KT; ++q) w[q] = taps[q];
+  }
+  __device__ __forceinline__ int sum(const int8_t* t, int iw) const {
+    int acc = 0;
+#pragma unroll
+    for (int ky = 0; ky < KT; ++ky)
+#pragma unroll
+      for (int kx = 0; kx < KT; ++kx) acc += static_cast<int>(t[ky * iw + kx]) * w[ky * KT + kx];
+    return acc;
+  }
+};
+
+template <>
+struct DwTaps<0> {
+  const int8_t* w;
+  int k;
+  __device__ __forceinline__ DwTaps(const int8_t* taps, int k_, int) : w(taps), k(k_) {}
+  __device__ __forceinline__ int sum(const int8_t* t, int iw) const {
+    int acc = 0;
+    for (int ky = 0; ky < k; ++ky)
+      for (int kx = 0; kx < k; ++kx)
+        acc += static_cast<int>(t[ky * iw + kx]) * static_cast<int>(w[ky * k + kx]);
+    return acc;
+  }
+};
+
+// x (N, C, H, W) of T through its strides; wp (C, k*k) int8; out (N, C,
+// H_out, W_out) of O through its strides
+template <typename T, typename O, int KT>
 __global__ void __launch_bounds__(kDwThreads)
-    conv_s8_dw_kernel(const int8_t* __restrict__ codes,
-                      const int8_t* __restrict__ wp,
+    conv_s8_dw_kernel(const T* __restrict__ x, const int8_t* __restrict__ wp,
                       const float* __restrict__ wscale,
                       const float* __restrict__ bias,
                       const float* __restrict__ xscale, O* __restrict__ out,
-                      Geo g) {
-  const int p = blockIdx.x * kDwThreads + threadIdx.x;
-  if (p >= g.h_out * g.w_out) return;
-  const int c = blockIdx.y % g.c_out, n = blockIdx.y / g.c_out;
-  const int oy = p / g.w_out, ox = p % g.w_out;
-  const int8_t* cn = codes + static_cast<long long>(n) * g.h * g.w * g.c_pitch + c;
-  const int8_t* wc = wp + c * g.k * g.k;
-  int acc = 0;
-  for (int ky = 0; ky < g.k; ++ky) {
-    const int iy = oy * g.stride - g.pad + ky;
-    if (iy < 0 || iy >= g.h) continue;
-    for (int kx = 0; kx < g.k; ++kx) {
-      const int ix = ox * g.stride - g.pad + kx;
-      if (ix < 0 || ix >= g.w) continue;
-      acc += static_cast<int>(cn[(iy * g.w + ix) * g.c_pitch]) *
-             static_cast<int>(wc[ky * g.k + kx]);
+                      Geo g, DwPlan d) {
+  extern __shared__ __align__(16) int8_t dsm[];
+  int8_t* tile = dsm;                          // (cg, ih, iw) codes
+  int8_t* taps = dsm + d.cg * d.ih * d.iw;     // (cg, k*k)
+  float* scale = reinterpret_cast<float*>(dsm + dw_codes_bytes(d, g.k));  // (cg,)
+  float* shift = scale + d.cg;                 // (cg,) the bias
+  const int tid = threadIdx.x;
+  int b = blockIdx.x;
+  const int band = b % d.bands;
+  b /= d.bands;
+  const int c0 = (b % d.groups) * d.cg, n = b / d.groups;
+  const int oy0 = band * d.bh;
+  const int rows = min(d.bh, g.h_out - oy0);  // output rows of the band
+  const int cgv = min(d.cg, g.c_out - c0);   // channels of the group
+  const int iy0 = oy0 * g.stride - g.pad;
+  const int kk = g.k * g.k;
+  const float xs = *xscale;
+  // the taps and each channel's epilogue constants, staged while the
+  // tile's loads are in flight
+  for (int e = tid; e < cgv * kk; e += kDwThreads) taps[e] = wp[c0 * kk + e];
+  for (int c = tid; c < cgv; c += kDwThreads) {
+    scale[c] = xs * wscale[c0 + c];
+    shift[c] = bias[c0 + c];
+  }
+
+  // the band's rows and halo, quantized: a thread's kDwBatch loads in
+  // flight at once, then their divisions; zero codes outside the image
+  const T* xn = x + n * g.sxn + c0 * g.sxc;
+  const int total = d.cg * d.ih * d.iw;
+  for (int e0 = 0; e0 < total; e0 += kDwThreads * kDwBatch) {
+    float v[kDwBatch];
+    bool in[kDwBatch];
+#pragma unroll
+    for (int j = 0; j < kDwBatch; ++j) {
+      const int e = e0 + j * kDwThreads + tid;
+      const int r = div_by(e, d.m_iw), ix = e - r * d.iw - g.pad;
+      const int c = div_by(r, d.m_ih), iy = iy0 + r - c * d.ih;
+      in[j] = e < total && c < cgv && iy >= 0 && iy < g.h && ix >= 0 && ix < g.w;
+      v[j] = in[j] ? to_f<T>(xn[c * g.sxc + iy * g.sxh + ix * g.sxw]) : 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < kDwBatch; ++j) {
+      const int e = e0 + j * kDwThreads + tid;
+      if (e < total) tile[e] = static_cast<int8_t>(in[j] ? quantize(v[j], xs) : 0);
     }
   }
-  out[n * g.son + c * g.soc + oy * g.soh + ox * g.sow] =
-      epilogue<O>(acc, *xscale * wscale[c], bias[c], g.act);
+  __syncthreads();
+
+  // a thread per kG consecutive output pixels of one channel (16 bytes)
+  // where the plane takes 16-byte stores, else per output value
+  const int pix = rows * g.w_out;  // the band's output pixels per channel
+  constexpr int kG = 16 / static_cast<int>(sizeof(O));
+  const int rs = g.stride * d.iw;  // tile bytes from one output row to the next
+  if (g.vec && (d.bh * g.w_out) % kG == 0) {
+    const int per = pix / kG;
+    for (int e = tid; e < cgv * per; e += kDwThreads) {
+      const int c = e / per, q = (e - c * per) * kG;
+      int oy = q / g.w_out, ox = q - oy * g.w_out;
+      const DwTaps<KT> w(taps + c * kk, g.k, 0);
+      const int8_t* tc = tile + c * d.ih * d.iw;
+      const float s = scale[c], bb = shift[c];
+      uint32_t word[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+      for (int j = 0; j < kG; ++j) {
+        const O v = epilogue<O>(w.sum(tc + oy * rs + ox * g.stride, d.iw), s, bb, g.act);
+        word[j * sizeof(O) / 4] |= bits_of(v) << (j * sizeof(O) * 8 % 32);
+        if (++ox == g.w_out) {
+          ox = 0;
+          ++oy;
+        }
+      }
+      *reinterpret_cast<uint4*>(out + n * g.son + (c0 + c) * g.soc +
+                                oy0 * g.w_out + q) =
+          make_uint4(word[0], word[1], word[2], word[3]);
+    }
+  } else {
+    for (int e = tid; e < cgv * pix; e += kDwThreads) {
+      const int c = e / pix, q = e - c * pix;
+      const int oy = q / g.w_out, ox = q - oy * g.w_out;
+      const DwTaps<KT> w(taps + c * kk, g.k, 0);
+      out[n * g.son + (c0 + c) * g.soc + (oy0 + oy) * g.soh + ox * g.sow] =
+          epilogue<O>(w.sum(tile + c * d.ih * d.iw + oy * rs + ox * g.stride, d.iw),
+                      scale[c], shift[c], g.act);
+    }
+  }
 }
 
 // -- launches ---------------------------------------------------------------
@@ -549,17 +705,10 @@ cudaError_t launch_gemm(const int8_t* codes, const int8_t* wp,
 }
 
 template <typename O>
-cudaError_t launch_conv(const int8_t* codes, const int8_t* wp,
-                        const float* ws, const float* bb, const float* xs,
-                        void* out, const Geo& g, int depthwise, int n_tile,
-                        cudaStream_t stream) {
-  if (depthwise) {
-    const dim3 grid((g.h_out * g.w_out + kDwThreads - 1) / kDwThreads,
-                    g.n * g.c_out);
-    conv_s8_dw_kernel<O><<<grid, kDwThreads, 0, stream>>>(
-        codes, wp, ws, bb, xs, static_cast<O*>(out), g);
-    return cudaGetLastError();
-  }
+cudaError_t launch_gemm_tile(const int8_t* codes, const int8_t* wp,
+                             const float* ws, const float* bb, const float* xs,
+                             void* out, const Geo& g, int n_tile,
+                             cudaStream_t stream) {
   switch (n_tile) {
     case 32: return launch_gemm<32, O>(codes, wp, ws, bb, xs, out, g, stream);
     case 64: return launch_gemm<64, O>(codes, wp, ws, bb, xs, out, g, stream);
@@ -577,19 +726,44 @@ cudaError_t launch_quant(const void* x, const float* xs, int8_t* codes,
   return cudaGetLastError();
 }
 
+template <typename T, typename O>
+cudaError_t launch_dw(const void* x, const int8_t* wp, const float* ws,
+                      const float* bb, const float* xs, void* out,
+                      const Geo& g, const DwPlan& d, cudaStream_t stream) {
+  const unsigned blocks = static_cast<unsigned>(g.n) * d.groups * d.bands;
+  const int smem = dw_smem_bytes(d, g.k);
+  const T* xt = static_cast<const T*>(x);
+  O* o = static_cast<O*>(out);
+  if (g.k == 3) {
+    conv_s8_dw_kernel<T, O, 3><<<blocks, kDwThreads, smem, stream>>>(xt, wp, ws, bb, xs, o, g, d);
+  } else if (g.k == 5) {
+    conv_s8_dw_kernel<T, O, 5><<<blocks, kDwThreads, smem, stream>>>(xt, wp, ws, bb, xs, o, g, d);
+  } else {
+    conv_s8_dw_kernel<T, O, 0><<<blocks, kDwThreads, smem, stream>>>(xt, wp, ws, bb, xs, o, g, d);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dw_out(const void* x, const int8_t* wp, const float* ws,
+                          const float* bb, const float* xs, void* out,
+                          const Geo& g, const DwPlan& d, cudaStream_t stream) {
+  return g.sums ? launch_dw<T, int>(x, wp, ws, bb, xs, out, g, d, stream)
+                : launch_dw<T, T>(x, wp, ws, bb, xs, out, g, d, stream);
+}
+
 }  // namespace
 
-// x (n, c_in, h, w) through its strides, float32 (dtype 0) or bfloat16
-// (1); wp the packed int8 weights (groups 1: (k*k*c_pitch/32, 2, co_pad,
-// 16) with co_pad a multiple of 64; depthwise: (c, k*k)), 16-byte
-// aligned; wscale, b (c_out,) float32; xscale one float32 on the device;
-// codes a scratch of n*h*w*c_pitch bytes, 16-byte aligned, c_pitch a
-// multiple of 32; out (n, c_out, h_out, w_out) through its strides, in
-// x's dtype, or int32 sums with sums = 1. n_tile: output channels per
-// block of the tensor-core form (32 or 64). vec: the output's
-// planes are contiguous and 16-byte aligned in groups of 16 bytes
-// (h_out * w_out, son and soc multiples of 16 / element size, sow = 1,
-// soh = w_out).
+// groups 1. x (n, c_in, h, w) through its strides, float32 (dtype 0) or
+// bfloat16 (1); wp the packed int8 weights, (k*k*c_pitch/32, 2, co_pad,
+// 16) with co_pad a multiple of 64, 16-byte aligned; wscale, b (c_out,)
+// float32; xscale one float32 on the device; codes a scratch of
+// n*h*w*c_pitch bytes, 16-byte aligned, c_pitch a multiple of 32; out
+// (n, c_out, h_out, w_out) through its strides, in x's dtype, or int32
+// sums with sums = 1. n_tile: output channels per block of the
+// tensor-core form (32 or 64). vec: the output's planes are contiguous
+// and 16-byte aligned in groups of 16 bytes (h_out * w_out, son and soc
+// multiples of 16 / element size, sow = 1, soh = w_out).
 extern "C" int ssyt_conv_s8(const void* x, const void* wp, const void* wscale,
                             const void* b, const void* xscale, void* codes,
                             void* out, int n, int h, int wd, int c_in,
@@ -597,17 +771,15 @@ extern "C" int ssyt_conv_s8(const void* x, const void* wp, const void* wscale,
                             long long sxc, long long sxh, long long sxw,
                             long long son, long long soc, long long soh,
                             long long sow, int k, int stride, int pad,
-                            int depthwise, int c_pitch, int co_pad, int n_tile,
-                            int act, int sums, int dtype, int vec,
-                            void* stream) {
+                            int c_pitch, int co_pad, int n_tile, int act,
+                            int sums, int dtype, int vec, void* stream) {
   const long long pixels = static_cast<long long>(n) * h * wd;
   if (k < 1 || stride < 1 || pad < 0 || n < 1 || h < 1 || wd < 1 ||
       c_in < 1 || c_out < 1 || h_out < 1 || w_out < 1 || c_pitch % kBK ||
       c_pitch < c_in || pixels >= (1ll << 31) ||
       static_cast<long long>(n) * h_out * w_out >= (1ll << 31) ||
       static_cast<long long>(h) * wd * c_pitch >= (1ll << 31) ||
-      (!depthwise && (co_pad % kCoAlign || co_pad < c_out)) ||
-      (depthwise && (c_in != c_out || static_cast<long long>(n) * c_out > 65535))) {
+      co_pad % kCoAlign || co_pad < c_out) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Geo g{n,   h,    wd,      c_in,   c_out, h_out, w_out, k,
@@ -623,18 +795,86 @@ extern "C" int ssyt_conv_s8(const void* x, const void* wp, const void* wscale,
                                : launch_quant<float>(x, xs, cd, g, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (sums) {
-    err = launch_conv<int>(cd, w8, ws, bb, xs, out, g, depthwise, n_tile, s);
+    err = launch_gemm_tile<int>(cd, w8, ws, bb, xs, out, g, n_tile, s);
   } else if (dtype == 1) {
-    err = launch_conv<__nv_bfloat16>(cd, w8, ws, bb, xs, out, g, depthwise,
-                                     n_tile, s);
+    err = launch_gemm_tile<__nv_bfloat16>(cd, w8, ws, bb, xs, out, g, n_tile, s);
   } else {
-    err = launch_conv<float>(cd, w8, ws, bb, xs, out, g, depthwise, n_tile, s);
+    err = launch_gemm_tile<float>(cd, w8, ws, bb, xs, out, g, n_tile, s);
   }
   return static_cast<int>(err);
 }
 
+// depthwise (groups = c = c_out), one launch: x, wscale, b, xscale, out,
+// act, sums, dtype and vec as ssyt_conv_s8's; wp (c, k*k) int8; a block
+// per (image, cg channels, bh output rows) (quant_kernel.dw_plan). The
+// grid's limit is its own: n * ceil(c / cg) * ceil(h_out / bh) blocks
+// below 2^31, and a block's codes tile, taps and epilogue constants
+// within 48 KB.
+extern "C" int ssyt_conv_s8_dw(const void* x, const void* wp,
+                               const void* wscale, const void* b,
+                               const void* xscale, void* out, int n, int h,
+                               int wd, int c, int h_out, int w_out,
+                               long long sxn, long long sxc, long long sxh,
+                               long long sxw, long long son, long long soc,
+                               long long soh, long long sow, int k, int stride,
+                               int pad, int cg, int bh, int act, int sums,
+                               int dtype, int vec, void* stream) {
+  if (k < 1 || stride < 1 || pad < 0 || n < 1 || h < 1 || wd < 1 || c < 1 ||
+      h_out < 1 || w_out < 1 || cg < 1 || bh < 1 ||
+      (h_out - 1) * stride + k > h + 2 * pad ||
+      (w_out - 1) * stride + k > wd + 2 * pad) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  DwPlan d;
+  d.cg = cg < c ? cg : c;
+  d.bh = bh < h_out ? bh : h_out;
+  d.ih = (d.bh - 1) * stride + k;
+  d.iw = wd + 2 * pad;
+  d.groups = (c + d.cg - 1) / d.cg;
+  d.bands = (h_out + d.bh - 1) / d.bh;
+  d.m_iw = div_magic(d.iw);
+  d.m_ih = div_magic(d.ih);
+  const long long blocks = static_cast<long long>(n) * d.groups * d.bands;
+  if (blocks >= (1ll << 31) ||
+      static_cast<long long>(d.cg) * d.ih * d.iw + d.cg * k * k + 3 + 8 * d.cg > kDwSmem ||
+      d.iw >= (1 << 23) ||
+      static_cast<long long>(d.cg) * d.bh * w_out >= (1ll << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Geo g{};
+  g.n = n;
+  g.h = h;
+  g.w = wd;
+  g.c_in = g.c_out = c;
+  g.h_out = h_out;
+  g.w_out = w_out;
+  g.k = k;
+  g.stride = stride;
+  g.pad = pad;
+  g.act = act;
+  g.sums = sums;
+  g.vec = vec;
+  g.sxn = sxn;
+  g.sxc = sxc;
+  g.sxh = sxh;
+  g.sxw = sxw;
+  g.son = son;
+  g.soc = soc;
+  g.soh = soh;
+  g.sow = sow;
+  const int8_t* w8 = static_cast<const int8_t*>(wp);
+  const float* ws = static_cast<const float*>(wscale);
+  const float* bb = static_cast<const float*>(b);
+  const float* xs = static_cast<const float*>(xscale);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      dtype == 1 ? launch_dw_out<__nv_bfloat16>(x, w8, ws, bb, xs, out, g, d, s)
+                 : launch_dw_out<float>(x, w8, ws, bb, xs, out, g, d, s);
+  return static_cast<int>(err);
+}
+
 // the quantize pass alone (the codes of x, as ssyt_conv_s8 writes them
-// before its conv): for the tests and the profiling tool
+// before its conv of groups 1): for the tests and the profiling tool
 extern "C" int ssyt_conv_s8_quantize(const void* x, const void* xscale,
                                      void* codes, int n, int h, int wd,
                                      int c_in, long long sxn, long long sxc,

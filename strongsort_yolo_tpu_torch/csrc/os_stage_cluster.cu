@@ -65,7 +65,7 @@ __global__ void __launch_bounds__(NT, 2)
     os_stage_cluster_kernel(const bf16* __restrict__ x, const bf16* __restrict__ mats,
                             const float* __restrict__ vecs,
                             const int32_t* __restrict__ offs, bf16* __restrict__ out) {
-  stage_body<B, W, NT, K>(x, mats, vecs, offs, out, CI, CO, MID, 0);
+  stage_body<bf16, B, W, NT, K>(x, mats, vecs, offs, out, CI, CO, MID, 0);
 }
 
 // a cluster of K blocks per crop of H x W pixels, G K blocks
@@ -73,28 +73,9 @@ template <int H, int W, int K, int CI, int CO, int MID>
 int launch_cluster(const void* x, const void* mats, const void* vecs, const void* offs,
                    void* out, int G, cudaStream_t stream) {
   constexpr int NT = kClusterThreads, B = H * W / K;
-  const long long bytes = layout(CI, CO, MID, B, W, K).bytes;
-  auto kernel = os_stage_cluster_kernel<B, W, NT, K, CI, CO, MID>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)G * K);
-  cfg.blockDim = dim3(NT);
-  cfg.dynamicSmemBytes = (size_t)bytes;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = K;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const bf16*>(x),
-                           static_cast<const bf16*>(mats), static_cast<const float*>(vecs),
-                           static_cast<const int32_t*>(offs), static_cast<bf16*>(out));
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return launch_clusters<bf16>(os_stage_cluster_kernel<B, W, NT, K, CI, CO, MID>, K, NT,
+                               layout<bf16>(CI, CO, MID, B, W, K).bytes, x, mats, vecs,
+                               offs, out, G, stream);
 }
 
 // The stages and splits the cluster form is built for: (c_in, c_out,
@@ -124,7 +105,7 @@ int built(int c_in, int c_out, int mid, int h, int w, int k) {
 
 long long os_stage_cluster_bytes(int c_in, int c_out, int mid, int h, int w, int k) {
   if (built(c_in, c_out, mid, h, w, k) < 0) return -1;
-  const long long bytes = layout(c_in, c_out, mid, h * w / k, w, k).bytes;
+  const long long bytes = layout<bf16>(c_in, c_out, mid, h * w / k, w, k).bytes;
   return bytes <= kMaxSmem ? bytes : -1;
 }
 

@@ -58,14 +58,14 @@ __global__ void __launch_bounds__(NT, 1)
                         const float* __restrict__ vecs, const int32_t* __restrict__ offs,
                         bf16* __restrict__ out, int c_in, int c_out, int mid,
                         int gap) {
-  stage_body<P, W, NT, 1>(x, mats, vecs, offs, out, c_in, c_out, mid, gap);
+  stage_body<bf16, P, W, NT, 1>(x, mats, vecs, offs, out, c_in, c_out, mid, gap);
 }
 
 template <int P, int W, int NT>
 int launch_mma(const void* x, const void* mats, const void* vecs, const void* offs,
                void* out, int G, int c_in, int c_out, int mid, int gap,
                cudaStream_t stream) {
-  const long long bytes = layout(c_in, c_out, mid, P).bytes;
+  const long long bytes = layout<bf16>(c_in, c_out, mid, P).bytes;
   auto kernel = os_stage_mma_kernel<P, W, NT>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -85,7 +85,7 @@ long long os_stage_mma_bytes(int c_in, int c_out, int mid, int h, int w) {
                      (pixels == 32 && w == 4);
   if (!built || mid % 8 != 0 || c_out % 16 != 0 || c_in % 16 != 0 || mid / 16 > 8)
     return -1;
-  const long long bytes = layout(c_in, c_out, mid, pixels).bytes;
+  const long long bytes = layout<bf16>(c_in, c_out, mid, pixels).bytes;
   return bytes <= kMaxSmem ? bytes : -1;
 }
 

@@ -1,10 +1,13 @@
 #pragma once
 
-// K6's tensor-core stage body, shared by its two launches: one block per
-// crop (os_stage_mma.cu, whose note describes the design) and a cluster
-// of K blocks per crop, each on a band of whole rows (os_stage_cluster.cu,
-// whose note describes what crosses the blocks). The body is one template
-// over K: with K = 1 every cluster step compiles away.
+// K6's tensor-core stage body, shared by its launches: one block per crop
+// (os_stage_mma.cu, whose note describes the design) and a cluster of K
+// blocks per crop, each on a band of whole rows (os_stage_cluster.cu,
+// whose note describes what crosses the blocks), in bfloat16; and the
+// same two in float32 (os_stage_tf32.cu, os_stage_tf32_cluster.cu), whose
+// 1x1 products run as 3xTF32 (the note of os_stage_tf32.cu). The body is
+// one template over the element type T and K: with K = 1 every cluster
+// step compiles away.
 
 #include <cooperative_groups.h>
 
@@ -17,29 +20,34 @@ typedef __nv_bfloat16 bf16;
 
 constexpr long long kMaxSmem = 227 * 1024;
 
-// the least row stride >= c that is 8 more than a multiple of 16: its 4-byte
-// words then step by 4 mod 8 banks, so the 8 rows of a fragment load hit
-// 8 different groups of 4 banks (the columns past c of a K chunk are never
-// read: the fragments zero them)
-__host__ __device__ constexpr int row_stride(int c) { return (c + 7) / 16 * 16 + 8; }
+// the least row stride >= c (in elements of T) whose 4-byte words step by
+// 4 mod 8 banks from row to row: bf16, 8 more than a multiple of 16;
+// float32, 4 more than a multiple of 8. The 8 rows of a fragment load
+// then hit 8 different groups of 4 banks (the columns past c of a K chunk
+// are never read: the fragments zero them)
+template <typename T>
+__host__ __device__ constexpr int row_stride(int c) {
+  return sizeof(T) == 2 ? (c + 7) / 16 * 16 + 8 : (c + 3) / 8 * 8 + 4;
+}
 
 // element offsets of the shared-memory regions, and the bytes in all
 struct Layout {
-  int sx, sm, sxa, se;        // row strides (bf16) of X, the mid columns, XA, E
+  int sx, sm, sxa, se;        // row strides (elements) of X, the mid columns, XA, E
   long long cols, xa, halo;   // element offsets of the columns, XA and the halo rows
   long long floats;           // byte offset of the float arrays
   long long bytes;
 };
 
 // pixels: a block's pixels (the crop's, or its band's in a cluster of k
-// blocks of w-wide rows)
-__host__ __device__ inline Layout layout(int c_in, int c_out, int mid, int pixels,
-                                         int w = 0, int k = 1) {
-  Layout l;
+// blocks of w-wide rows); elements of T
+template <typename T>
+__host__ __device__ constexpr Layout layout(int c_in, int c_out, int mid, int pixels,
+                                            int w = 0, int k = 1) {
+  Layout l{};
   const long long m = pixels;
-  l.sx = row_stride(c_in);
-  l.sm = row_stride(mid);
-  l.sxa = row_stride(c_out);
+  l.sx = row_stride<T>(c_in);
+  l.sm = row_stride<T>(mid);
+  l.sxa = row_stride<T>(c_out);
   l.se = l.sxa;
   l.cols = m * l.sx;
   // X and the four columns (y, s, agg, u), overlaid at the end by E, the
@@ -50,7 +58,7 @@ __host__ __device__ inline Layout layout(int c_in, int c_out, int mid, int pixel
   l.halo = l.xa + m * l.sxa;
   // in a cluster: the lite buffer's rows above and below the band, two
   // sets by the lite conv's parity, each a (w, sm) crop row
-  l.floats = (l.halo + (k > 1 ? 4LL * w * l.sm : 0)) * 2;
+  l.floats = (l.halo + (k > 1 ? 4LL * w * l.sm : 0)) * (long long)sizeof(T);
   // the gate's mean and values; in a cluster the k bands' partial sums
   l.bytes = l.floats + 4LL * (2 + (k > 1 ? k : 0)) * mid;
   return l;
@@ -72,6 +80,14 @@ __device__ __forceinline__ float2 load2(const bf16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
+__device__ __forceinline__ void store2(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
 __device__ __forceinline__ void mma16816(float* c, const uint32_t* a, uint32_t b0,
                                          uint32_t b1) {
   asm volatile(
@@ -79,6 +95,28 @@ __device__ __forceinline__ void mma16816(float* c, const uint32_t* a, uint32_t b
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma1688(float* c, const uint32_t* a, uint32_t b0,
+                                        uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// v rounded to TF32 (10 mantissa bits), to nearest with ties away from
+// zero, on the bit pattern: the value as float32 bits, the low 13 zero
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
+}
+
+// v = hi + lo + (what 3xTF32 drops): hi = tf32(v), lo = tf32(v - hi);
+// v - hi is exact in float32
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(v);
+  lo = tf32_rna(v - __uint_as_float(hi));
 }
 
 // the cluster barrier, in two halves: arrive releases this thread's
@@ -146,14 +184,67 @@ __device__ __forceinline__ void mma_unit(float (&acc)[2][4][4], const bf16* A, i
   }
 }
 
+// The float32 unit, 3xTF32: as above with 8-wide K chunks of
+// mma.sync m16n8k8 on TF32 operands. Each float32 operand is split into
+// hi + lo (split_tf32), and a chunk's sum is lo.hi + hi.lo + hi.hi,
+// three mma.syncs into one float32 fragment from zero (the small terms
+// first), added to acc in float32: the products keep about 21 of
+// float32's 24 bits (only lo.lo and the bits past lo are dropped) at up
+// to 495 / 3 TFLOP/s, against 67 on the CUDA cores. K a multiple of 8.
+// The A fragment (16 x 8, row): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4),
+// a3 (g + 8, t + 4); B (8 x 8, col): b0 (k t, n g), b1 (k t + 4, n g);
+// the accumulators as m16n8k16's.
+__device__ __forceinline__ void mma_unit(float (&acc)[2][4][4], const float* A, int sa,
+                                         int row0, const float* __restrict__ w, int K,
+                                         int N, int n0, int g, int t) {
+#pragma unroll 1
+  for (int k0 = 0; k0 < K; k0 += 8) {
+    uint32_t ah[2][4], al[2][4];
+#pragma unroll
+    for (int mb = 0; mb < 2; ++mb) {
+      const float* p0 = A + (row0 + 16 * mb + g) * sa + k0 + t;
+      const float* p1 = p0 + 8 * sa;
+      split_tf32(p0[0], ah[mb][0], al[mb][0]);
+      split_tf32(p1[0], ah[mb][1], al[mb][1]);
+      split_tf32(p0[4], ah[mb][2], al[mb][2]);
+      split_tf32(p1[4], ah[mb][3], al[mb][3]);
+    }
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb) {
+      const int n = n0 + 8 * nb;
+      if (n < N) {  // warp-uniform: N is a multiple of 8
+        const float* wp = w + (n + g) * K + k0 + t;
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(__ldg(wp), bh0, bl0);
+        split_tf32(__ldg(wp + 4), bh1, bl1);
+#pragma unroll
+        for (int mb = 0; mb < 2; ++mb) {
+          float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          mma1688(part, al[mb], bh0, bh1);
+          mma1688(part, ah[mb], bl0, bl1);
+          mma1688(part, ah[mb], bh0, bh1);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[mb][nb][q] = acc[mb][nb][q] + part[q];
+        }
+      }
+    }
+  }
+}
+
 // out[row, n] = epi(row, n, sum_k A[row, k] W[n, k], sum_k A2[row, k] W2[n, k])
 // for rows < mv (a multiple of 32) and n < N, two columns at a time; the
 // second product only with kDual
-template <int NW, bool kDual, typename Epi>
-__device__ __forceinline__ void gemm(int mv, int N, const bf16* A, int sa,
-                                     const bf16* __restrict__ w, int K, const bf16* A2,
-                                     int sa2, const bf16* __restrict__ w2, int K2,
-                                     Epi epi) {
+template <typename T>
+struct NoDeduce {
+  typedef T type;
+};
+
+template <int NW, bool kDual, typename T, typename Epi>
+__device__ __forceinline__ void gemm(int mv, int N, const T* A, int sa,
+                                     const T* __restrict__ w, int K,
+                                     const typename NoDeduce<T>::type* A2, int sa2,
+                                     const typename NoDeduce<T>::type* __restrict__ w2,
+                                     int K2, Epi epi) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int mt = mv / 32, nt = (N + 31) / 32;
@@ -213,11 +304,11 @@ constexpr int kLites = 10;     // lite convs of an OS block
 // +-0 to a sum: the same value as leaving the tap out. Each output sums
 // its 9 products in float32, dy outer and dx inner, each product and sum
 // rounded on its own, as os_stage_plain.
-template <int B, int W, int NT, int K>
-__device__ __forceinline__ void stencil(const bf16* u, bf16* s, int sm, int mid,
+template <typename T, int B, int W, int NT, int K>
+__device__ __forceinline__ void stencil(const T* u, T* s, int sm, int mid,
                                         const float* __restrict__ taps,
                                         const float* __restrict__ dwb,
-                                        const bf16* halo, int rank) {
+                                        const T* halo, int rank) {
   constexpr int HB = B / W, H = HB * K, kRuns = W / kRun;
   const int n2 = mid / 2, per = NT / n2;  // threads per channel pair
   const int c = 2 * (threadIdx.x % n2);
@@ -238,7 +329,7 @@ __device__ __forceinline__ void stencil(const bf16* u, bf16* s, int sm, int mid,
 #pragma unroll
     for (int dy = 0; dy < 3; ++dy) {
       const bool in_y = (dy > 0 || y > 0) && (dy < 2 || y < H - 1);
-      const bf16* line = u + (row + (dy - 1) * W) * sm;  // the crop row at x = 0
+      const T* line = u + (row + (dy - 1) * W) * sm;  // the crop row at x = 0
       if constexpr (K > 1) {
         if (dy == 0 && rr == 0) line = halo;
         if (dy == 2 && rr == HB - 1) line = halo + W * sm;
@@ -274,27 +365,27 @@ __device__ __forceinline__ void stencil(const bf16* u, bf16* s, int sm, int mid,
 // mean is the sum of the K bands' partial sums, which every band pushes
 // into every band's shared memory before a cluster barrier, added in rank
 // order 0 .. K-1 by each band alike.
-template <int B, int W, int NT, int K>
-__device__ __forceinline__ void stage_body(const bf16* __restrict__ x,
-                                           const bf16* __restrict__ mats,
+template <typename T, int B, int W, int NT, int K>
+__device__ __forceinline__ void stage_body(const T* __restrict__ x,
+                                           const T* __restrict__ mats,
                                            const float* __restrict__ vecs,
                                            const int32_t* __restrict__ offs,
-                                           bf16* __restrict__ out, int c_in, int c_out,
+                                           T* __restrict__ out, int c_in, int c_out,
                                            int mid, int gap) {
   constexpr int NW = NT / 32;
   constexpr int P = B * K;  // the crop's pixels
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L = layout(c_in, c_out, mid, B, W, K);
+  const Layout L = layout<T>(c_in, c_out, mid, B, W, K);
   const int R = mid / 16 > 0 ? mid / 16 : 1;  // the gate's hidden width
-  bf16* base = reinterpret_cast<bf16*>(smem);
-  bf16* xs = base;                 // (B, c_in) block input
-  bf16* ycol = base + L.cols;      // conv1's output y
-  bf16* scol = ycol + B * L.sm;    // the current stream s
-  bf16* acol = scol + B * L.sm;    // the aggregate
-  bf16* ucol = acol + B * L.sm;    // a lite conv's pointwise output
-  bf16* es = base;                 // the transition's or conv5's output
-  bf16* xa = base + L.xa;          // (B, c_out) block output
-  bf16* halo = base + L.halo;      // (2 parities, above and below, W, sm)
+  T* base = reinterpret_cast<T*>(smem);
+  T* xs = base;                 // (B, c_in) block input
+  T* ycol = base + L.cols;      // conv1's output y
+  T* scol = ycol + B * L.sm;    // the current stream s
+  T* acol = scol + B * L.sm;    // the aggregate
+  T* ucol = acol + B * L.sm;    // a lite conv's pointwise output
+  T* es = base;                 // the transition's or conv5's output
+  T* xa = base + L.xa;          // (B, c_out) block output
+  T* halo = base + L.halo;      // (2 parities, above and below, W, sm)
   float* gmean = reinterpret_cast<float*>(smem + L.floats);  // (mid,)
   float* gval = gmean + mid;                                  // (mid,)
   float* gpart = gval + mid;       // (K, mid): each band's sums, by rank
@@ -312,10 +403,14 @@ __device__ __forceinline__ void stage_body(const bf16* __restrict__ x,
   }
   constexpr int mv = B;
   const int n2 = mid / 2;
+  // float32 in blocks of 16 warps (128 registers a thread) takes block a's
+  // down conv and conv3 in two passes: the dual pass's 64 accumulators
+  // spilled there
+  constexpr bool kSplitDown = sizeof(T) == 4 && NT >= 512;
 
   // the band, NCHW in global memory, to [pixel][channel]
   {
-    const bf16* xg = x + g * c_in * P + rank * B;
+    const T* xg = x + g * c_in * P + rank * B;
     for (int e = tid; e < c_in * B; e += NT) xs[(e % B) * sx + e / B] = xg[(e / B) * P + e % B];
   }
   __syncthreads();
@@ -324,7 +419,7 @@ __device__ __forceinline__ void stage_body(const bf16* __restrict__ x,
   for (int blk = 0; blk < 2; ++blk) {
     const int32_t* bo = offs + blk * kBlockEntries;
     const int cin = blk == 0 ? c_in : c_out;
-    const bf16* src = blk == 0 ? xs : xa;
+    const T* src = blk == 0 ? xs : xa;
     const int ssrc = blk == 0 ? sx : sxa;
 
     // conv1 -> relu -> round
@@ -355,8 +450,8 @@ __device__ __forceinline__ void stage_body(const bf16* __restrict__ x,
         // the halo rows of the bands above and below that this band's
         // first and last rows go to (mapped here, not held across the
         // stage: registers are scarce in the dual GEMM)
-        bf16* above = nullptr;
-        bf16* below = nullptr;
+        T* above = nullptr;
+        T* below = nullptr;
         if constexpr (K > 1) {
           if (rank > 0) above = cg::this_cluster().map_shared_rank(halo + hs + W * sm, rank - 1);
           if (rank < K - 1) below = cg::this_cluster().map_shared_rank(halo + hs, rank + 1);
@@ -374,7 +469,7 @@ __device__ __forceinline__ void stage_body(const bf16* __restrict__ x,
                           }
                         });
         band_sync<K>();
-        stencil<B, W, NT, K>(ucol, scol, sm, mid, vecs + lo[2], vecs + lo[3],
+        stencil<T, B, W, NT, K>(ucol, scol, sm, mid, vecs + lo[2], vecs + lo[3],
                              halo + hs, rank);
         __syncthreads();
       }
@@ -384,13 +479,13 @@ __device__ __forceinline__ void stage_body(const bf16* __restrict__ x,
       // band's sum goes to every band, lane j's to rank j) -> round
       for (int m = warp; m < mid; m += NW) {
         float v = 0.0f;
-        for (int q = lane; q < B; q += 32) v = v + __bfloat162float(scol[q * sm + m]);
+        for (int q = lane; q < B; q += 32) v = v + to_f<T>(scol[q * sm + m]);
 #pragma unroll
         for (int o = 16; o > 0; o >>= 1) v = v + __shfl_xor_sync(0xffffffffu, v, o);
         if constexpr (K > 1) {
           if (lane < K) cg::this_cluster().map_shared_rank(gpart, lane)[rank * mid + m] = v;
         } else {
-          if (lane == 0) gmean[m] = round_t<bf16>(v / (float)P);
+          if (lane == 0) gmean[m] = round_t<T>(v / (float)P);
         }
       }
       band_sync<K>();
@@ -403,13 +498,13 @@ __device__ __forceinline__ void stage_body(const bf16* __restrict__ x,
             float v = 0.0f;
 #pragma unroll
             for (int j = 0; j < K; ++j) v = v + gpart[j * mid + c];
-            gmean[c] = round_t<bf16>(v / (float)P);
+            gmean[c] = round_t<T>(v / (float)P);
           }
           __syncwarp();
         }
-        const bf16* g1 = mats + bo[kG1];
+        const T* g1 = mats + bo[kG1];
         const float* g1b = vecs + bo[kG1b];
-        const bf16* g2 = mats + bo[kG2];
+        const T* g2 = mats + bo[kG2];
         const float* g2b = vecs + bo[kG2b];
         float hid[kMaxHidden];
 #pragma unroll
@@ -417,19 +512,19 @@ __device__ __forceinline__ void stage_body(const bf16* __restrict__ x,
           if (j < R) {
             float a = 0.0f;
             for (int c = lane; c < mid; c += 32)
-              a = a + __bfloat162float(g1[j * mid + c]) * gmean[c];
+              a = a + to_f<T>(g1[j * mid + c]) * gmean[c];
 #pragma unroll
             for (int o = 16; o > 0; o >>= 1) a = a + __shfl_xor_sync(0xffffffffu, a, o);
-            hid[j] = round_t<bf16>(fmaxf(a + g1b[j], 0.0f));
+            hid[j] = round_t<T>(fmaxf(a + g1b[j], 0.0f));
           }
         }
         for (int m = lane; m < mid; m += 32) {
           float z = 0.0f;
 #pragma unroll
           for (int j = 0; j < kMaxHidden; ++j)
-            if (j < R) z = z + __bfloat162float(g2[m * R + j]) * hid[j];
+            if (j < R) z = z + to_f<T>(g2[m * R + j]) * hid[j];
           z = z + g2b[m];
-          gval[m] = round_t<bf16>(1.0f / (1.0f + expf(-z)));
+          gval[m] = round_t<T>(1.0f / (1.0f + expf(-z)));
         }
       }
       __syncthreads();
@@ -438,7 +533,7 @@ __device__ __forceinline__ void stage_body(const bf16* __restrict__ x,
       for_pairs<NT>(mv, n2, [&](int row, int c) {
         const float* gv = gval + c;
         const float2 s = load2(scol + row * sm + c);
-        const float gs0 = round_t<bf16>(s.x * gv[0]), gs1 = round_t<bf16>(s.y * gv[1]);
+        const float gs0 = round_t<T>(s.x * gv[0]), gs1 = round_t<T>(s.y * gv[1]);
         if (t == 0) {
           store2(acol + row * sm + c, gs0, gs1);
         } else {
@@ -453,10 +548,27 @@ __device__ __forceinline__ void stage_body(const bf16* __restrict__ x,
 
     // conv3 + residual (down, or the input itself) -> relu -> round, into
     // XA; block b works in place, each value read and written by one thread
+    // (only block a has a down conv: its input and output widths differ)
     {
       const float* b3 = vecs + bo[kB3];
       const int wd_off = bo[kWd];
-      if (wd_off >= 0) {
+      if (kSplitDown && wd_off >= 0) {
+        // the down conv + its bias first, stored into XA (exact: XA holds
+        // float32), then conv3 adds it as the residual, as the identity
+        // residual below: the roundings of one dual pass with half its
+        // accumulators live
+        const float* bd = vecs + bo[kBd];
+        gemm<NW, false>(mv, c_out, src, ssrc, mats + wd_off, cin, nullptr, 0, nullptr, 0,
+                        [&](int row, int col, float d0, float d1, float, float) {
+                          store2(xa + row * sxa + col, d0 + bd[col], d1 + bd[col + 1]);
+                        });
+        gemm<NW, false>(mv, c_out, acol, sm, mats + bo[kW3], mid, nullptr, 0, nullptr, 0,
+                        [&](int row, int col, float v0, float v1, float, float) {
+                          const float2 r = load2(xa + row * sxa + col);
+                          store2(xa + row * sxa + col, fmaxf((v0 + b3[col]) + r.x, 0.0f),
+                                 fmaxf((v1 + b3[col + 1]) + r.y, 0.0f));
+                        });
+      } else if (wd_off >= 0) {
         const float* bd = vecs + bo[kBd];
         gemm<NW, true>(mv, c_out, acol, sm, mats + bo[kW3], mid, src, ssrc,
                        mats + wd_off, cin,
@@ -494,8 +606,8 @@ __device__ __forceinline__ void stage_body(const bf16* __restrict__ x,
   if (K == 1 && gap) {
     for (int co = tid; co < c_out; co += NT) {
       float sum = 0.0f;
-      for (int q = 0; q < P; ++q) sum = sum + __bfloat162float(es[q * se + co]);
-      out[g * c_out + co] = __float2bfloat16_rn(sum / (float)P);
+      for (int q = 0; q < P; ++q) sum = sum + to_f<T>(es[q * se + co]);
+      out[g * c_out + co] = from_f<T>(sum / (float)P);
     }
   } else {
     // the band's output rows: B / W is even, so its 2x2 windows are its own
@@ -506,10 +618,39 @@ __device__ __forceinline__ void stage_body(const bf16* __restrict__ x,
       float sum = 0.0f;
 #pragma unroll
       for (int k = 0; k < 4; ++k)
-        sum = sum + __bfloat162float(es[(top + (k >> 1) * W + (k & 1)) * se + co]);
-      out[(g * c_out + co) * (nq * K) + rank * nq + q] = __float2bfloat16_rn(sum * 0.25f);
+        sum = sum + to_f<T>(es[(top + (k >> 1) * W + (k & 1)) * se + co]);
+      out[(g * c_out + co) * (nq * K) + rank * nq + q] = from_f<T>(sum * 0.25f);
     }
   }
+}
+
+// launches `kernel` as G clusters of k blocks of nt threads, a crop a
+// cluster, each block with `bytes` of dynamic shared memory
+template <typename T>
+int launch_clusters(void (*kernel)(const T*, const T*, const float*, const int32_t*, T*),
+                    int k, int nt, long long bytes, const void* x, const void* mats,
+                    const void* vecs, const void* offs, void* out, int G,
+                    cudaStream_t stream) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)G * k);
+  cfg.blockDim = dim3(nt);
+  cfg.dynamicSmemBytes = (size_t)bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = k;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(x), static_cast<const T*>(mats),
+                           static_cast<const float*>(vecs),
+                           static_cast<const int32_t*>(offs), static_cast<T*>(out));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace

@@ -11,9 +11,8 @@ of :func:`lib` builds.
 
 Flags: ``-fmad=false`` and no ``--use_fast_math``, because the kernels
 round every product and sum on its own to stay bit-identical to their
-plain PyTorch versions (the tensor-core forms, K7's ``mma`` and K6's
-bfloat16 form, sum in the tensor cores' order and are held to bars of
-their own; K7's SiLU calls the fast exp and division intrinsics by
+plain PyTorch versions (the tensor-core forms, K7's ``mma`` and K6's, sum
+in the tensor cores' order and are held to bars of their own; K7's SiLU calls the fast exp and division intrinsics by
 name; K8 calls ``fmaf`` by name where XLA fuses a multiply-add).
 """
 
@@ -62,15 +61,16 @@ _SIGNATURES = {
                          _I, _P),
     "ssyt_os_stage_smem_bytes": (_I, _I, _I, _I, _I, _I, _I),
     "ssyt_os_stage_form": (_I, _I, _I, _I, _I, _I, _I),
-    "ssyt_os_stage": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                      _I, _P),
+    "ssyt_os_stage": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                      _P),
     "ssyt_conv_act": (_P, _P, _P, _P, _I, _I, _I, _I, _I, *(_L,) * 8,
                       _I, _I, _I, _I, _I, _P),
     "ssyt_conv_im2col_mma": (_P, _P, _P, _P, _I, _I, _I, _I, _I, *(_L,) * 8,
                              _I, _I, _I, _I, _I, _P),
     "ssyt_conv_mma": (_P, _P, _P, _P, _I, _I, _I, _I, _I, *(_L,) * 8,
                       _I, _I, _I, _I, _I, _P),
-    "ssyt_conv_s8": (*(_P,) * 7, *(_I,) * 7, *(_L,) * 8, *(_I,) * 11, _P),
+    "ssyt_conv_s8": (*(_P,) * 7, *(_I,) * 7, *(_L,) * 8, *(_I,) * 10, _P),
+    "ssyt_conv_s8_dw": (*(_P,) * 6, *(_I,) * 6, *(_L,) * 8, *(_I,) * 9, _P),
     "ssyt_conv_s8_quantize": (_P, _P, _P, _I, _I, _I, _I, *(_L,) * 4, _I, _I,
                               _P),
 }

@@ -90,29 +90,31 @@ KERNEL_SHAPES = frozenset(
     for width in WIDTHS for s in stage_specs(osnet_channels(width)))
 
 
-# (c_in, c_out, mid, pixels) -> the blocks a crop is split over in
-# bfloat16, a band of rows each (``csrc/os_stage_cluster.cu``): the stages
-# whose crop does not fit one block in the tensor-core layout (stage 2 of
-# x0_5, x0_75 and x1_0; stage 3 of x1_0), at the least split whose band
-# lets two blocks share an SM (a block's bytes: 89.8, 68.9, 89.5 and 75.8
-# KB), which ran faster than the least split that fits one block
-CLUSTER_SPLIT = {(32, 128, 32, 512): 4, (48, 192, 48, 512): 8,
-                 (64, 256, 64, 512): 8, (256, 384, 96, 128): 4}
+# dtype -> (c_in, c_out, mid, pixels) -> the blocks a crop is split over,
+# a band of rows each (``csrc/os_stage_cluster.cu``,
+# ``csrc/os_stage_tf32_cluster.cu``): the stages whose crop does not fit
+# one block in the tensor-core layout. In bfloat16 (stage 2 of x0_5, x0_75
+# and x1_0; stage 3 of x1_0) the least split whose band lets two blocks
+# share an SM (a block's bytes: 89.8, 68.9, 89.5 and 75.8 KB), which ran
+# faster than the least split that fits one block. In float32, whose
+# layout is twice as wide (x0_25's stage 3 and the stage 4s fit one
+# block), one past the least that fits where the band rule allows it (a
+# block's bytes: 89.4, 88.2, 74.6, 128.9, 110.2, 169.5 and 145.8 KB).
+CLUSTER_SPLIT = {
+    torch.bfloat16: {(32, 128, 32, 512): 4, (48, 192, 48, 512): 8,
+                     (64, 256, 64, 512): 8, (256, 384, 96, 128): 4},
+    torch.float32: {(16, 64, 16, 512): 4, (32, 128, 32, 512): 8,
+                    (128, 192, 48, 128): 4, (48, 192, 48, 512): 8,
+                    (192, 288, 72, 128): 4, (64, 256, 64, 512): 8,
+                    (256, 384, 96, 128): 4},
+}
 
 
 def cluster_split(spec: StageSpec, dtype: torch.dtype) -> int:
-    """The blocks K6 splits one crop of this stage over: CLUSTER_SPLIT's
-    in bfloat16, else 1 (one block a crop)."""
-    if dtype != torch.bfloat16:
-        return 1
-    return CLUSTER_SPLIT.get((spec.c_in, spec.c_out, spec.mid, spec.h * spec.w), 1)
-
-
-def scratch_rows(spec: StageSpec) -> int:
-    """Rows (of h*w float32 values) per crop of K6's global workspace,
-    where the columns form's shared-memory one does not fit a block: XA,
-    two lite buffers, y, s and the aggregate (``csrc/os_stage.cuh``)."""
-    return spec.c_out + 5 * spec.mid
+    """The blocks K6 splits one crop of this stage over in ``dtype``:
+    CLUSTER_SPLIT's, else 1 (one block a crop)."""
+    return CLUSTER_SPLIT.get(dtype, {}).get(
+        (spec.c_in, spec.c_out, spec.mid, spec.h * spec.w), 1)
 
 
 class StageWeights(NamedTuple):
@@ -307,17 +309,15 @@ def os_stage_plain(x: torch.Tensor, weights: StageWeights,
 _B_WD = 98  # the offsets table's entry of block b's ``down`` (-1: absent;
 # every form also computes a down conv there, read from the table on the
 # card, so the wrapper reads nothing back from the device)
-FORMS = ("registers", "columns, shared memory", "columns, global scratch",
-         "tensor cores", "tensor cores, cluster of {}")
+FORMS = ("tensor cores", "tensor cores, cluster of {}",
+         "tensor cores, 3xTF32", "tensor cores, 3xTF32, cluster of {}")
 
 
 def stage_form(spec: StageSpec, dtype: torch.dtype) -> str:
-    """The form K6 takes for a stage (``csrc/os_stage.cuh``): in bfloat16
-    the tensor cores, one block a crop or, for the stages of
-    CLUSTER_SPLIT, a cluster of blocks a crop ("tensor cores, cluster of
-    4"); in float32 the register form for the x0_25 stages, else the
-    columns form, its workspace in shared memory or in a global
-    scratch."""
+    """The form K6 takes for a stage (``csrc/os_stage.cuh``): the tensor
+    cores, one block a crop or, for the stages of CLUSTER_SPLIT, a
+    cluster of blocks a crop ("tensor cores, cluster of 4"); in float32
+    their products as 3xTF32 ("tensor cores, 3xTF32, cluster of 8")."""
     k = cluster_split(spec, dtype)
     form = _build.lib().ssyt_os_stage_form(
         spec.c_in, spec.c_out, spec.mid, spec.h, spec.w,
@@ -333,10 +333,8 @@ def os_stage(x: torch.Tensor, weights: StageWeights,
     (G, c_out) for the last stage, in x's dtype (float32 or bfloat16).
     CPU tensors take :func:`os_stage_plain`; CUDA tensors launch K6 on
     any stage of :data:`KERNEL_SHAPES`, in the form :func:`stage_form`
-    names: in bfloat16 one block a crop or a cluster of
-    :func:`cluster_split` blocks a crop; a failed launch raises. Where
-    the float32 columns form's workspace does not fit a block, K6 works
-    in a global scratch allocated here."""
+    names: one block a crop or a cluster of :func:`cluster_split` blocks
+    a crop; a failed launch raises."""
     g = x.shape[0]
     if (x.shape != (g, spec.c_in, spec.h, spec.w) or x.dtype not in _DTYPES
             or weights.mats.dtype != x.dtype
@@ -364,20 +362,11 @@ def os_stage(x: torch.Tensor, weights: StageWeights,
     if g == 0:
         return out
     x = x.contiguous()
-    lib = _build.lib()
-    bf16 = _DTYPES[x.dtype]
-    k = cluster_split(spec, x.dtype)
-    scratch = None
-    if not bf16 and lib.ssyt_os_stage_smem_bytes(
-            spec.c_in, spec.c_out, spec.mid, spec.h, spec.w, 0, 1) > _build.MAX_SMEM:
-        scratch = torch.empty((g, scratch_rows(spec), spec.h * spec.w),
-                              dtype=x.dtype, device=x.device)
-    err = lib.ssyt_os_stage(
+    err = _build.lib().ssyt_os_stage(
         x.data_ptr(), weights.mats.data_ptr(), weights.vecs.data_ptr(),
-        weights.offs.data_ptr(), out.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), g, spec.c_in,
-        spec.c_out,
-        spec.mid, spec.h, spec.w, int(spec.epilogue == "gap"), bf16, k,
+        weights.offs.data_ptr(), out.data_ptr(), g, spec.c_in, spec.c_out,
+        spec.mid, spec.h, spec.w, int(spec.epilogue == "gap"),
+        _DTYPES[x.dtype], cluster_split(spec, x.dtype),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     os_stage.launches += 1

@@ -1,8 +1,9 @@
 """K8: the int8 conv of post-training quantization (``csrc/conv_s8.cu``),
 its wrapper :func:`conv_s8`, its plain PyTorch version
 :func:`conv_s8_plain`, the quantize pass's plain version
-:func:`quantize_codes_plain`, the weight packing :func:`pack_s8` and the
-rule for the N tile, :func:`n_tile`.
+:func:`quantize_codes_plain`, the weight packing :func:`pack_s8`, the
+rule for the N tile, :func:`n_tile`, and the depthwise form's tiling,
+:func:`dw_plan`.
 
 It replaces no Pallas kernel: its counterpart is the JAX package's
 ``ops/quant.py:41`` ``conv_int8_apply``, an XLA convolution of int8 codes
@@ -22,16 +23,19 @@ and on every output where the epilogue rounds alike: always with
 Groups 1 or depthwise (groups = C_in = C_out); any k, stride and
 padding.
 
-How, on the card (two launches, one wrapper call): a quantize pass
-writes each element's code once, channel-minor, into a scratch of shape
-(N, H, W, C_pitch) (:func:`quantize_codes_plain` gives the same array);
-then groups 1 runs an implicit GEMM on the int8 tensor cores (``wgmma``
+How, on the card, groups 1 (two launches, one wrapper call): a quantize
+pass writes each element's code once, channel-minor, into a scratch of
+shape (N, H, W, C_pitch) (:func:`quantize_codes_plain` gives the same
+array); then an implicit GEMM on the int8 tensor cores (``wgmma``
 m64nNk32): M the flattened (n, oy, ox) output pixels in tiles of 64 that
 span images, N the output channels in tiles of :func:`n_tile`, K the
 (tap, ci) in chunks of 32 codes, each chunk's rows gathered from the
 codes with zeros outside the image, the weights packed by :func:`pack_s8`
-as the tensor cores read them; the depthwise form sums its k*k
-products of the same codes on the CUDA cores.
+as the tensor cores read them. Depthwise (one launch): a block per
+(image, group of channels, band of output rows) of :func:`dw_plan`
+quantizes the band's input rows and their halo from x into shared
+memory, with the quantize pass's arithmetic, then sums each output's
+k*k products on the CUDA cores.
 
 Bound (chip_smoke): the larger of the bytes (x read once, the weights
 once, the output written once) over 3.35 TB/s and 2 x MACs over 1,979
@@ -39,6 +43,8 @@ TOPS (int8 dense); at yolov8n's shapes every conv is bound by its bytes.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -51,6 +57,9 @@ BK = 32  # codes per K chunk: C_in is padded to it, per tap
 BM = 64  # output pixels per block of the tensor-core form
 CO_ALIGN = 64  # pack_s8's rows: C_out padded to it
 N_TILES = (32, 64)  # output channels per block of the tensor-core form
+DW_OUTPUTS = 2048  # output values a depthwise block aims at: 8 a thread
+DW_BLOCKS = 264  # depthwise blocks wanted at least: two per H100 SM
+DW_SMEM = 48 * 1024  # a depthwise block's shared memory, at most (dw_smem)
 
 
 def is_depthwise(wq: torch.Tensor, groups: int) -> bool:
@@ -71,6 +80,45 @@ def n_tile(c_out: int) -> int:
     above 32, 64 beat 32 on all but two 1x1 convs at 20 x 20, and 128 on
     all but one 3x3 stride-2 conv."""
     return N_TILES[0] if c_out <= N_TILES[0] else N_TILES[1]
+
+
+def dw_plan(n: int, c: int, h_out: int, w_out: int, *, k: int, stride: int,
+            w: int, pad: int) -> tuple[int, int]:
+    """The depthwise form's block: (cg channels, bh output rows) of one
+    image. Whole planes where a plane has at most ``DW_OUTPUTS`` outputs,
+    else bands of rows whose outputs fill 16-byte stores; then as many
+    channels as make ``DW_OUTPUTS`` outputs, halved while the grid has
+    fewer than ``DW_BLOCKS`` blocks (the conv is bound by latency: more
+    and smaller blocks), and halved (channels, then rows) while the
+    block's shared memory (:func:`dw_smem`) exceeds ``DW_SMEM``."""
+    bh = h_out
+    if h_out * w_out > DW_OUTPUTS:
+        step = 8 // math.gcd(w_out, 8)  # rows whose outputs are whole 16 bytes
+        bh = min(h_out, max(step, DW_OUTPUTS // w_out // step * step))
+    cg = max(1, min(c, DW_OUTPUTS // (bh * w_out)))
+
+    def blocks(cg, bh):
+        return n * -(-c // cg) * -(-h_out // bh)
+
+    def smem(cg, bh):
+        return dw_smem(cg, bh, k=k, stride=stride, w=w, pad=pad)
+
+    while cg > 1 and blocks(cg, bh) < DW_BLOCKS:
+        cg = -(-cg // 2)
+    while cg > 1 and smem(cg, bh) > DW_SMEM:
+        cg = -(-cg // 2)
+    while bh > 1 and smem(cg, bh) > DW_SMEM:
+        bh = -(-bh // 2)
+    return cg, bh
+
+
+def dw_smem(cg: int, bh: int, *, k: int, stride: int, w: int, pad: int) -> int:
+    """Bytes of a depthwise block's shared memory: its codes tile, ``cg x
+    ((bh - 1) stride + k) x (w + 2 pad)``, and taps, ``cg x k x k``,
+    rounded up to 4 bytes, then two floats a channel (the epilogue's
+    scale and bias)."""
+    codes = cg * ((bh - 1) * stride + k) * (w + 2 * pad) + cg * k * k
+    return -(-codes // 4) * 4 + 8 * cg
 
 
 def _check(x, wq, wscale, b, xscale, groups: int) -> None:
@@ -241,25 +289,34 @@ def launch(x: torch.Tensor, blob: torch.Tensor, wscale: torch.Tensor,
            b: torch.Tensor, xscale: torch.Tensor, out: torch.Tensor, *,
            k: int, stride: int, pad: int, depthwise: bool, act: bool,
            bn: int) -> None:
-    """The C entry on checked CUDA tensors (:func:`conv_s8` checks them):
-    the quantize pass into a scratch of codes, then the conv into
-    ``out`` (int32 sums where ``out`` is int32) with ``bn`` output
-    channels per block of the tensor-core form. Counts no launch: the
+    """The C entry on checked CUDA tensors (:func:`conv_s8` checks them)
+    into ``out`` (int32 sums where ``out`` is int32): for groups 1 the
+    quantize pass into a scratch of codes, then the conv with ``bn``
+    output channels per block of the tensor-core form; for a depthwise
+    conv the one launch, tiled by :func:`dw_plan`. Counts no launch: the
     profiling tool calls it with each tile of ``N_TILES``."""
     n, c_in, h, w = x.shape
     _, c_out, h_out, w_out = out.shape
-    pitch = c_pitch(c_in)
-    codes = torch.empty((n, h, w, pitch), dtype=torch.int8, device=x.device)
     ws = wscale.float().contiguous()
     bk = b.float().contiguous()
     xs = xscale.float().reshape(1).contiguous()
-    co_pad = blob.shape[2] if not depthwise else c_out
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _build.lib().ssyt_conv_s8(
-        x.data_ptr(), blob.data_ptr(), ws.data_ptr(), bk.data_ptr(),
-        xs.data_ptr(), codes.data_ptr(), out.data_ptr(), n, h, w, c_in, c_out,
-        h_out, w_out, *x.stride(), *out.stride(), k, stride, pad,
-        int(depthwise), pitch, co_pad, bn, int(act),
-        int(out.dtype == torch.int32), _DTYPES[x.dtype],
-        int(_planes_vec(out)), stream)
+    tail = (int(act), int(out.dtype == torch.int32), _DTYPES[x.dtype],
+            int(_planes_vec(out)), stream)
+    if depthwise:
+        cg, bh = dw_plan(n, c_out, h_out, w_out, k=k, stride=stride, w=w,
+                         pad=pad)
+        err = _build.lib().ssyt_conv_s8_dw(
+            x.data_ptr(), blob.data_ptr(), ws.data_ptr(), bk.data_ptr(),
+            xs.data_ptr(), out.data_ptr(), n, h, w, c_in, h_out, w_out,
+            *x.stride(), *out.stride(), k, stride, pad, cg, bh, *tail)
+    else:
+        pitch = c_pitch(c_in)
+        codes = torch.empty((n, h, w, pitch), dtype=torch.int8,
+                            device=x.device)
+        err = _build.lib().ssyt_conv_s8(
+            x.data_ptr(), blob.data_ptr(), ws.data_ptr(), bk.data_ptr(),
+            xs.data_ptr(), codes.data_ptr(), out.data_ptr(), n, h, w, c_in,
+            c_out, h_out, w_out, *x.stride(), *out.stride(), k, stride, pad,
+            pitch, blob.shape[2], bn, *tail)
     _build.check(err, "conv_s8")

@@ -1,6 +1,7 @@
 """Time K8, the int8 conv, on a CUDA device at yolov8n's int8 convs.
 
     python -m strongsort_yolo_tpu_torch.tools.prof_s8 [S]
+    python -m strongsort_yolo_tpu_torch.tools.prof_s8 --depthwise [S] [ROUNDS]
 
 For each of the 32 int8 convs of one yolov8n 640 forward (``YOLOV8N_INT8``,
 in the forward's order), S images (default 8) in bfloat16, seeded inputs
@@ -16,6 +17,15 @@ the same card type) beside it. Then the sums over each conv class
 and over all 32. Every K8 output is checked against ``conv_s8_plain``
 (int32 sums bit for bit). The last line is every row as one JSON object.
 Exits nonzero without a CUDA device.
+
+With ``--depthwise``: K8's depthwise form at yolo11n-pose's pe conv (S
+images of 128 channels at 20 x 20, k 3, act=False, bf16), ROUNDS times
+in turns with cuDNN's bf16 depthwise conv and conv + SiLU of the
+dequantized weights, after checking its int32 sums and outputs bit for
+bit against ``conv_s8_plain`` in both dtypes and both scales, there and
+on a plane cut into bands (k 5, stride 2). It calls only functions that
+every K8 form has, so it also times an older checkout's package: run
+this file with that checkout on ``PYTHONPATH``.
 """
 
 from __future__ import annotations
@@ -133,6 +143,53 @@ def profile_conv(s: int, c_in: int, h: int, w: int, c_out: int, k: int,
     return row
 
 
+def depthwise(s: int, rounds: int, card: str) -> int:
+    """The --depthwise mode (the module's note); -> the exit code."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    ok = True
+    for (n, c, h, w, k, stride, act) in ((s, 128, 20, 20, 3, 1, False),
+                                          (1, 6, 150, 90, 5, 2, True)):
+        x32 = torch.randn((n, c, h, w), generator=g, device=dev) * 1.5
+        wq = torch.randint(-127, 128, (c, 1, k, k), generator=g, device=dev,
+                           dtype=torch.int32).to(torch.int8)
+        ws = torch.rand((c,), generator=g, device=dev) * 2e-3 + 1e-4
+        b = torch.randn((c,), generator=g, device=dev) * 0.5
+        kw = dict(stride=stride, pad=(k - 1) // 2, groups=c, act=act)
+        for dt in (torch.bfloat16, torch.float32):
+            x = x32.to(dt)
+            for xs in (x.float().abs().amax() / 127.0,
+                       torch.full((), 6.0 / 127.0, device=dev)):
+                args = (x, wq, ws, b, xs)
+                same = torch.equal(qk.conv_s8(*args, **kw, sums=True),
+                                   qk.conv_s8_plain(*args, **kw, sums=True))
+                if not act:
+                    same &= torch.equal(qk.conv_s8(*args, **kw),
+                                        qk.conv_s8_plain(*args, **kw))
+                ok &= same
+                print(f"depthwise ({n}, {c}, {h}, {w}) k{k} s{stride} {dt}: "
+                      f"bit-identical to conv_s8_plain {same}", flush=True)
+    x = (torch.randn((s, 128, 20, 20), generator=g, device=dev) * 1.5).to(
+        torch.bfloat16)
+    wq = torch.randint(-127, 128, (128, 1, 3, 3), generator=g, device=dev,
+                       dtype=torch.int32).to(torch.int8)
+    ws = torch.rand((128,), generator=g, device=dev) * 2e-3 + 1e-4
+    b = torch.randn((128,), generator=g, device=dev) * 0.5
+    xs = torch.full((), 6.0 / 127.0, device=dev)
+    kw = dict(stride=1, pad=1, groups=128, act=False)
+    packed = qk.pack_s8(wq, 128)
+    w16 = (wq.float() * ws[:, None, None, None]).to(torch.bfloat16)
+    b16 = b.to(torch.bfloat16)
+    for r in range(rounds):
+        ms = graph_ms(lambda: qk.conv_s8(x, wq, ws, b, xs, **kw, packed=packed))
+        conv = graph_ms(lambda: F.conv2d(x, w16, b16, 1, 1, 1, 128))
+        silu = graph_ms(lambda: F.silu(F.conv2d(x, w16, b16, 1, 1, 1, 128)))
+        print(f"depthwise pe conv S={s} bf16, round {r}: K8 {ms:.4f} ms, cuDNN "
+              f"bf16 depthwise conv {conv:.4f} ms, + SiLU {silu:.4f} ms "
+              f"(graph replay) [{card}]", flush=True)
+    return 0 if ok else 1
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("prof_s8: no CUDA device", file=sys.stderr)
@@ -142,6 +199,9 @@ def main(argv: list[str]) -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(card, flush=True)
+    if argv and argv[0] == "--depthwise":
+        return depthwise(int(argv[1]) if len(argv) > 1 else 8,
+                         int(argv[2]) if len(argv) > 2 else 2, card)
     s = int(argv[0]) if argv else 8
     rows, classes = [], {}
     for i, (*shape, first, first_cudnn) in enumerate(YOLOV8N_INT8):

@@ -15,7 +15,8 @@ it has not (one step per level), two of its launches are
 bit-identical, each pair of an N=33 launch is bit-identical to that
 pair launched alone, and planes strided by rows and pairs give the
 contiguous planes' params bit for bit; K6 (the fused OSNet stage) sums in another order than
-its plain version, so it is held to 1e-4 in float32; in bfloat16 its
+its plain version, so it is held to 1e-4 in float32 (its 3xTF32 forms
+keep about 21 bits of each product); in bfloat16 its
 tensor-core form adds a chunk's products in the tensor cores' order,
 and a flipped rounding propagates (a gate value moves a whole channel;
 exact float64 sums differ from the plain version as much), so it is
@@ -677,59 +678,73 @@ def test_os_stage_tensor_cores_x0_25(dev, i, g):
 
 
 def test_os_stage_forms_by_width(dev):
-    """The form each stage takes: in bfloat16 the tensor cores at every
-    stage, one block a crop wherever a crop fits a block (all of x0_25,
-    stages 3-4 of x0_5 and x0_75, stage 4 of x1_0), elsewhere a cluster
-    of blocks a crop at the split of cluster_split, each block's shared
-    memory such that two blocks share an SM's 228 KB (1 KB reserved a
-    block); float32 keeps the CUDA-core forms (the
-    register form for x0_25, the columns form elsewhere, its workspace in
-    shared memory at stage 4)."""
-    cluster = {("osnet_x0_5", 0): 4, ("osnet_x0_75", 0): 8, ("osnet_x1_0", 0): 8,
-               ("osnet_x1_0", 1): 4}
+    """The form each stage takes: the tensor cores at every stage, one
+    block a crop wherever a crop fits a block, elsewhere a cluster of
+    blocks a crop at the split of cluster_split. In bfloat16 one block
+    for all of x0_25, stages 3-4 of x0_5 and x0_75 and stage 4 of x1_0,
+    each cluster block's shared memory such that two blocks share an SM's
+    228 KB (1 KB reserved a block); in float32 (3xTF32) one block for
+    x0_25's stage 3 and every stage 4, a cluster for the seven others,
+    two blocks an SM wherever the split allows it."""
+    cluster = {torch.bfloat16: {("osnet_x0_5", 0): 4, ("osnet_x0_75", 0): 8,
+                                ("osnet_x1_0", 0): 8, ("osnet_x1_0", 1): 4},
+               torch.float32: {("osnet_x0_25", 0): 4, ("osnet_x0_5", 0): 8,
+                               ("osnet_x0_5", 1): 4, ("osnet_x0_75", 0): 8,
+                               ("osnet_x0_75", 1): 4, ("osnet_x1_0", 0): 8,
+                               ("osnet_x1_0", 1): 4}}
+    shared = {("osnet_x0_75", 0), ("osnet_x1_0", 0), ("osnet_x1_0", 1)}
     lib = _build.lib()
     for variant in ("osnet_x0_25", "osnet_x0_5", "osnet_x0_75", "osnet_x1_0"):
         for i, spec in enumerate(stage_specs(OsnetConfig(variant=variant).channels)):
-            k = cluster.get((variant, i))
-            assert cluster_split(spec, torch.bfloat16) == (k or 1)
-            assert stage_form(spec, torch.bfloat16) == (
-                f"tensor cores, cluster of {k}" if k else "tensor cores")
             args = (spec.c_in, spec.c_out, spec.mid, spec.h, spec.w)
-            smem = lib.ssyt_os_stage_smem_bytes(*args, 1, k or 1)
-            assert 0 < smem <= _build.MAX_SMEM
-            if k:  # one block a crop does not fit; two bands share an SM
-                assert lib.ssyt_os_stage_smem_bytes(*args, 1, 1) == -1
-                assert 2 * (smem + 1024) <= 228 * 1024
-            assert stage_form(spec, torch.float32) == (
-                "registers" if variant == "osnet_x0_25" else
-                "columns, shared memory" if i == 2 else "columns, global scratch")
+            for dtype, prefix in ((torch.bfloat16, "tensor cores"),
+                                  (torch.float32, "tensor cores, 3xTF32")):
+                bf16 = int(dtype == torch.bfloat16)
+                k = cluster[dtype].get((variant, i))
+                assert cluster_split(spec, dtype) == (k or 1)
+                assert stage_form(spec, dtype) == (
+                    f"{prefix}, cluster of {k}" if k else prefix)
+                smem = lib.ssyt_os_stage_smem_bytes(*args, bf16, k or 1)
+                assert 0 < smem <= _build.MAX_SMEM
+                if k:  # one block a crop does not fit
+                    assert lib.ssyt_os_stage_smem_bytes(*args, bf16, 1) == -1
+                    if bf16 or (variant, i) not in shared:
+                        assert 2 * (smem + 1024) <= 228 * 1024
 
 
-@pytest.mark.parametrize("variant,i", [("osnet_x0_5", 0), ("osnet_x0_75", 0),
-                                       ("osnet_x1_0", 0), ("osnet_x1_0", 1)],
-                         ids=["x0_5-stage2", "x0_75-stage2", "x1_0-stage2",
-                              "x1_0-stage3"])
-def test_os_stage_cluster_form(dev, variant, i):
-    """The four bfloat16 stages K6 splits over a cluster of blocks a crop,
-    at G = 96: within the bar of the plain version, two launches
-    bit-identical, and at G = 1 and 7 the same crops' output of the G =
-    96 launch, bit for bit (a crop's bands never see another crop)."""
+_CLUSTER_CASES = [
+    (torch.bfloat16, "osnet_x0_5", 0), (torch.bfloat16, "osnet_x0_75", 0),
+    (torch.bfloat16, "osnet_x1_0", 0), (torch.bfloat16, "osnet_x1_0", 1),
+    (torch.float32, "osnet_x0_25", 0), (torch.float32, "osnet_x0_5", 0),
+    (torch.float32, "osnet_x0_5", 1), (torch.float32, "osnet_x0_75", 0),
+    (torch.float32, "osnet_x0_75", 1), (torch.float32, "osnet_x1_0", 0),
+    (torch.float32, "osnet_x1_0", 1)]
+
+
+@pytest.mark.parametrize("dtype,variant,i", _CLUSTER_CASES,
+                         ids=[f"{str(d)[6:]}-{v[6:]}-stage{i + 2}"
+                              for d, v, i in _CLUSTER_CASES])
+def test_os_stage_cluster_form(dev, dtype, variant, i):
+    """The stages K6 splits over a cluster of blocks a crop (four in
+    bfloat16, seven in float32), at G = 96: within the bar of the plain
+    version, two launches bit-identical, and at G = 1 and 7 the same
+    crops' output of the G = 96 launch, bit for bit (a crop's bands never
+    see another crop)."""
     cfg = OsnetConfig(variant=variant)
     model = osnet_from_state_dict(
         init_osnet(cfg, torch.Generator().manual_seed(1)), cfg)
     spec = stage_specs(cfg.channels)[i]
-    assert stage_form(spec, torch.bfloat16).startswith("tensor cores, cluster of")
-    w = stage_weights(model, i, torch.bfloat16).to(dev)
+    assert ", cluster of" in stage_form(spec, dtype)
+    w = stage_weights(model, i, dtype).to(dev)
     x = torch.from_numpy(np.random.default_rng(i).normal(
         0, 1, (96, spec.c_in, spec.h, spec.w)).astype(np.float32)).to(
-            dev, torch.bfloat16)
+            dev, dtype)
     full, again = os_stage(x, w, spec), os_stage(x, w, spec)
     torch.cuda.synchronize()
     assert torch.equal(full, again)
     for g in (1, 7):
         assert torch.equal(os_stage(x[:g], w, spec), full[:g])
-    _assert_k6_close(full, os_stage_plain(x, w, spec),
-                     stage_form(spec, torch.bfloat16))
+    _assert_k6_close(full, os_stage_plain(x, w, spec), stage_form(spec, dtype))
 
 
 def test_os_stage_refuses_stages_outside_the_table(dev):
@@ -758,8 +773,8 @@ def test_strongsort_fused_pipeline_card_equals_cpu(dev):
 
 
 def test_strongsort_x1_0_fused_pipeline_card_equals_cpu(dev):
-    """The fused OSNet at x1_0 width (seeded random weights): K6's columns
-    form on the card against its plain version on the CPU."""
+    """The fused OSNet at x1_0 width (seeded random weights): K6's float32
+    form (3xTF32) on the card against its plain version on the CPU."""
     before = os_stage.launches
     test_strongsort_pipeline_card_equals_cpu(dev, reid_fused=True,
                                             reid_weights="osnet_x1_0")
@@ -1334,7 +1349,9 @@ def test_unfused_osnet_on_the_card_equals_the_folded_one(dev):
 # depthwise pe conv and its act=False 1x1s, a ragged C_out; and the edges
 # of the tensor-core form's tiles: 64-pixel tiles across three 20 x 20
 # images, C_out 256 (two or more N tiles), stride 2 on a 41 x 41 plane
-# (ragged output rows, no 16-byte stores), a 1x1 conv with C_in 512
+# (ragged output rows, no 16-byte stores), a 1x1 conv with C_in 512; the
+# depthwise form at S=8 and on a plane dw_plan cuts into bands (k 5,
+# stride 2, a ragged last band)
 S8_CASES = [
     (2, 16, 160, 160, 32, 1, 1, 1, True),
     (2, 64, 80, 80, 64, 3, 1, 1, True),
@@ -1346,6 +1363,8 @@ S8_CASES = [
     (2, 128, 40, 40, 256, 3, 2, 1, True),
     (2, 64, 41, 41, 64, 3, 2, 1, True),
     (2, 512, 20, 20, 256, 1, 1, 1, True),
+    (8, 128, 20, 20, 128, 3, 1, 128, False),  # the pe conv at S=8
+    (1, 16, 96, 96, 16, 5, 2, 16, True),  # depthwise cut into bands
 ]
 
 

@@ -52,6 +52,14 @@ crops per call in interpret mode, whose cost grows with the width):
   plain version;
 - one whole x0_5 embedding, fused, against the JAX fused route on 2
   crops (one of them smooth), with the whole-embedding bars above.
+
+K6's float32 forms run the 1x1 products as 3xTF32 on the tensor cores;
+an emulation (each operand split into TF32 hi and lo, lo.lo dropped,
+8-wide K chunks, the gate's mean per band where the stage is split over
+a cluster) is held to the JAX float32 stage within F32_TOL (x0_25's
+three stages; x0_5 stage 3 and x1_0 stage 2, split over 4 and 8 blocks,
+within the wider widths' float32 bar) and to the plain version within
+the card's 1e-4; TF32 alone misses that bar.
 """
 
 import dataclasses
@@ -475,11 +483,15 @@ CLUSTER_STAGES = [("osnet_x0_5", 0), ("osnet_x0_75", 0), ("osnet_x1_0", 0),
 
 def _gate_mean_banded(k):
     """The gate's mean as the cluster form takes it: each of k bands of
-    whole rows sums its pixels in float32, then the k sums are added in
-    rank order 0 .. k-1 and divided by the crop's pixels."""
+    whole rows sums its pixels in float32 (in order: the result must not
+    depend on G), then the k sums are added in rank order 0 .. k-1 and
+    divided by the crop's pixels."""
     def mean(s):
         g, c, p = s.shape
-        part = s.float().reshape(g, c, k, p // k).sum(-1)
+        bands = s.float().reshape(g, c, k, p // k)
+        part = bands[..., 0]
+        for q in range(1, p // k):
+            part = part + bands[..., q]
         total = part[..., 0]
         for j in range(1, k):
             total = total + part[..., j]
@@ -499,19 +511,23 @@ def _cluster_emulated(x, weights, spec, monkeypatch, per_crop=False):
 
 def test_cluster_split_is_whole_even_rows():
     """In bfloat16 exactly the four stages of CLUSTER_STAGES split a crop,
-    each into bands of an even number of whole rows (the 2x2 pool stays
-    in a band) and a multiple of 32 pixels (the tensor-core units'
-    rows); float32 never splits."""
-    split = set()
-    for variant in WIDE_BF16_MEAN_TOL | {"osnet_x0_25": None}:
-        for i, spec in enumerate(tk.stage_specs(OsnetConfig(variant=variant).channels)):
-            assert tk.cluster_split(spec, torch.float32) == 1
-            k = tk.cluster_split(spec, torch.bfloat16)
-            if k > 1:
-                split.add((variant, i))
-                assert k in (2, 4, 8) and spec.epilogue == "pool"
-                assert spec.h % (2 * k) == 0 and spec.h * spec.w // k % 32 == 0
-    assert split == set(CLUSTER_STAGES)
+    in float32 the seven of F32_CLUSTER_STAGES (every stage but x0_25's
+    stage 3 and the stage 4s), each into bands of an even number of whole
+    rows (the 2x2 pool stays in a band) and a multiple of 32 pixels (the
+    tensor-core units' rows), over at most 8 blocks (the portable
+    cluster size)."""
+    for dtype, stages in ((torch.bfloat16, CLUSTER_STAGES),
+                          (torch.float32, F32_CLUSTER_STAGES)):
+        split = set()
+        for variant in WIDE_BF16_MEAN_TOL | {"osnet_x0_25": None}:
+            for i, spec in enumerate(
+                    tk.stage_specs(OsnetConfig(variant=variant).channels)):
+                k = tk.cluster_split(spec, dtype)
+                if k > 1:
+                    split.add((variant, i))
+                    assert k in (2, 4, 8) and spec.epilogue == "pool"
+                    assert spec.h % (2 * k) == 0 and spec.h * spec.w // k % 32 == 0
+        assert split == set(stages)
 
 
 @pytest.mark.parametrize("variant,i", CLUSTER_STAGES,
@@ -530,4 +546,141 @@ def test_cluster_emulation_vs_jax(wide, monkeypatch, variant, i):
     _assert_tc_bar(got.float().numpy(),
                    tk.os_stage_plain(xb, w, spec).float().numpy())
     assert torch.equal(_cluster_emulated(xb, w, spec, monkeypatch, per_crop=True),
+                       got)
+
+
+# --- K6's float32 forms (3xTF32 on the tensor cores), emulated ----------
+
+# (variant, stage index): the stages float32 splits over a cluster of
+# blocks a crop (tk.CLUSTER_SPLIT[torch.float32])
+F32_CLUSTER_STAGES = [("osnet_x0_25", 0), ("osnet_x0_5", 0), ("osnet_x0_5", 1),
+                      ("osnet_x0_75", 0), ("osnet_x0_75", 1), ("osnet_x1_0", 0),
+                      ("osnet_x1_0", 1)]
+
+
+def _tf32(v):
+    """float32 -> TF32 (10 mantissa bits), to nearest with ties away from
+    zero on the bit pattern, as float32: the kernel's tf32_rna."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _pointwise_3xtf32(w, x, b, split=True):
+    """(co, ci) @ (G, ci, P) + (co,) as the float32 form sums it: each
+    operand split into hi = tf32(v) and lo = tf32(v - hi), each 8-wide K
+    chunk's x_lo w_hi + x_hi w_lo + x_hi w_hi (lo.lo dropped) summed in
+    float64 and rounded once to float32 (the products of TF32 values are
+    exact, and so, nearly always, is their sum: the result does not
+    depend on the order of the sums, nor on G), the chunks added in
+    float32 in order, then + b. ``split=False``: TF32 alone, hi.hi."""
+    w, x = w.float(), x.float()
+    wh, xh = _tf32(w), _tf32(x)
+    wl, xl = _tf32(w - wh), _tf32(x - xh)
+    acc = None
+    for k0 in range(0, w.shape[1], 8):
+        s = slice(k0, k0 + 8)
+        if split:
+            wk = torch.cat([wh[:, s], wh[:, s], wl[:, s]], 1)
+            xk = torch.cat([xh[:, s], xl[:, s], xh[:, s]], 1)
+        else:
+            wk, xk = wh[:, s], xh[:, s]
+        part = torch.matmul(wk.double(), xk.double()).float()
+        acc = part if acc is None else acc + part
+    return acc + b[:, None]
+
+
+def _ordered(a, w):
+    """(G, n) @ (m, n)^T summed over n in order, each product and sum
+    rounded to float32, whatever G is."""
+    acc = None
+    for c in range(w.shape[1]):
+        t = a[:, c, None] * w[None, :, c]
+        acc = t if acc is None else acc + t
+    return acc
+
+
+def _gate_ordered(s, v, blk, dt):
+    """tk._gate with its two small layers summed in a fixed order (a
+    batched matmul may sum in another order at another G) and the
+    sigmoid crop by crop (the CPU's vector loop and its scalar tail round
+    it differently, so a value's result depends on its position)."""
+    m = tk._gate_mean(s).to(dt).float()
+    a = torch.relu(_ordered(m, v[blk + ".g1"].float()) + v[blk + ".g1b"])
+    z = _ordered(a.to(dt).float(), v[blk + ".g2"].float()) + v[blk + ".g2b"]
+    g = torch.stack([torch.sigmoid(row) for row in z]).to(dt)
+    return s * g[:, :, None]
+
+
+def _tf32_emulated(x, weights, spec, monkeypatch, per_crop=False, split=True):
+    """The stage as the float32 form computes it: 3xTF32 1x1 products in
+    8-wide chunks, and where CLUSTER_SPLIT splits the stage, the gate's
+    mean summed per band and then in rank order; every sum in a fixed
+    order, so that one crop at a time (``per_crop``) must equal the
+    batch."""
+    monkeypatch.setattr(tk, "_pointwise", lambda w, a, b: _pointwise_3xtf32(
+        w, a, b, split))
+    monkeypatch.setattr(tk, "_gate", _gate_ordered)
+    k = tk.cluster_split(spec, torch.float32)
+    if k > 1:
+        monkeypatch.setattr(tk, "_gate_mean", _gate_mean_banded(k))
+    if per_crop:
+        out = torch.cat([tk.os_stage_plain(x[g:g + 1], weights, spec)
+                         for g in range(x.shape[0])])
+    else:
+        out = tk.os_stage_plain(x, weights, spec)
+    monkeypatch.undo()
+    return out
+
+
+def test_tf32_rounding():
+    """tf32 keeps 10 mantissa bits, rounds half away from zero, and hi +
+    lo holds all but the last bits of a float32."""
+    v = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -12,
+                      1.0 + 3 * 2.0 ** -11, 0.1], dtype=torch.float32)
+    got = _tf32(v)
+    assert got[:4].tolist() == [1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10), 1.0,
+                                1.0 + 2.0 ** -9]
+    hi = _tf32(v)
+    lo = _tf32(v - hi)
+    assert float(((hi + lo - v).abs() / v.abs()).max()) <= 2.0 ** -21
+
+
+@pytest.mark.parametrize("i", [0, 1, 2], ids=["stage2", "stage3", "stage4-gap"])
+def test_tf32_emulation_vs_jax(jparams, model, monkeypatch, i):
+    """x0_25's three stages as the float32 form computes them (3xTF32 in
+    8-wide chunks; stage 2 split over a cluster) against the JAX
+    os_stage in float32 (interpret mode) within F32_TOL, and against
+    os_stage_plain within the card's float32 bar (1e-4); TF32 alone
+    misses the bar."""
+    want = _jax_stage(jparams, i, "f32")
+    w = tk.stage_weights(model, i, torch.float32)
+    x = torch.from_numpy(_stage_input(i))
+    got = _tf32_emulated(x, w, SPECS[i], monkeypatch)
+    assert got.shape == (G, *SPECS[i].out_shape)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=F32_TOL)
+    plain = tk.os_stage_plain(x, w, SPECS[i])
+    assert float((got - plain).abs().max()) <= F32_TOL
+    if i == 0:
+        alone = _tf32_emulated(x, w, SPECS[i], monkeypatch, split=False)
+        assert float((alone - plain).abs().max()) > F32_TOL
+
+
+@pytest.mark.parametrize("variant,i", [("osnet_x0_5", 1), ("osnet_x1_0", 0)],
+                         ids=["x0_5-stage3", "x1_0-stage2"])
+def test_tf32_cluster_emulation_vs_jax(wide, monkeypatch, variant, i):
+    """The float32 cluster form, emulated (3xTF32, the gate's mean per
+    band in rank order at CLUSTER_SPLIT's split), against the JAX
+    os_stage in float32 (interpret mode) within the wider widths' float32
+    bar, and against os_stage_plain within 1e-4; crop by crop it equals
+    the whole batch bit for bit."""
+    spec, x, want = _wide_stage(wide, variant, i, "f32")
+    assert tk.cluster_split(spec, torch.float32) > 1
+    w = tk.stage_weights(wide[variant][1], i, torch.float32)
+    xf = torch.from_numpy(x)
+    got = _tf32_emulated(xf, w, spec, monkeypatch)
+    assert got.shape == want.shape == (WIDE_G, *spec.out_shape)
+    tol = F32_TOL * max(1.0, float(np.abs(want).max()) / F32_SCALE)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=tol)
+    assert float((got - tk.os_stage_plain(xf, w, spec)).abs().max()) <= F32_TOL
+    assert torch.equal(_tf32_emulated(xf, w, spec, monkeypatch, per_crop=True),
                        got)

@@ -1,9 +1,10 @@
 """The arithmetic of K8's card design (``csrc/conv_s8.cu``), on the CPU.
 
-The card runs K8 as a quantize pass that writes each code once,
-channel-minor, then an implicit GEMM on the codes (or the depthwise form
-on them). Neither runs here, so this file holds their decomposition to
-the plain version and to the JAX package:
+The card runs K8 for groups 1 as a quantize pass that writes each code
+once, channel-minor, then an implicit GEMM on the codes; a depthwise conv
+as one launch whose blocks quantize their own tiles. Neither runs here,
+so this file holds their decomposition to the plain version and to the
+JAX package:
 
 - the quantize pass's plain version ``quantize_codes_plain`` equals
   ``quantize_act`` permuted to (N, H, W, C) and zero-padded to
@@ -18,7 +19,13 @@ the plain version and to the JAX package:
   (both sums are exact), on shapes of each yolov8n class with the planes
   cut to at most 20 x 20 and on the ragged edges; a wrong tap offset or a
   missing zero fill must not;
-- the depthwise form's sums from the same codes, bit for bit.
+- a torch emulation of the depthwise form as its blocks take it
+  (``dw_plan``: an image, a group of channels and a band of output rows a
+  block; the band's input rows and their halo quantized into a
+  zero-padded tile, then each output's k*k products), int64 sums bit for
+  bit equal to ``conv_s8_plain(sums=True)``, also at yolo11n-pose's pe
+  conv at S=8 and on planes cut into bands; a tile without its halo rows
+  must not be.
 """
 
 import jax
@@ -107,24 +114,52 @@ def emulate_gemm(x, wq, xscale, *, stride, pad, mutate=None):
     return sums.reshape(n, h_out, w_out, c_out).permute(0, 3, 1, 2)
 
 
-def emulate_dw(x, wq, xscale, *, stride, pad):
-    """The depthwise form's int64 sums, read from the same codes."""
+def emulate_dw(x, wq, xscale, *, stride, pad, mutate=None):
+    """The depthwise form's int64 sums as its blocks compute them: per
+    block of ``dw_plan`` (an image, cg channels, bh output rows), the
+    band's input rows and their halo quantized from x into a tile of
+    cg x ((bh - 1) stride + k) x (w + 2 pad) codes, zero outside the
+    image, then each output's k*k products. ``mutate="halo"`` fills only
+    the band's own rows, not the halo rows above and below."""
     n, c, h, w = x.shape
     k = wq.shape[-1]
-    codes = qk.quantize_codes_plain(x, xscale).long()  # (N, H, W, pitch)
-    padded = torch.zeros((n, h + 2 * pad, w + 2 * pad, codes.shape[-1]),
-                         dtype=torch.long)
-    padded[:, pad:pad + h, pad:pad + w] = codes
     h_out = (h + 2 * pad - k) // stride + 1
     w_out = (w + 2 * pad - k) // stride + 1
+    cg, bh = qk.dw_plan(n, c, h_out, w_out, k=k, stride=stride, w=w, pad=pad)
     wk = qk.pack_s8(wq, c).long()  # (C, k * k)
-    acc = torch.zeros((n, h_out, w_out, c), dtype=torch.long)
-    for ky in range(k):
-        for kx in range(k):
-            win = padded[:, ky:ky + stride * h_out:stride,
-                         kx:kx + stride * w_out:stride, :c]
-            acc += win * wk[:, ky * k + kx]
-    return acc.permute(0, 3, 1, 2)
+    ih = (bh - 1) * stride + k
+    out = torch.zeros((n, c, h_out, w_out), dtype=torch.long)
+    for c0 in range(0, c, cg):
+        cs = slice(c0, min(c, c0 + cg))
+        for oy0 in range(0, h_out, bh):
+            rows = min(bh, h_out - oy0)
+            iy0 = oy0 * stride - pad
+            lo, hi = max(iy0, 0), min(iy0 + ih, h)
+            if mutate == "halo":
+                lo, hi = max(lo, oy0 * stride), min(hi, (oy0 + rows) * stride)
+            tile = torch.zeros((n, cs.stop - c0, ih, w + 2 * pad),
+                               dtype=torch.long)
+            tile[:, :, lo - iy0:hi - iy0, pad:pad + w] = qk.quantize_act(
+                x[:, cs, lo:hi], xscale).long()
+            acc = torch.zeros((n, cs.stop - c0, rows, w_out), dtype=torch.long)
+            for ky in range(k):
+                for kx in range(k):
+                    win = tile[:, :, ky::stride, kx::stride][:, :, :rows, :w_out]
+                    acc += win * wk[cs, ky * k + kx][None, :, None, None]
+            out[:, cs, oy0:oy0 + rows] = acc
+    return out
+
+
+def _dw_case(case, seed=1):
+    n, c, h, w, k, stride = case
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(0, 1.5, (n, c, h, w)).astype(np.float32))
+    wq = torch.from_numpy(rng.integers(-127, 128, (c, 1, k, k), dtype=np.int8))
+    xs = quant.dynamic_scale(x)
+    pad = (k - 1) // 2
+    want = qk.conv_s8_plain(x, wq, torch.ones(c), torch.zeros(c), xs,
+                            stride=stride, pad=pad, groups=c, sums=True)
+    return x, wq, xs, pad, want.long()
 
 
 @pytest.mark.parametrize("case", GEMM_CASES, ids=str)
@@ -148,19 +183,52 @@ def test_gemm_decomposition_mutations_fail(mutate):
     assert not torch.equal(got, want.long())
 
 
-@pytest.mark.parametrize("case", [(2, 128, 20, 20, 3, 1), (1, 48, 17, 9, 3, 2),
-                                  (2, 16, 8, 8, 5, 1)], ids=str)
+# (n, c, h, w, k, stride): yolo11n-pose's pe conv (128 channels at 20 x
+# 20; S=8 as the main path gives it), odd planes, k = 5, and planes that
+# dw_plan cuts into bands of rows (stride 1 and 2, a ragged last band)
+DW_CASES = [(2, 128, 20, 20, 3, 1), (1, 48, 17, 9, 3, 2), (2, 16, 8, 8, 5, 1),
+            (8, 128, 20, 20, 3, 1), (1, 4, 96, 96, 3, 1),
+            (1, 6, 150, 90, 5, 2)]
+
+
+@pytest.mark.parametrize("case", DW_CASES, ids=str)
 def test_dw_from_codes_equals_plain(case):
+    """The depthwise form's sums, from the codes each block quantizes
+    into its own tile, equal the plain version's bit for bit."""
+    x, wq, xs, pad, want = _dw_case(case)
+    assert torch.equal(emulate_dw(x, wq, xs, stride=case[5], pad=pad), want)
+
+
+@pytest.mark.parametrize("case", DW_CASES[4:], ids=str)
+def test_dw_tile_without_halo_fails(case):
+    x, wq, xs, pad, want = _dw_case(case)
+    assert qk.dw_plan(*want.shape, k=case[4], stride=case[5], w=case[3],
+                      pad=pad)[1] < want.shape[2]  # cut into bands
+    got = emulate_dw(x, wq, xs, stride=case[5], pad=pad, mutate="halo")
+    assert not torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", DW_CASES + [(8, 512, 80, 640, 3, 1),
+                                             (1, 3, 9000, 9000, 5, 1)], ids=str)
+def test_dw_plan_rule(case):
+    """dw_plan's blocks: whole planes where they are small, else bands
+    whose outputs fill 16-byte stores; at least DW_BLOCKS blocks unless a
+    block holds one channel; its shared memory (the tile, the taps, two
+    floats a channel) within DW_SMEM."""
     n, c, h, w, k, stride = case
-    rng = np.random.default_rng(1)
-    x = torch.from_numpy(rng.normal(0, 1.5, (n, c, h, w)).astype(np.float32))
-    wq = torch.from_numpy(rng.integers(-127, 128, (c, 1, k, k), dtype=np.int8))
-    xs = quant.dynamic_scale(x)
     pad = (k - 1) // 2
-    want = qk.conv_s8_plain(x, wq, torch.ones(c), torch.zeros(c), xs,
-                            stride=stride, pad=pad, groups=c, sums=True)
-    assert torch.equal(emulate_dw(x, wq, xs, stride=stride, pad=pad),
-                       want.long())
+    h_out = (h + 2 * pad - k) // stride + 1
+    w_out = (w + 2 * pad - k) // stride + 1
+    cg, bh = qk.dw_plan(n, c, h_out, w_out, k=k, stride=stride, w=w, pad=pad)
+    assert 1 <= cg <= c and 1 <= bh <= h_out
+    if h_out * w_out <= qk.DW_OUTPUTS:
+        assert bh == h_out
+    elif bh > 1:
+        assert bh * w_out % 8 == 0 and bh * w_out <= qk.DW_OUTPUTS
+    assert cg == 1 or n * -(-c // cg) * -(-h_out // bh) >= qk.DW_BLOCKS
+    assert qk.dw_smem(cg, bh, k=k, stride=stride, w=w, pad=pad) <= qk.DW_SMEM
+    assert qk.dw_smem(cg, bh, k=k, stride=stride, w=w, pad=pad) >= (
+        cg * ((bh - 1) * stride + k) * (w + 2 * pad) + cg * k * k + 8 * cg)
 
 
 @pytest.mark.parametrize("scale", ["dynamic", "static"])
