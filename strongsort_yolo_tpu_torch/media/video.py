@@ -5,7 +5,10 @@ sources (any numeric string), an mp4v writer at a fixed 15 fps by
 default (the reference's ``yolo_multi_model.py:252-260``), and the
 synthetic sources (moving rectangles with known ground-truth tracks, and
 the occlusion-relay benchmark clip of the sequence-quality rows),
-kept as they are, frame for frame.
+kept as they are, frame for frame; and the frames of the JAX package's
+quality bars, its tests' own (the occlusion bounce of
+tests/test_reid_quality.py, the ellipse and the dots of
+tests/test_trained_seg_pose.py), frame for frame.
 
 ``VideoReader`` and ``VideoWriter`` are OpenCV's and import ``cv2`` when
 built; where it is missing they raise an ``ImportError`` that names the
@@ -180,6 +183,111 @@ class SyntheticDetSource:
                 shade = int((0.5 + 0.16 * cls) * 255)
                 frame[int(y1) : int(y2), int(x1) : int(x2)] = shade
             yield frame
+
+
+class BounceClip:
+    """The occlusion-bounce clip of the JAX package's
+    tests/test_reid_quality.py, frame for frame: two gradient-shaded
+    squares (id 1 bright at the bottom, id 2 bright at the top) slide
+    towards a static wall (id 3), vanish behind it on the same frame
+    (once ``HIDE_PX`` of a square overlaps it), bounce while hidden and
+    re-emerge on their own sides on the same frame, 29 frames later. Their
+    speeds differ (2.3 and -2.7 px a frame), so the coasted predictions
+    cross and motion alone prefers the swapped pairing: appearance has to
+    keep the ids. Truth holds a square only while it is drawn. The noise
+    background comes from one generator made with the clip, so a second
+    pass over the clip draws other noise, as the original does."""
+
+    WALL = (116.0, 108.0, 204.0, 196.0)
+    HIDE_PX = 16.0
+
+    def __init__(self, num_frames: int = 64, size=(320, 320), seed: int = 5):
+        self.num_frames = num_frames
+        self.h, self.w = size
+        self._bg = np.random.default_rng(seed)
+        self.box = 64.0
+        self.y = {1: 120.0, 2: 126.0}
+        self.grad = {1: (0.4, 0.9), 2: (0.9, 0.4)}  # top -> bottom shade
+        # both cross the hide threshold at t=16 and re-emerge at t=45
+        self.v = {1: 2.3, 2: -2.7}
+        self.x0 = {1: 68.0 - 16 * 2.3, 2: 188.0 + 16 * 2.7}
+        self.t_bounce = 30  # both fully hidden by the wall here
+
+    def _x(self, tid: int, t: int) -> float:
+        tb, v = self.t_bounce, self.v[tid]
+        return self.x0[tid] + (v * t if t <= tb else v * (2 * tb - t))
+
+    def _hidden(self, tid: int, t: int) -> bool:
+        x1 = self._x(tid, t)
+        wx1, _, wx2, _ = self.WALL
+        overlap = min(x1 + self.box, wx2) - max(x1, wx1)
+        return overlap >= self.HIDE_PX
+
+    def truth(self, t: int):
+        """[(tid, x1, y1, x2, y2)]: the drawn squares and the wall."""
+        rows = [(tid, self._x(tid, t), self.y[tid],
+                 self._x(tid, t) + self.box, self.y[tid] + self.box)
+                for tid in (1, 2) if not self._hidden(tid, t)]
+        rows.append((3, *self.WALL))
+        return rows
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        b = int(self.box)
+        for t in range(self.num_frames):
+            frame = (self._bg.uniform(0, 0.3, (self.h, self.w, 3)) * 255
+                     ).astype(np.uint8)
+            for tid in (1, 2):
+                if self._hidden(tid, t):
+                    continue
+                x1, y1 = int(self._x(tid, t)), int(self.y[tid])
+                lo, hi = self.grad[tid]
+                g = (np.linspace(lo, hi, b)[:, None, None] * 255)
+                frame[y1:y1 + b, x1:x1 + b] = g.astype(np.uint8)
+            wx1, wy1, wx2, wy2 = (int(v) for v in self.WALL)
+            frame[wy1:wy2, wx1:wx2] = int(0.66 * 255)  # the wall on top
+            yield frame
+
+
+def ellipse_frame(size: int = 320):
+    """The frame of the trained segment model's bar (the JAX package's
+    tests/test_trained_seg_pose.py): one ellipse of the class-1 shade on
+    noise. -> (frame (size, size, 3) uint8, the ellipse's (size, size)
+    bool mask, its box (x1, y1, x2, y2))."""
+    rng = np.random.default_rng(3)
+    frame = (rng.uniform(0, 0.3, (size, size, 3)) * 255).astype(np.uint8)
+    cx, cy, rw, rh = 170.0, 150.0, 52.0, 38.0
+    yy, xx = np.mgrid[0:size, 0:size]
+    ell = ((xx - cx) / rw) ** 2 + ((yy - cy) / rh) ** 2 <= 1.0
+    frame[ell] = int((0.5 + 0.16 * 1) * 255)
+    return frame, ell, (cx - rw, cy - rh, cx + rw, cy + rh)
+
+
+def dots_frame():
+    """The frame of the trained pose models' bar (the JAX package's
+    tests/test_trained_seg_pose.py): a box of the class-0 shade on noise
+    with five 15-px dots, dot k in the BGR mirror of keypoint k's
+    training color, at least 18 px apart. -> (frame (320, 320, 3) uint8,
+    the dots' centres (5, 2) in frame px)."""
+    from strongsort_yolo_tpu_torch.tools.train import POSE_KPT_COLORS
+
+    rng = np.random.default_rng(11)
+    size = 320
+    frame = (rng.uniform(0, 0.3, (size, size, 3)) * 255).astype(np.uint8)
+    x1, y1, w, h = 90.0, 70.0, 120.0, 100.0
+    frame[int(y1):int(y1 + h), int(x1):int(x1 + w)] = int(0.5 * 255)
+    gt = []
+    for k in range(5):
+        while True:  # keep the dots from covering each other
+            kx = x1 + rng.uniform(0.15, 0.85) * w
+            ky = y1 + rng.uniform(0.15, 0.85) * h
+            if not gt or min(max(abs(px - kx), abs(py - ky))
+                             for px, py in gt) > 18:
+                break
+        iy, ix = int(ky), int(kx)
+        frame[iy - 7:iy + 8, ix - 7:ix + 8] = (
+            POSE_KPT_COLORS[k][::-1] * 255).astype(np.uint8)
+        gt.append((kx, ky))
+    return frame, np.asarray(gt)
 
 
 class OcclusionRelayClip:

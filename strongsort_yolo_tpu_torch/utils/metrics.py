@@ -5,6 +5,11 @@ host, the same numbers on the same inputs. Input format is
 frame-indexed lists of (id, x1, y1, x2, y2) for ground truth and
 hypotheses, as ``utils/labels.py`` files (``load_mot_labels``) or a
 synthetic source's ``truth()`` give them.
+
+Also the measures of the quality bars the trained checkpoints are held
+to, on the frames of ``media/video`` (a clip's MOT metrics through
+``Pipeline.track``, the segment mask against the ellipse, the keypoints
+against the dots), so that the tests and the card's run read one copy.
 """
 
 from __future__ import annotations
@@ -113,6 +118,65 @@ def evaluate_mot(gt_frames, hyp_frames, iou_thresh: float = 0.5) -> dict:
         "precision": precision,
         "recall": recall,
     }
+
+
+def track_clip(pipe, clip) -> dict:
+    """:func:`evaluate_mot` of ``pipe.track`` over every frame of ``clip``
+    (an iterable of BGR frames with ``truth(t)``, as the synthetic
+    sources give it)."""
+    gt, hyp = [], []
+    for t, frame in enumerate(clip):
+        r = pipe.track(frame)
+        gt.append([tuple(g) for g in clip.truth(t)])
+        hyp.append([(int(r.boxes.id[i]), *r.boxes.xyxy[i])
+                    for i in range(len(r.boxes))])
+    return evaluate_mot(gt, hyp)
+
+
+def _mask_iou(a: np.ndarray, b: np.ndarray) -> float:
+    return float((a & b).sum() / max((a | b).sum(), 1))
+
+
+def seg_bar(r, ell: np.ndarray, box) -> dict:
+    """The segment bar's measures of ``r`` (Results of the ellipse frame,
+    ``media/video.ellipse_frame``: its (H, W) bool mask ``ell`` and box):
+    the top-scoring row's polygon, filled, against the ellipse and
+    against the box. -> {"rows", "points" (the polygon's), "iou_ell",
+    "iou_box", "box_err" (the row's x1 and y2 off the box's, the larger,
+    px)}; with no row, only "rows"."""
+    import cv2
+
+    if len(r.boxes) == 0:
+        return {"rows": 0}
+    best = int(np.argmax(r.boxes.conf))
+    x1, _, _, y2 = r.boxes.xyxy[best]
+    poly = np.asarray(r.masks.xy[best], np.int32)
+    pred = np.zeros(ell.shape, np.uint8)
+    if len(poly) >= 3:
+        cv2.fillPoly(pred, [poly], 1)
+    pred = pred.astype(bool)
+    box_mask = np.zeros_like(pred)
+    bx = [int(v) for v in box]
+    box_mask[bx[1]:bx[3], bx[0]:bx[2]] = True
+    return {"rows": len(r.boxes), "points": len(poly),
+            "iou_ell": _mask_iou(pred, ell), "iou_box": _mask_iou(pred, box_mask),
+            "box_err": float(max(abs(x1 - box[0]), abs(y2 - box[3])))}
+
+
+def pose_bar(r, gt: np.ndarray) -> dict:
+    """The pose bar's measures of ``r`` (Results of the dots frame,
+    ``media/video.dots_frame``, whose dot k is at ``gt[k]``): the
+    top-scoring row's keypoints. -> {"rows", "shape" (of its keypoints'
+    xy), "err" (mean distance of keypoint k to dot k, px), "conf" (mean
+    keypoint confidence)}; with no row, only "rows"."""
+    if len(r.boxes) == 0:
+        return {"rows": 0}
+    best = int(np.argmax(r.boxes.conf))
+    kxy = np.asarray(r.keypoints.xy[best])
+    return {"rows": len(r.boxes), "shape": kxy.shape,
+            "err": float(np.linalg.norm(kxy - gt, axis=-1).mean())
+            if kxy.shape == gt.shape else float("inf"),
+            "conf": float(np.asarray(r.keypoints.conf[best]).mean())}
 
 
 def load_mot_labels(path: str) -> list[list[tuple]]:

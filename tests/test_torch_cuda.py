@@ -1365,6 +1365,17 @@ S8_CASES = [
     (2, 512, 20, 20, 256, 1, 1, 1, True),
     (8, 128, 20, 20, 128, 3, 1, 128, False),  # the pe conv at S=8
     (1, 16, 96, 96, 16, 5, 2, 16, True),  # depthwise cut into bands
+    # yolov7's classes (its planes at 640 are 160, 80, 40 and 20 square;
+    # here cut to 20 x 12 up to 160 x 96, whose 64-pixel tiles do not
+    # all fill), S=8 where the main path's conv is small: 1x1 with C_in
+    # 1024 and 2048 (SPPCSPC), 3x3 512 -> 1024 (K = 4608), C_out 1024,
+    # the widest plane, and a 3x3 stride-2 conv on an odd plane
+    (8, 1024, 20, 12, 512, 1, 1, 1, True),
+    (8, 2048, 20, 12, 512, 1, 1, 1, True),
+    (8, 512, 20, 12, 1024, 3, 1, 1, True),
+    (2, 1024, 40, 24, 1024, 1, 1, 1, True),
+    (2, 64, 160, 96, 64, 3, 1, 1, True),
+    (2, 256, 41, 39, 256, 3, 2, 1, True),
 ]
 
 

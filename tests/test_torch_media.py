@@ -1,5 +1,6 @@
 """The port's media and utility copies against the JAX package's modules on
-the same inputs: the synthetic sources, the label writer, the counters,
+the same inputs: the synthetic sources and the frames of the quality
+bars (against the JAX tests' own), the label writer, the counters,
 the trajectory memory, the stage timers, the event log, the cv2 and
 native annotators (pixels), the libav decoder and encoder bindings; and
 the port's own pieces: the checkpoint (torch.save of one stream's state,
@@ -7,6 +8,7 @@ resumed into a row of a batch), the media probe, the loaders' error
 text, and what the media layer does without cv2.
 """
 
+import ast
 import json
 import os
 import sys
@@ -68,6 +70,57 @@ def test_synthetic_sources_equal_jax(kind):
             np.testing.assert_array_equal(fb, fa)
         for t in range(kw["num_frames"]):
             assert b.truth(t) == a.truth(t)
+
+
+def test_bounce_clip_equals_the_jax_test_clip():
+    """The port's copy of the occlusion bounce against the JAX package's
+    tests/test_reid_quality.BounceClip: frames and truth, two passes
+    (the noise generator runs on)."""
+    sys.path.insert(0, os.path.dirname(__file__))
+    from test_reid_quality import BounceClip
+
+    for kw in ({}, dict(num_frames=12, size=(240, 320), seed=2)):
+        a, b = BounceClip(**kw), video.BounceClip(**kw)
+        for _ in range(2):
+            for fa, fb in zip(a, b, strict=True):
+                np.testing.assert_array_equal(fb, fa)
+        for t in range(a.num_frames):
+            assert b.truth(t) == a.truth(t)
+
+
+def _jax_test_dots_frame():
+    """The frame and dot centres that the JAX package's
+    tests/test_trained_seg_pose.py::test_trained_pose_finds_drawn_dots
+    draws inline: the statements of its body between the Pipeline it
+    builds and its predict call, run as they stand in that file."""
+    path = os.path.join(os.path.dirname(__file__), "test_trained_seg_pose.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    body = next(n for n in tree.body if isinstance(n, ast.FunctionDef)
+                and n.name == "test_trained_pose_finds_drawn_dots").body
+    start = next(i for i, st in enumerate(body)
+                 if "Pipeline(" in ast.unparse(st)) + 1
+    stop = next(i for i, st in enumerate(body)
+                if "pipe.predict" in ast.unparse(st))
+    ns = {"np": np, "os": os, "__file__": path}
+    exec(compile(ast.Module(body[start:stop], type_ignores=[]), path, "exec"),
+         ns)
+    return ns["frame"], ns["gt"]
+
+
+def test_seg_pose_bar_frames_equal_the_jax_tests():
+    """The port's ellipse and dots frames against the JAX package's
+    tests/test_trained_seg_pose.py: the ellipse's frame, mask and box, the
+    dots' frame and centres."""
+    sys.path.insert(0, os.path.dirname(__file__))
+    from test_trained_seg_pose import _ellipse_frame
+
+    for size in (320, 256):
+        for a, b in zip(_ellipse_frame(size), video.ellipse_frame(size),
+                        strict=True):
+            np.testing.assert_array_equal(np.asarray(b), np.asarray(a))
+    for a, b in zip(_jax_test_dots_frame(), video.dots_frame(), strict=True):
+        np.testing.assert_array_equal(b, a)
 
 
 @pytest.mark.parametrize("compat", [False, True])

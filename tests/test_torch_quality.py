@@ -23,6 +23,7 @@ import torch
 from strongsort_yolo_tpu_torch.config import DetectorConfig, load_tracker_config
 from strongsort_yolo_tpu_torch.data.mot import MotSequence, evaluate_sequence
 from strongsort_yolo_tpu_torch.media.video import (
+    BounceClip,
     OcclusionRelayClip,
     SyntheticDetSource,
 )
@@ -31,8 +32,7 @@ from strongsort_yolo_tpu_torch.tools.eval_sequence import eval_pp, run_arm
 from strongsort_yolo_tpu_torch.track.bytetrack import bytetrack_step
 from strongsort_yolo_tpu_torch.track.state import init_track_state
 from strongsort_yolo_tpu_torch.track.strongsort import StrongSortConfig
-from strongsort_yolo_tpu_torch.utils.metrics import evaluate_mot
-from test_reid_quality import BounceClip
+from strongsort_yolo_tpu_torch.utils.metrics import track_clip
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "MOT-synth01")
@@ -85,13 +85,7 @@ def test_trained_model_tracks_real_signal():
     )
     src = SyntheticDetSource(num_frames=30, size=(320, 320), num_objects=3,
                              seed=1)
-    gt, hyp = [], []
-    for t, frame in enumerate(src):
-        r = pipe.track(frame)
-        gt.append([tuple(g) for g in src.truth(t)])
-        hyp.append([(int(r.boxes.id[i]), *r.boxes.xyxy[i])
-                    for i in range(len(r.boxes))])
-    m = evaluate_mot(gt, hyp)
+    m = track_clip(pipe, src)
     assert m["mota"] > 0.8, m
     assert m["idf1"] > 0.8, m
     assert m["idsw"] == 0, m
@@ -110,14 +104,7 @@ def test_reid_recovery_with_trained_embedder():
         track_slots=16, tracker_max_dets=16, reid_weights=OSNET,
         device="cpu",
     )
-    clip = BounceClip()
-    gt, hyp = [], []
-    for t, frame in enumerate(clip):
-        r = pipe.track(frame)
-        gt.append([tuple(g) for g in clip.truth(t)])
-        hyp.append([(int(r.boxes.id[i]), *r.boxes.xyxy[i])
-                    for i in range(len(r.boxes))])
-    m = evaluate_mot(gt, hyp)
+    m = track_clip(pipe, BounceClip())
     assert m["idf1"] > 0.73, m
     assert m["idsw"] <= 3, m
 
@@ -138,14 +125,7 @@ def test_panning_relay_with_flow_gmc():
         track_slots=16, tracker_max_dets=16, reid_weights=OSNET,
         device="cpu",
     )
-    clip = OcclusionRelayClip(cycles=1, pan_amp=10)
-    gt, hyp = [], []
-    for t, frame in enumerate(clip):
-        r = pipe.track(frame)
-        gt.append([tuple(g) for g in clip.truth(t)])
-        hyp.append([(int(r.boxes.id[i]), *r.boxes.xyxy[i])
-                    for i in range(len(r.boxes))])
-    m = evaluate_mot(gt, hyp)
+    m = track_clip(pipe, OcclusionRelayClip(cycles=1, pan_amp=10))
     # between the JAX package's gmc-none and flow_tpu numbers: the bar
     # holds only with the camera motion compensated
     assert m["mota"] >= 0.715, m

@@ -40,7 +40,8 @@ from strongsort_yolo_tpu_torch.ops.cuda import quant_kernel as qk
 
 # (n, c_in, h, w, c_out, k, stride): tests/test_torch_cuda.py's S8_CASES
 # (groups 1) at small planes, one conv of each yolov8n class at 640 with
-# its plane cut to 20 x 20 or less, and the ragged edges
+# its plane cut to 20 x 20 or less, the ragged edges, and the classes of
+# yolov7 that yolov8n lacks
 GEMM_CASES = [
     (2, 16, 12, 12, 32, 1, 1),     # C_in 16 padded to 32
     (2, 64, 10, 10, 64, 3, 1),
@@ -56,6 +57,11 @@ GEMM_CASES = [
     (2, 96, 20, 20, 64, 1, 1),     # 1x1, C_in 96
     (3, 128, 20, 20, 256, 1, 1),   # tiles across three images, N split
     (1, 32, 21, 21, 64, 3, 2),     # stride 2 on an odd plane
+    # yolov7's wide classes, planes cut, M tiles ragged
+    (2, 1024, 5, 7, 512, 1, 1),    # 1x1 C_in 1024, 70 pixels
+    (1, 2048, 5, 3, 512, 1, 1),    # 1x1 C_in 2048 (SPPCSPC)
+    (1, 512, 5, 3, 1024, 3, 1),    # 3x3 512 -> 1024: K = 4608, C_out 1024
+    (2, 256, 11, 9, 256, 3, 2),    # 3x3 stride 2 256 -> 256, odd plane
 ]
 
 

@@ -20,11 +20,12 @@ import torch
 
 from strongsort_yolo_tpu.config import DetectorConfig as JDetectorConfig
 from strongsort_yolo_tpu.pipeline import Pipeline as JPipeline
-from strongsort_yolo_tpu.tools.train import POSE_KPT_COLORS
 from strongsort_yolo_tpu_torch.config import DetectorConfig
+from strongsort_yolo_tpu_torch.media.video import dots_frame, ellipse_frame
 from strongsort_yolo_tpu_torch.ops import keypoints as tkp
 from strongsort_yolo_tpu_torch.ops import masks as tmasks
 from strongsort_yolo_tpu_torch.pipeline import Pipeline
+from strongsort_yolo_tpu_torch.utils.metrics import pose_bar, seg_bar
 
 jkp = importlib.import_module("strongsort_yolo_tpu.ops.keypoints")
 jmasks = importlib.import_module("strongsort_yolo_tpu.ops.masks")
@@ -172,80 +173,32 @@ def assert_same_results(want, got, what=""):
             np.testing.assert_array_equal(a, b, err_msg=what)
 
 
-def _ellipse_frame(size=320):
-    """tests/test_trained_seg_pose.py's ellipse on noise."""
-    rng = np.random.default_rng(3)
-    frame = (rng.uniform(0, 0.3, (size, size, 3)) * 255).astype(np.uint8)
-    cx, cy, rw, rh = 170.0, 150.0, 52.0, 38.0
-    yy, xx = np.mgrid[0:size, 0:size]
-    ell = ((xx - cx) / rw) ** 2 + ((yy - cy) / rh) ** 2 <= 1.0
-    frame[ell] = int((0.5 + 0.16 * 1) * 255)
-    return frame, ell, (cx - rw, cy - rh, cx + rw, cy + rh)
-
-
-def _dots_frame():
-    """tests/test_trained_seg_pose.py's box with five coloured dots."""
-    rng = np.random.default_rng(11)
-    size = 320
-    frame = (rng.uniform(0, 0.3, (size, size, 3)) * 255).astype(np.uint8)
-    x1, y1, w, h = 90.0, 70.0, 120.0, 100.0
-    frame[int(y1):int(y1 + h), int(x1):int(x1 + w)] = int(0.5 * 255)
-    gt = []
-    for k in range(5):
-        while True:
-            kx = x1 + rng.uniform(0.15, 0.85) * w
-            ky = y1 + rng.uniform(0.15, 0.85) * h
-            if not gt or min(max(abs(px - kx), abs(py - ky))
-                             for px, py in gt) > 18:
-                break
-        iy, ix = int(ky), int(kx)
-        frame[iy - 7:iy + 8, ix - 7:ix + 8] = (
-            POSE_KPT_COLORS[k][::-1] * 255).astype(np.uint8)
-        gt.append((kx, ky))
-    return frame, np.asarray(gt)
-
-
 def test_trained_seg_mask_is_the_ellipse_not_the_box():
     """The bar of test_trained_seg_pose.py, through the port, and the same
     result as the JAX Pipeline.predict."""
     jpipe, pipe = _pipes(SEG)
-    frame, ell, box = _ellipse_frame()
+    frame, ell, box = ellipse_frame()
     r = pipe.predict(frame)
     assert_same_results(jpipe.predict(frame), r, "seg predict")
-    assert len(r.boxes) >= 1
-    best = int(np.argmax(r.boxes.conf))
-    x1, y1, x2, y2 = r.boxes.xyxy[best]
-    assert abs(x1 - box[0]) < 16 and abs(y2 - box[3]) < 16
-    poly = np.asarray(r.masks.xy[best], np.int32)
-    assert len(poly) >= 3
-    pred = np.zeros(frame.shape[:2], np.uint8)
-    cv2.fillPoly(pred, [poly], 1)
-    pred = pred.astype(bool)
-    box_mask = np.zeros_like(pred)
-    bx = [int(v) for v in box]
-    box_mask[bx[1]:bx[3], bx[0]:bx[2]] = True
-
-    def iou(a, b):
-        return (a & b).sum() / max((a | b).sum(), 1)
-
-    iou_ell, iou_box = iou(pred, ell), iou(pred, box_mask)
-    assert iou_ell > 0.75, (iou_ell, iou_box)
-    assert iou_ell > iou_box, (iou_ell, iou_box)
+    m = seg_bar(r, ell, box)
+    assert m["rows"] >= 1
+    assert m["box_err"] < 16, m
+    assert m["points"] >= 3, m
+    assert m["iou_ell"] > 0.75, m
+    assert m["iou_ell"] > m["iou_box"], m
 
 
 @pytest.mark.parametrize("ckpt", [POSE, POSE11], ids=["yolov8n-pose", "yolo11n-pose"])
 def test_trained_pose_finds_drawn_dots(ckpt):
     jpipe, pipe = _pipes(ckpt)
-    frame, gt = _dots_frame()
+    frame, gt = dots_frame()
     r = pipe.predict(frame)
     assert_same_results(jpipe.predict(frame), r, "pose predict")
-    assert len(r.boxes) >= 1
-    best = int(np.argmax(r.boxes.conf))
-    kxy, kconf = r.keypoints.xy[best], r.keypoints.conf[best]
-    assert kxy.shape == (5, 2)
-    err = np.linalg.norm(kxy - gt, axis=-1)
-    assert float(err.mean()) < 10.0, err
-    assert float(kconf.mean()) > 0.5, kconf
+    m = pose_bar(r, gt)
+    assert m["rows"] >= 1
+    assert m["shape"] == (5, 2), m
+    assert m["err"] < 10.0, m
+    assert m["conf"] > 0.5, m
     masked = r.keypoints.xy_masked
     assert masked.shape == r.keypoints.xy.shape
     assert len(list(r.keypoints)) == len(r.boxes)
