@@ -43,6 +43,19 @@ task extras gathered after their own tick only. A tick synchronises no
 stream; its one host wait is a ReID tracker's read of the detection
 counts (:meth:`Pipeline.embed`).
 
+A tick's host work is recorded in ``Pipeline.spans``
+(``utils/profiling.StageTimers``), one span per layer, named
+``ssyt.<layer>[.<part>]``: ``ssyt.tick`` around
+:meth:`BatchedPipeline.step_async`, inside it ``ssyt.ring.wait`` and
+``ssyt.ring.fill`` (the frame ring's slot), ``ssyt.gmc``,
+``ssyt.detect.letterbox``, ``ssyt.detect.model``, ``ssyt.detect.nms``,
+``ssyt.embed.start``, ``ssyt.embed.count_wait``, ``ssyt.embed.crop``,
+``ssyt.embed.reid``, ``ssyt.track`` and ``ssyt.download``; and
+``ssyt.materialize``. Under a ``torch.profiler`` each is also a range of
+the trace, ``ssyt.tick`` and ``ssyt.materialize`` with the tick's number.
+``Pipeline.crop_slots`` and ``crop_real`` count the packed embed's slots
+and its real crops over every tick.
+
 Over a mesh (``track_batch_prepare(mesh=...)``), :class:`ShardedBatchedPipeline`
 steps each dp row's block of streams as a :class:`BatchedPipeline` on
 that row's device, in one process: every block's work up to the count
@@ -136,6 +149,7 @@ from strongsort_yolo_tpu_torch.track.strongsort import (
     strongsort_step,
 )
 from strongsort_yolo_tpu_torch.utils.coco_names import COCO_NAMES
+from strongsort_yolo_tpu_torch.utils.profiling import StageTimers
 from strongsort_yolo_tpu_torch.utils.transfer import (
     Copies,
     Download,
@@ -248,16 +262,20 @@ class TickHandle:
     :meth:`BatchedPipeline.step_async`): its packed track outputs on their
     way to pinned host memory, fenced by one event, and the task extras
     still on the device until the first ``materialize`` copies the track
-    rows' share of them (kept for later calls)."""
+    rows' share of them (kept for later calls). ``tick``: the
+    :class:`BatchedPipeline` tick's number (None for a single stream)."""
 
-    __slots__ = ("packed", "extras", "src_hw", "orig_imgs", "host_extras")
+    __slots__ = ("packed", "extras", "src_hw", "orig_imgs", "host_extras",
+                 "tick")
 
-    def __init__(self, packed: Download, extras: dict, src_hw, orig_imgs=None):
+    def __init__(self, packed: Download, extras: dict, src_hw, orig_imgs=None,
+                 tick: int | None = None):
         self.packed = packed
         self.extras = extras
         self.src_hw = tuple(src_hw)
         self.orig_imgs = orig_imgs
         self.host_extras: list[dict] | None = None
+        self.tick = tick
 
     def query(self) -> bool:
         """Whether the tick's outputs have reached the host (never blocks)."""
@@ -449,11 +467,16 @@ class Pipeline:
             mask[list(det_cfg.classes)] = True
             self._class_filter = mask.to(self.device)
         self._geoms: dict[tuple[int, int], _Geometry] = {}
-        self._copies = Copies(self.device)
+        # the ticks' host spans (the module's docstring names them)
+        self.spans = StageTimers()
+        self._copies = Copies(self.device, self.spans)
         self._dummy_box = torch.tensor(_DUMMY_BOX, device=self.device)
         # the ReID count read, the tick's one host wait: how many, how long
         self.count_waits = 0
         self.count_wait_ms = 0.0
+        # the packed embed's slots (padded G) and real crops, summed
+        self.crop_slots = 0
+        self.crop_real = 0
         self.track_state = self.init_states(1)
 
     def _quantize(self, model, conv_kernel: bool) -> None:
@@ -501,9 +524,11 @@ class Pipeline:
             if self._class_filter is not None:
                 twin._class_filter = self._class_filter.to(device)
             twin._geoms = {}
-            twin._copies = Copies(device)
+            twin.spans = StageTimers()
+            twin._copies = Copies(device, twin.spans)
             twin._dummy_box = self._dummy_box.to(device)
             twin.count_waits, twin.count_wait_ms = 0, 0.0
+            twin.crop_slots = twin.crop_real = 0
             twin.track_state = twin.init_states(1)
         return twin
 
@@ -537,21 +562,27 @@ class Pipeline:
         cfg, det_cfg = self.model_cfg, self.det_cfg
         geo = self._geometry(frames.shape[1:3])
         size = det_cfg.imgsz
-        img = letterbox_u8(frames, geo.lp, dtype=self.compute_dtype, taps=geo.taps)
-        out = self.model(img)
+        with self.spans.stage("ssyt.detect.letterbox"):
+            img = letterbox_u8(frames, geo.lp, dtype=self.compute_dtype,
+                               taps=geo.taps)
+        with self.spans.stage("ssyt.detect.model"):
+            out = self.model(img)
         nms = dict(conf_thres=det_cfg.conf, iou_thres=det_cfg.iou,
                    max_det=det_cfg.max_det, agnostic=det_cfg.agnostic_nms,
                    class_filter=self._class_filter)
-        if "boxes" in out:  # anchor-based v5 / v7: decoded by the head
-            det = non_max_suppression(out["boxes"], out["scores"], **nms)
-        else:
-            det = nms_from_logits(
-                out["box_logits"], out["cls_logits"],
-                feat_dims=feat_hw((size, size), cfg.strides),
-                level_strides=cfg.strides, reg_max=cfg.reg_max, **nms)
         lp = geo.lp
-        boxes = scale_boxes(det.boxes, lp.gain, (lp.pad_x, lp.pad_y), geo.src_hw)
-        det = det._replace(boxes=torch.where(det.valid[..., None], boxes, 0.0))
+        with self.spans.stage("ssyt.detect.nms"):  # and the rescale
+            if "boxes" in out:  # anchor-based v5 / v7: decoded by the head
+                det = non_max_suppression(out["boxes"], out["scores"], **nms)
+            else:
+                det = nms_from_logits(
+                    out["box_logits"], out["cls_logits"],
+                    feat_dims=feat_hw((size, size), cfg.strides),
+                    level_strides=cfg.strides, reg_max=cfg.reg_max, **nms)
+            boxes = scale_boxes(det.boxes, lp.gain, (lp.pad_x, lp.pad_y),
+                                geo.src_hw)
+            det = det._replace(boxes=torch.where(det.valid[..., None], boxes,
+                                                 0.0))
         extras = {}
         k = min(extras_k, det_cfg.max_det)
         if k == 0 or cfg.task == "detect":
@@ -619,9 +650,10 @@ class Pipeline:
         """The tick's one host wait: the (S,) detection counts that size
         the crop batch. Counted and timed (``count_waits``,
         ``count_wait_ms``)."""
-        t0 = time.perf_counter()
-        counts = read.wait()
-        self.count_wait_ms += (time.perf_counter() - t0) * 1e3
+        with self.spans.stage("ssyt.embed.count_wait"):
+            t0 = time.perf_counter()
+            counts = read.wait()
+            self.count_wait_ms += (time.perf_counter() - t0) * 1e3
         self.count_waits += 1
         return counts
 
@@ -646,24 +678,31 @@ class Pipeline:
         and the pyramid, queued without a wait (None without ReID)."""
         if self.reid is None:
             return None
-        read = Download(det.count)
-        return read, self.pyramid(frames)
+        with self.spans.stage("ssyt.embed.start"):
+            read = Download(det.count)
+            return read, self.pyramid(frames)
 
     @torch.no_grad()
     def embed_finish(self, started, det: Detections,
                      mask: np.ndarray | None = None) -> torch.Tensor | None:
         """The second half of :meth:`embed`: wait for the counts, then
-        crop and embed."""
+        crop and embed; the slots and real crops are added to
+        ``crop_slots`` and ``crop_real``."""
         if started is None:
             return None
         read, pyr = started
-        s, t = det.count.shape[0], self.tracker_max_dets
-        feats = torch.zeros((s, t, self.feat_dim), dtype=torch.float32,
-                            device=self.device)
-        slots = self.embed_slots(self._wait_counts(read), mask)
-        real = slots[2].astype(bool)
-        if real.any():
+        counts = self._wait_counts(read)
+        with self.spans.stage("ssyt.embed.crop"):
+            s, t = det.count.shape[0], self.tracker_max_dets
+            feats = torch.zeros((s, t, self.feat_dim), dtype=torch.float32,
+                                device=self.device)
+            slots = self.embed_slots(counts, mask)
+            real = slots[2].astype(bool)
             g, n = slots.shape[1], int(real.sum())
+            self.crop_slots += g
+            self.crop_real += n
+            if n == 0:
+                return feats
             # the slots and the real slots' (index, frame, row): one copy
             idx = to_device(np.concatenate(
                 [slots.ravel(), np.flatnonzero(real), slots[0, real],
@@ -672,6 +711,7 @@ class Pipeline:
             crops = banded_crop(
                 pyr, *self.crop_params(pyr, det, idx[:3 * g].view(3, g)),
                 self.reid.cfg.crop_hw)  # (G, 3, 128, 64)
+        with self.spans.stage("ssyt.embed.reid"):
             feats[frame, row] = self.reid(crops)[keep]
         return feats
 
@@ -692,21 +732,23 @@ class Pipeline:
                              "warps")
         t = self.tracker_max_dets
         warp = warps if self.gmc_method != "none" else None
-        rows = (det.boxes[:, :t], det.scores[:, :t], det.classes[:, :t],
-                det.valid[:, :t])
-        if self.is_strongsort:
-            states, out = strongsort_step(
-                states, *rows, feats, self.tracker_cfg, warp=warp,
-                has_app=has_app,
+        with self.spans.stage("ssyt.track"):
+            rows = (det.boxes[:, :t], det.scores[:, :t], det.classes[:, :t],
+                    det.valid[:, :t])
+            if self.is_strongsort:
+                states, out = strongsort_step(
+                    states, *rows, feats, self.tracker_cfg, warp=warp,
+                    has_app=has_app,
+                )
+            else:
+                states, out = bytetrack_step(
+                    states, *rows, self.tracker_cfg, det_feats=feats,
+                    warp=warp
+                )
+            states = states._replace(
+                truncated_dets=states.truncated_dets
+                + det.valid[:, t:].sum(1, dtype=torch.int32)
             )
-        else:
-            states, out = bytetrack_step(
-                states, *rows, self.tracker_cfg, det_feats=feats, warp=warp
-            )
-        states = states._replace(
-            truncated_dets=states.truncated_dets
-            + det.valid[:, t:].sum(1, dtype=torch.int32)
-        )
         return states, out
 
     def _warps(self, warps, n: int) -> torch.Tensor | None:
@@ -770,22 +812,24 @@ class Pipeline:
         """Results of each frame of a tick from its packed (K, 9) track
         outputs and the task extras of its detections
         (:meth:`detect_with_extras`); waits for this tick only."""
-        packed = handle.packed.wait()
-        active = [out[:, 7] > 0.5 for out in packed]
-        if handle.host_extras is None:
-            handle.host_extras = self._extras_rows(
-                handle.extras,
-                [out[a, 8].astype(np.int64) for out, a in zip(packed, active)],
-                handle.packed.done)
-            handle.extras = None
-        orig = handle.orig_imgs
-        return [
-            self._results(
-                Boxes(out[a, :4], out[a, 5], out[a, 6], id=out[a, 4]), ex,
-                handle.src_hw, None if orig is None else orig[f])
-            for f, (out, a, ex) in enumerate(
-                zip(packed, active, handle.host_extras))
-        ]
+        with self.spans.stage("ssyt.materialize", handle.tick):
+            packed = handle.packed.wait()
+            active = [out[:, 7] > 0.5 for out in packed]
+            if handle.host_extras is None:
+                handle.host_extras = self._extras_rows(
+                    handle.extras,
+                    [out[a, 8].astype(np.int64)
+                     for out, a in zip(packed, active)],
+                    handle.packed.done)
+                handle.extras = None
+            orig = handle.orig_imgs
+            return [
+                self._results(
+                    Boxes(out[a, :4], out[a, 5], out[a, 6], id=out[a, 4]), ex,
+                    handle.src_hw, None if orig is None else orig[f])
+                for f, (out, a, ex) in enumerate(
+                    zip(packed, active, handle.host_extras))
+            ]
 
     # -- host-facing API ------------------------------------------------
 
@@ -1017,8 +1061,10 @@ class BatchedPipeline:
         """Dispatch one tick of the S streams -> its handle, without
         waiting for the device. frames (S, H, W, 3) uint8 BGR, copied
         before this returns; warps (S, 2, 3) in place of the host
-        estimators' (:meth:`compute_warps`; refused with ``flow_tpu``)."""
-        return self._finish(self._start(frames, warps))
+        estimators' (:meth:`compute_warps`; refused with ``flow_tpu``).
+        Recorded as the span ``ssyt.tick`` with the tick's number."""
+        with self.pipeline.spans.stage("ssyt.tick", self.tick):
+            return self._finish(self._start(frames, warps))
 
     def _start(self, frames: np.ndarray, warps: np.ndarray | None):
         """The first half of a tick: everything queued before the ReID
@@ -1030,27 +1076,30 @@ class BatchedPipeline:
                 f"{self.src_hw[1]}, 3), got {tuple(frames.shape)}"
             )
         if warps is None and self.gmcs is not None:
-            warps = self.compute_warps(frames)
+            with p.spans.stage("ssyt.gmc"):
+                warps = self.compute_warps(frames)
         w = p._warps(warps, self.num_streams)
         mask = has_app = grays = None
+        tick = self.tick
         if self.cadence > 1:
-            phase = self.tick % self.cadence
+            phase = tick % self.cadence
             mask, has_app = self._masks[phase], self._has_app[phase]
         self.tick += 1
         with p._copies.frames(frames, self.ring) as dev_frames:
             if self.flow:  # all S warps in one K5 launch
-                grays = frame_to_gray(dev_frames)
-                w = batched_warps(self.prev_grays, grays, self.src_hw,
-                                  self.has_prev)
+                with p.spans.stage("ssyt.gmc"):
+                    grays = frame_to_gray(dev_frames)
+                    w = batched_warps(self.prev_grays, grays, self.src_hw,
+                                      self.has_prev)
             det, extras = p.detect_with_extras(dev_frames, p.tracker_max_dets)
             started = p.embed_start(dev_frames, det)
-        return w, mask, has_app, grays, det, extras, started
+        return w, mask, has_app, grays, det, extras, started, tick
 
     def _finish(self, begun) -> TickHandle:
         """The second half of a tick (:meth:`_start`'s result): the ReID
         crops and the tracker step."""
         p = self.pipeline
-        w, mask, has_app, grays, det, extras, started = begun
+        w, mask, has_app, grays, det, extras, started, tick = begun
         feats = p.embed_finish(started, det, mask)
         self.states, out = p.associate(self.states, det, w, feats, has_app)
         if self.flow:
@@ -1058,7 +1107,9 @@ class BatchedPipeline:
             self.has_prev.fill_(True)
         self.last_warps = w
         self.last_embed_mask = mask
-        return TickHandle(Download(_pack_outputs(out)), extras, self.src_hw)
+        with p.spans.stage("ssyt.download"):
+            packed = Download(_pack_outputs(out))
+        return TickHandle(packed, extras, self.src_hw, tick=tick)
 
     def materialize(self, handle: TickHandle) -> list[Results]:
         """Wait for a :meth:`step_async` handle (that tick only) -> list of

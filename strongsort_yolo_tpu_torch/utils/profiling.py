@@ -1,20 +1,58 @@
-"""Stage timers and a device trace of the app.
+"""Stage timers: the app's and the pipeline's one span recorder.
 
-- ``StageTimers``: named per-stage wall-clock accumulators (decode,
-  dispatch, infer_track, analytics, draw, encode) with summary stats;
-  counterpart of ``strongsort_yolo_tpu/utils/profiling.StageTimers``,
-  kept as it is;
-- ``trace()``: a ``torch.profiler`` capture (CPU and CUDA activity)
-  around any span, written as a Chrome trace, where the JAX package
-  wraps ``jax.profiler``.
+``StageTimers`` accumulates the host time of named spans (the app's
+decode, dispatch, infer_track, analytics, draw, encode; the pipeline's
+``ssyt.<layer>[.<part>]`` spans of a tick) with summary stats; its
+summary and report are those of
+``strongsort_yolo_tpu/utils/profiling.StageTimers``.
+
+While a ``torch.profiler`` runs, each span is also a range in its trace,
+on the profiler's clock and with the kernels launched inside it
+correlated to it: an operator-scope record (``_RecordFunctionFast``),
+which, unlike ``record_function``'s user annotation, leaves no mirror on
+the trace's GPU row, so the device rows hold kernels and copies alone.
+A span given a tick number carries it as the keyword input ``tick``
+(recorded where the profiler records inputs, ``record_shapes=True``).
+With no profiler a span costs a flag check and two clock reads.
 """
 
 from __future__ import annotations
 
-import contextlib
-import os
 import time
 from collections import defaultdict
+
+import torch
+from torch.autograd import profiler as _autograd_profiler
+
+# PyTorch's operator-scope record; where a build lacks it, spans are timed
+# and open no range
+_Record = getattr(torch._C._profiler, "_RecordFunctionFast", None)
+
+
+class _Stage:
+    """One span of a :class:`StageTimers` (its ``stage``)."""
+
+    __slots__ = ("timers", "name", "tick", "t0", "record")
+
+    def __init__(self, timers: StageTimers, name: str, tick: int | None):
+        self.timers, self.name, self.tick = timers, name, tick
+
+    def __enter__(self):
+        self.record = None
+        if _Record is not None and _autograd_profiler._is_profiler_enabled:
+            self.record = (_Record(self.name) if self.tick is None
+                           else _Record(self.name, [], {"tick": self.tick}))
+            self.record.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter() - self.t0
+        if self.record is not None:
+            self.record.__exit__(*exc)
+        self.timers.total[self.name] += dt
+        self.timers.count[self.name] += 1
+        return False
 
 
 class StageTimers:
@@ -22,14 +60,16 @@ class StageTimers:
         self.total = defaultdict(float)
         self.count = defaultdict(int)
 
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.total[name] += time.perf_counter() - t0
-            self.count[name] += 1
+    def stage(self, name: str, tick: int | None = None) -> _Stage:
+        """A context manager: the enclosed span's host time, added to
+        ``name``'s total and count on exit; a range of that name (with
+        ``tick``) in a running profiler's trace."""
+        return _Stage(self, name, tick)
+
+    def reset(self) -> None:
+        """Forget every span so far (the recorder stays the same object)."""
+        self.total.clear()
+        self.count.clear()
 
     def summary(self) -> dict[str, dict[str, float]]:
         out = {}
@@ -50,20 +90,3 @@ class StageTimers:
             f"{name:>12}: {s['mean_ms']:8.3f} ms/it x {s['count']}"
             for name, s in rows
         )
-
-
-@contextlib.contextmanager
-def trace(log_dir: str = os.path.join("output", "torch_trace")):
-    """Capture a torch.profiler trace (CPU, and CUDA where a card is
-    present) around the enclosed span; on exit it is written to
-    ``log_dir/trace.json`` (chrome://tracing, Perfetto). Yields the
-    profiler, whose ``key_averages()`` tables the span's ops."""
-    import torch
-
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=acts) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

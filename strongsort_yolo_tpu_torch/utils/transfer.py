@@ -6,7 +6,9 @@ The JAX package has no counterpart: there asynchronous dispatch and
 CUDA stream and keeps the copies off it:
 
 - :class:`Copies` holds the two side streams of one device, ``upload``
-  for the frames and ``download`` for the task extras.
+  for the frames and ``download`` for the task extras, and the span
+  recorder its rings time their waits and fills with (``spans``, the
+  pipeline's: ``ssyt.ring.wait``, ``ssyt.ring.fill``).
 - :class:`FrameRing`: ``RING_DEPTH`` pinned host slots and device slots
   of one frame-batch shape, allocated once. :meth:`FrameRing.slot` fills
   the next host slot (PyTorch's CPU copy, spread over its intra-op
@@ -38,15 +40,19 @@ import time
 import numpy as np
 import torch
 
+from strongsort_yolo_tpu_torch.utils.profiling import StageTimers
+
 RING_DEPTH = 2  # frame batches in flight: one being copied, one computed
 
 
 class Copies:
-    """The upload and download streams of one device (None on the CPU) and
-    the frame rings made on first use of a shape."""
+    """The upload and download streams of one device (None on the CPU),
+    the frame rings made on first use of a shape, and ``spans``, the
+    recorder of the rings' spans (a new one where none is given)."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, spans: StageTimers | None = None):
         self.device = device
+        self.spans = StageTimers() if spans is None else spans
         self.cuda = device.type == "cuda"
         self.upload = torch.cuda.Stream(device) if self.cuda else None
         self.download = torch.cuda.Stream(device) if self.cuda else None
@@ -109,10 +115,13 @@ class FrameRing:
         copied, consumed = self._copied[i], self._consumed[i]
         if not copied.query():
             self.stalls += 1
-        copied.synchronize()  # the host slot's previous copy has run
-        t0 = time.perf_counter()
-        self._host[i].copy_(torch.from_numpy(frames))
-        self.fill_ms = (time.perf_counter() - t0) * 1e3
+        spans = self._copies.spans
+        with spans.stage("ssyt.ring.wait"):
+            copied.synchronize()  # the host slot's previous copy has run
+        with spans.stage("ssyt.ring.fill"):
+            t0 = time.perf_counter()
+            self._host[i].copy_(torch.from_numpy(frames))
+            self.fill_ms = (time.perf_counter() - t0) * 1e3
         upload = self._copies.upload
         upload.wait_event(consumed)  # the device slot's last reader is done
         with torch.cuda.stream(upload):

@@ -37,7 +37,7 @@ from strongsort_yolo_tpu_torch.utils.checkpoint import restore_state, save_state
 from strongsort_yolo_tpu_torch.utils.fps import FpsMeter
 from strongsort_yolo_tpu_torch.utils.labels import LabelWriter
 from strongsort_yolo_tpu_torch.utils.logging import EventLogger
-from strongsort_yolo_tpu_torch.utils.profiling import StageTimers, trace
+from strongsort_yolo_tpu_torch.utils.profiling import StageTimers
 from strongsort_yolo_tpu_torch.utils.trajectories import TrajectoryMemory
 
 NAMES = {0: "person", 1: "car", 2: "bus"}
@@ -199,13 +199,6 @@ def test_stage_timers_event_logger_fps(tmp_path, monkeypatch):
         "stream_start", "stream_end"]
     fps = FpsMeter(window=2)
     assert fps.tick() == "" and fps.tick().startswith("FPS: ")
-
-
-def test_trace_writes_a_chrome_trace(tmp_path):
-    with trace(str(tmp_path / "trace")) as prof:
-        torch.ones(8).add_(1)
-    assert prof.key_averages() is not None
-    assert os.path.getsize(tmp_path / "trace" / "trace.json") > 0
 
 
 def _draw(mod, kind, frame, f, trails_frames, counts, line):
