@@ -50,11 +50,19 @@ A tick's host work is recorded in ``Pipeline.spans``
 ``ssyt.ring.fill`` (the frame ring's slot), ``ssyt.gmc``,
 ``ssyt.detect.letterbox``, ``ssyt.detect.model``, ``ssyt.detect.nms``,
 ``ssyt.embed.start``, ``ssyt.embed.count_wait``, ``ssyt.embed.crop``,
-``ssyt.embed.reid``, ``ssyt.track`` and ``ssyt.download``; and
+``ssyt.embed.reid``, ``ssyt.track`` (inside it ``ssyt.track.capture``
+on a tracker graph's first step) and ``ssyt.download``; and
 ``ssyt.materialize``. Under a ``torch.profiler`` each is also a range of
 the trace, ``ssyt.tick`` and ``ssyt.materialize`` with the tick's number.
 ``Pipeline.crop_slots`` and ``crop_real`` count the packed embed's slots
 and its real crops over every tick.
+
+On the card the tracker step (:meth:`Pipeline.associate`, a pure
+fixed-shape step) is one CUDA graph, captured on the first step of each
+shape and replayed after it: a few copy kernels and one graph launch
+where the eager step launched hundreds of kernels, K3 among them.
+``Pipeline.track_captures``, ``track_replays`` and ``track_eager`` count
+how each step ran.
 
 Over a mesh (``track_batch_prepare(mesh=...)``), :class:`ShardedBatchedPipeline`
 steps each dp row's block of streams as a :class:`BatchedPipeline` on
@@ -75,6 +83,7 @@ import contextlib
 import copy
 import os
 import time
+import warnings
 from typing import NamedTuple
 
 import numpy as np
@@ -114,6 +123,7 @@ from strongsort_yolo_tpu_torch.ops.crops import (
     banded_prep,
     pyramid_stack,
 )
+from strongsort_yolo_tpu_torch.ops.cuda.auction_kernel import auction
 from strongsort_yolo_tpu_torch.ops.cuda.crop_kernel import banded_crop
 from strongsort_yolo_tpu_torch.ops.cuda.resize_kernel import letterbox_u8
 from strongsort_yolo_tpu_torch.ops.decode import anchors_from_indices
@@ -149,6 +159,7 @@ from strongsort_yolo_tpu_torch.track.strongsort import (
     strongsort_step,
 )
 from strongsort_yolo_tpu_torch.utils.coco_names import COCO_NAMES
+from strongsort_yolo_tpu_torch.utils.graphs import StepGraph
 from strongsort_yolo_tpu_torch.utils.profiling import StageTimers
 from strongsort_yolo_tpu_torch.utils.transfer import (
     Copies,
@@ -477,6 +488,10 @@ class Pipeline:
         # the packed embed's slots (padded G) and real crops, summed
         self.crop_slots = 0
         self.crop_real = 0
+        # the tracker step's CUDA graphs by key (None: its capture failed)
+        # and how each step ran: captured, replayed or eager
+        self._track_graphs: dict[tuple, StepGraph | None] = {}
+        self.track_captures = self.track_replays = self.track_eager = 0
         self.track_state = self.init_states(1)
 
     def _quantize(self, model, conv_kernel: bool) -> None:
@@ -529,6 +544,8 @@ class Pipeline:
             twin._dummy_box = self._dummy_box.to(device)
             twin.count_waits, twin.count_wait_ms = 0, 0.0
             twin.crop_slots = twin.crop_real = 0
+            twin._track_graphs = {}
+            twin.track_captures = twin.track_replays = twin.track_eager = 0
             twin.track_state = twin.init_states(1)
         return twin
 
@@ -726,30 +743,78 @@ class Pipeline:
         of each frame's detections (exact: rows are confidence-sorted)
         with their ReID ``feats`` (from :meth:`embed`), and the count of
         valid rows below that cut recorded. ``has_app`` (S,) bool, for
-        StrongSORT: False where a stream's features were not computed."""
+        StrongSORT: False where a stream's features were not computed.
+
+        On the card the step is a CUDA graph (``utils/graphs.StepGraph``),
+        one per key of what the step can observe: the device, the tracker
+        and its config, and the inputs' shapes, None included. The first
+        step of a key runs eagerly and is captured (the span
+        ``ssyt.track.capture``, ``track_captures``), later ones replay
+        (``track_replays``); a step on the CPU, or of a key whose capture
+        failed, runs eagerly (``track_eager``). Every tensor returned is
+        the caller's own, as eager ones are."""
         if self.gmc_method != "none" and warps is None:
             raise ValueError(f"gmc_method={self.gmc_method!r} needs (S, 2, 3) "
                              "warps")
-        t = self.tracker_max_dets
         warp = warps if self.gmc_method != "none" else None
         with self.spans.stage("ssyt.track"):
-            rows = (det.boxes[:, :t], det.scores[:, :t], det.classes[:, :t],
-                    det.valid[:, :t])
-            if self.is_strongsort:
-                states, out = strongsort_step(
-                    states, *rows, feats, self.tracker_cfg, warp=warp,
-                    has_app=has_app,
-                )
-            else:
-                states, out = bytetrack_step(
-                    states, *rows, self.tracker_cfg, det_feats=feats,
-                    warp=warp
-                )
-            states = states._replace(
-                truncated_dets=states.truncated_dets
-                + det.valid[:, t:].sum(1, dtype=torch.int32)
+            args = (*states, det.boxes, det.scores, det.classes, det.valid,
+                    warp, feats, has_app)
+            graph = None
+            if self.device.type == "cuda":
+                key = (_device_key(self.device), self.tracker_cfg,
+                       self.tracker_max_dets,
+                       tuple(None if x is None else (x.shape, x.dtype)
+                             for x in args))
+                if key not in self._track_graphs:
+                    return self._capture_track(key, args)
+                graph = self._track_graphs[key]
+            if graph is None:
+                self.track_eager += 1
+                return self._track_step(*args)
+            self.track_replays += 1
+            return graph(args)
+
+    def _capture_track(self, key, args) -> tuple[TrackState, TrackOutputs]:
+        """The first step of a key: eager, then captured for the key's
+        later steps; a capture that fails is warned of once, and the key
+        steps eagerly from then on."""
+        graph = StepGraph(self._track_step, counted=(auction,))
+        with self.spans.stage("ssyt.track.capture"):
+            out = graph.capture(args)
+        if graph.graph is None:
+            warnings.warn(f"the tracker step runs eagerly: its CUDA graph "
+                          f"capture failed ({graph.error})", RuntimeWarning,
+                          stacklevel=3)
+            self._track_graphs[key] = None
+            self.track_eager += 1
+        else:
+            self._track_graphs[key] = graph
+            self.track_captures += 1
+        return out
+
+    def _track_step(self, *args) -> tuple[TrackState, TrackOutputs]:
+        """The tracker step as a pure function of its tensors: the
+        state's fields, the detections' boxes, scores, classes and valid
+        rows, then warp, feats and has_app (each may be None)."""
+        n = len(TrackState._fields)
+        states = TrackState(*args[:n])
+        boxes, scores, classes, valid, warp, feats, has_app = args[n:]
+        t = self.tracker_max_dets
+        rows = (boxes[:, :t], scores[:, :t], classes[:, :t], valid[:, :t])
+        if self.is_strongsort:
+            states, out = strongsort_step(
+                states, *rows, feats, self.tracker_cfg, warp=warp,
+                has_app=has_app,
             )
-        return states, out
+        else:
+            states, out = bytetrack_step(
+                states, *rows, self.tracker_cfg, det_feats=feats, warp=warp
+            )
+        return states._replace(
+            truncated_dets=states.truncated_dets
+            + valid[:, t:].sum(1, dtype=torch.int32)
+        ), out
 
     def _warps(self, warps, n: int) -> torch.Tensor | None:
         if warps is None:

@@ -36,7 +36,9 @@ sums and its act=False outputs equal its plain version's bit for bit,
 and its SiLU outputs within 4 float32 ulps x max(1, |ref|) (one bf16
 unit at 1.0 in bfloat16): its expf and division against PyTorch's
 sigmoid; the pipelines compare float32 runs with TF32 off, boxes (and keypoints) within 1e-3 px, identical ids (and mask
-polygons); the offline tools: the AFLink net's logits within 1e-5 x
+polygons); the tracker step replayed as a CUDA graph runs the eager
+step's kernels on the same inputs, so every field of its state and
+outputs equals the eager step's; the offline tools: the AFLink net's logits within 1e-5 x
 max(1, |logit|) of the CPU's with the same decisions, its link costs
 within 1e-5 and the same merges, and ``eval_mot --public`` printing the
 CPU's JSON lines; training: a train step from the synth160 asset within
@@ -96,6 +98,7 @@ from strongsort_yolo_tpu_torch.ops.cuda.quant_kernel import (
 )
 from strongsort_yolo_tpu_torch.ops.cuda.resize_kernel import letterbox_u8
 from strongsort_yolo_tpu_torch.ops.letterbox import letterbox, letterbox_params
+from strongsort_yolo_tpu_torch.ops.nms import Detections
 from strongsort_yolo_tpu_torch.pipeline import BatchedPipeline, Pipeline
 from strongsort_yolo_tpu_torch.track.bytetrack import ByteTrackConfig
 from strongsort_yolo_tpu_torch.track.gmc_flow import pyramid
@@ -1161,6 +1164,191 @@ def test_v5_v7_pipeline_runs_on_the_card_by_default(dev, name):
     r = pipe.track(frame)
     assert nms_keep.launches > 0
     assert np.isfinite(r.boxes.xyxy).all()
+
+
+# -- the tracker step as a CUDA graph -------------------------------------
+
+GRAPH_T = 40
+
+
+def _graph_pipeline(dev, name):
+    """A Pipeline on the card at the benchmark cell's tracker shapes (256
+    slots, 128 tracker detections of 150, OSNet-x0_25's 512-wide
+    features): StrongSORT without GMC, or BoT-SORT with ReID and device
+    (flow_tpu) warps."""
+    if name.startswith("botsort"):
+        tracker = ByteTrackConfig(tracker_type="botsort",
+                                  gmc_method="flow_tpu", with_reid=True)
+    else:
+        tracker = StrongSortConfig(gmc_method="none")
+    return Pipeline(DetectorConfig(weights=CKPT, imgsz=160, half=False,
+                                   max_det=150),
+                    tracker=tracker, track_slots=256, tracker_max_dets=128,
+                    reid_weights="osnet_x0_25", device=dev)
+
+
+def _graph_inputs(pipe, tick, k, cadence=1):
+    """(det, warp, feats, has_app) of one synthetic tick as the pipeline
+    hands them to associate: the features of the tracker's rows, zero for
+    a stream that does not embed on this tick at ``cadence``."""
+    det, feats, warps = tick
+    feats = feats[:, :pipe.tracker_max_dets].contiguous()
+    has_app = None
+    if cadence > 1:
+        s = det.boxes.shape[0]
+        has_app = (torch.arange(s, device=feats.device) + k) % cadence == 0
+        feats = feats * has_app[:, None, None]
+    warp = warps if pipe.gmc_method != "none" else None
+    return det, warp, feats, has_app
+
+
+def _assert_step_equal(want, got, what):
+    for a, b in zip(want, got):
+        for field, x, y in zip(a._fields, a, b):
+            assert torch.equal(x, y), f"{what}: {type(a).__name__}.{field}"
+
+
+@pytest.mark.parametrize("name,streams", [
+    ("strongsort", 32), ("strongsort_cadence2", 32), ("botsort_reid_warp", 32),
+    ("strongsort", 1)])
+def test_track_graph_replay_equals_eager_step(dev, name, streams):
+    """GRAPH_T ticks of seeded synthetic detections through associate
+    (captured on tick 0, replayed after it) against the eager tracker
+    step from the same inputs: every TrackState and TrackOutputs field
+    equal; StrongSORT at S=32 with has_app None and with a cadence-2
+    mask, BoT-SORT with ReID and a device warp, and S=1 (the track_async
+    and track_chunk shape). Tracks are confirmed and rows cut."""
+    from track_ticks import make_ticks
+
+    pipe = _graph_pipeline(dev, name)
+    cadence = 2 if name.endswith("cadence2") else 1
+    got = want = pipe.init_states(streams)
+    active = 0
+    for k, tick in enumerate(make_ticks(streams + 7, streams, 150,
+                                        pipe.feat_dim, GRAPH_T, dev)):
+        det, warp, feats, has_app = _graph_inputs(pipe, tick, k, cadence)
+        step = pipe._track_step(*want, det.boxes, det.scores, det.classes,
+                                det.valid, warp, feats, has_app)
+        out = pipe.associate(got, det, warp, feats, has_app)
+        _assert_step_equal(step, out, f"{name} S={streams} tick {k}")
+        want, got = step[0], out[0]
+        active += int(out[1].active.sum())
+    assert (pipe.track_captures, pipe.track_replays, pipe.track_eager) == (
+        1, GRAPH_T - 1, 0)
+    assert pipe.spans.count["ssyt.track.capture"] == 1
+    assert active > 0 and int(got.truncated_dets.sum()) > 0
+
+
+def test_track_graph_hands_out_tensors_of_the_callers_own(dev):
+    """The ownership contract of the tracker's graph, StrongSORT at S=8:
+    states and outputs returned at tick k are unchanged after ticks k + 1
+    and k + 2; reset_stream between ticks takes effect; two
+    BatchedPipelines on one Pipeline, stepped in turn on different
+    detections (one key, one capture), equal two pipelines of their own;
+    a capture per key (S=8 and S=4), the other steps replays, and K3's
+    count moves by 2 a StrongSORT step, the capture's eager one and each
+    replay."""
+    from track_ticks import make_ticks
+
+    s = 8
+    shared, own_a, own_b = (_graph_pipeline(dev, "strongsort")
+                            for _ in range(3))
+    a, b = (BatchedPipeline(shared, s, (64, 64)) for _ in range(2))
+    ref_a = BatchedPipeline(own_a, s, (64, 64))
+    ref_b = BatchedPipeline(own_b, s, (64, 64))
+    ticks_a = make_ticks(1, s, 150, shared.feat_dim, 12, dev)
+    ticks_b = make_ticks(2, s, 150, shared.feat_dim, 12, dev)
+    held = []
+
+    def copies(step):
+        return tuple(type(x)(*(t.clone() for t in x)) for x in step)
+
+    for k in range(12):
+        if k == 6:  # the caller's own write into tick 5's states
+            for bp in (a, ref_a):
+                bp.reset_stream(3)
+            held[5] = (held[5][0], copies(held[5][0]))
+        for bp, ref, ticks in ((a, ref_a, ticks_a), (b, ref_b, ticks_b)):
+            det, warp, feats, has_app = _graph_inputs(shared, ticks[k], k)
+            launches = auction.launches
+            bp.states, out = shared.associate(bp.states, det, warp, feats)
+            # the first step's eager launches, then the replays'
+            assert auction.launches - launches == 2
+            ref.states, ref_out = ref.pipeline.associate(ref.states, det,
+                                                         warp, feats)
+            _assert_step_equal((ref.states, ref_out), (bp.states, out),
+                               f"tick {k}")
+            if bp is a:
+                held.append(((bp.states, out), copies((bp.states, out))))
+        if k >= 2:
+            kept, copy = held[k - 2]
+            _assert_step_equal(copy, kept, f"tick {k - 2} after {k}")
+    assert int(a.states.frame_id[3]) == 6 and int(a.states.frame_id[2]) == 12
+    assert (shared.track_captures, shared.track_replays,
+            shared.track_eager) == (1, 23, 0)
+    det, warp, feats, _ = _graph_inputs(shared, ticks_a[0], 0)
+    half = Detections(*(x[:4] for x in det))
+    shared.associate(shared.init_states(4), half, None, feats[:4])
+    assert (shared.track_captures, len(shared._track_graphs)) == (2, 2)
+
+
+def test_track_graph_k3_in_the_device_trace(dev):
+    """Three replays of the StrongSORT graph at S=32 under torch.profiler:
+    K3 appears in the device rows, twice a replay, and the graph's
+    kernels are there to be counted busy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from track_ticks import make_ticks
+
+    pipe = _graph_pipeline(dev, "strongsort")
+    ticks = make_ticks(3, 32, 150, pipe.feat_dim, 5, dev)
+    states = pipe.init_states(32)
+    for k in range(2):
+        det, warp, feats, _ = _graph_inputs(pipe, ticks[k], k)
+        states, _ = pipe.associate(states, det, warp, feats)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for k in range(2, 5):
+            det, warp, feats, _ = _graph_inputs(pipe, ticks[k], k)
+            states, _ = pipe.associate(states, det, warp, feats)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("auction_kernel" in n for n in names) == 6, sorted(set(names))
+    assert len(names) > 100
+    assert pipe.track_replays == 4
+
+
+def test_track_graph_capture_that_fails_steps_eagerly(dev):
+    """A step the card cannot capture (a device synchronisation inside):
+    a RuntimeWarning, the key steps eagerly from then on, counted, with
+    the eager step's results."""
+    from track_ticks import make_ticks
+
+    pipe, ref = (_graph_pipeline(dev, "strongsort") for _ in range(2))
+    real = pipe._track_step
+
+    def syncing(*args):
+        out = real(*args)
+        torch.cuda.synchronize()
+        return out
+
+    pipe._track_step = syncing
+    got = want = pipe.init_states(4)
+    for k, tick in enumerate(make_ticks(4, 4, 150, pipe.feat_dim, 3, dev)):
+        det, warp, feats, _ = _graph_inputs(pipe, tick, k)
+        if k == 0:
+            with pytest.warns(RuntimeWarning, match="eagerly"):
+                out = pipe.associate(got, det, warp, feats)
+        else:
+            out = pipe.associate(got, det, warp, feats)
+        step = ref.associate(want, det, warp, feats)
+        _assert_step_equal(step, out, f"tick {k}")
+        got, want = out[0], step[0]
+    assert (pipe.track_captures, pipe.track_replays, pipe.track_eager) == (
+        0, 0, 3)
+    assert list(pipe._track_graphs.values()) == [None]
 
 
 def test_aflink_logits_card_equal_cpu(dev):
